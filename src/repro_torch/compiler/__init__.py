@@ -1,0 +1,23 @@
+"""One-call hardware compilation: ``compile(cfg, params, target)``."""
+
+from repro_torch.compiler.cli import (
+    add_scheduler_args,
+    add_target_args,
+    scheduler_from_args,
+    target_from_args,
+)
+from repro_torch.compiler.pipeline import CompiledModel, compile, resolve_engine
+from repro_torch.compiler.target import GroupSizeError, HardwareTarget, TargetError
+
+__all__ = [
+    "CompiledModel",
+    "GroupSizeError",
+    "HardwareTarget",
+    "TargetError",
+    "add_scheduler_args",
+    "add_target_args",
+    "compile",
+    "resolve_engine",
+    "scheduler_from_args",
+    "target_from_args",
+]

@@ -1,0 +1,111 @@
+"""Shared argparse surface for hardware targets and the request scheduler
+(counterpart of ``repro/compiler/cli.py``, main-path flags).
+
+    ap = argparse.ArgumentParser()
+    add_target_args(ap)
+    add_scheduler_args(ap)
+    args = ap.parse_args()
+    compiled = compile(cfg, params, target_from_args(args))
+    se = compiled.serve(scheduler=scheduler_from_args(args))
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.compiler.target import HardwareTarget
+
+
+def add_target_args(
+    ap: argparse.ArgumentParser, *, default_engine: str = "reference"
+) -> argparse.ArgumentParser:
+    """Install the hardware-target flags on a parser."""
+    from repro_torch.core import engine as engine_lib
+
+    ap.add_argument(
+        "--engine",
+        default=default_engine,
+        # a typo fails here with the names listed; an engine of a later
+        # slice passes argparse and fails validation naming that slice
+        choices=sorted({*engine_lib.list_engines(), *engine_lib.PENDING_ENGINES}),
+        help="execution backend for binarized projections "
+        "(registered in repro_torch.core.engine)",
+    )
+    ap.add_argument(
+        "--group-size",
+        type=int,
+        default=0,
+        help="K-group width for batched decode (0 = auto from the engine's "
+        "preferred_group_size / batch)",
+    )
+    ap.add_argument(
+        "--raw-weights",
+        action="store_true",
+        help="skip the one-time programming phase and re-run the weight-side "
+        "transforms every call (baseline)",
+    )
+    return ap
+
+
+def add_scheduler_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """Install the serve-time request-scheduler flags on a parser."""
+    from repro_torch.serving.scheduler import ADMISSION_MODES, POLICIES
+
+    ap.add_argument(
+        "--sched-policy",
+        default="fifo",
+        choices=POLICIES,
+        help="waiting-queue order: fifo (priority then submission) or "
+        "deadline (earliest deadline first)",
+    )
+    ap.add_argument(
+        "--admission",
+        default="whole",
+        choices=ADMISSION_MODES,
+        help="KV-budget admission: whole commits prompt+max_new_tokens up "
+        "front; partial admits on the prompt footprint and preempts under "
+        "pressure",
+    )
+    ap.add_argument(
+        "--kv-reserve",
+        type=float,
+        default=0.0,
+        metavar="RATIO",
+        help="fraction of the KV-token budget held back from admission, in [0, 1]",
+    )
+    ap.add_argument(
+        "--max-waiting",
+        type=int,
+        default=None,
+        metavar="N",
+        help="waiting-queue depth cap; submissions beyond it are rejected "
+        "gracefully (default: unbounded)",
+    )
+    ap.add_argument(
+        "--no-preempt",
+        action="store_true",
+        help="disable budget/priority preemption",
+    )
+    return ap
+
+
+def scheduler_from_args(args: argparse.Namespace):
+    """Build (and validate) a SchedulerConfig from parsed scheduler flags."""
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    return SchedulerConfig(
+        policy=args.sched_policy,
+        admission=args.admission,
+        kv_reserve_ratio=args.kv_reserve,
+        max_waiting=args.max_waiting,
+        preempt=not args.no_preempt,
+    ).validate()
+
+
+def target_from_args(args: argparse.Namespace) -> HardwareTarget:
+    """Build (and statically validate) a HardwareTarget from parsed flags."""
+    return HardwareTarget(
+        engine=args.engine,
+        group_size=args.group_size or None,
+        prepare_weights=not args.raw_weights,
+    ).validate()

@@ -1,0 +1,284 @@
+"""Scheduler-fronted continuous-batching serving engine (counterpart of
+``repro/serving/engine.py``: the slot pool and its K-group decode).
+
+* :class:`ServingEngine` is the **slot pool executor** over a
+  :class:`repro_torch.compiler.CompiledModel`: KV caches allocated once
+  at (max_batch, max_len), requests claim a free slot, prefill writes
+  their prompt KV into it, decode advances the active slots with
+  per-slot positions, finished slots are freed and reused.
+* :class:`repro_torch.serving.scheduler.RequestScheduler` is the
+  request path in front of it (queues, KV budget, SLOs, preemption);
+  ``submit`` / ``step`` / ``drain`` / ``stream`` delegate to it.
+
+Each tick the :class:`BatchPlanner` groups the active slots into
+K-groups (ragged tails repeat a real slot) and the engine runs one
+gather -> decode -> scatter over them. The caches are preallocated
+tensors updated IN PLACE: the decode writes its new K/V rows into the
+gathered rows (or straight into the pool when every slot is active) and
+the scatter copies them back -- where the reference donates its cache
+buffers to XLA to the same end. Evicting a slot copies its exact cache
+rows out; restoring them into any free slot resumes greedy decode
+bit-identically.
+
+The invariant, as in the reference: any interleaving of submissions,
+any group size, any engine and any preemption pattern produce the same
+generations as running each request alone.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.serving.scheduler import (
+    Request,
+    RequestScheduler,
+    RequestState,
+    SchedulerConfig,
+    SchedulerStats,
+    SlotSnapshot,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingStats:
+    """One frozen snapshot of the serving engine's counters."""
+
+    ticks: int                  # gathered decode launches
+    decoded: int                # real slot-tokens decoded
+    mmm_groups: int             # K-groups issued to a registry backend
+    pad_lanes: int              # idle lanes from ragged tails
+    prefills: int
+    prefill_tokens: int         # prompt tokens prefilled
+    evictions: int              # preemption snapshots taken
+    restores: int               # snapshots restored into a slot
+    programmed: int             # projections made resident in compile()
+    program_s: float            # one-time programming wall time
+    scheduler: SchedulerStats
+    caches: dict[str, dict[str, int]]   # backend cache counters ({} on the plain path)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupPlan:
+    """One tick's unit of work: active slots arranged into K-groups."""
+
+    slots: tuple[int, ...]        # real active slots, in slot order
+    k: int                        # group size
+
+    @property
+    def n_active(self) -> int:
+        return len(self.slots)
+
+    @property
+    def n_groups(self) -> int:
+        return math.ceil(self.n_active / self.k)
+
+    @property
+    def n_lanes(self) -> int:
+        return self.n_groups * self.k
+
+    @property
+    def n_pad(self) -> int:
+        """Idle lanes in the ragged tail carrying no slot."""
+        return self.n_lanes - self.n_active
+
+    def gather_indices(self) -> np.ndarray:
+        """(n_lanes,) slot indices for the gathered decode batch; the
+        ragged tail repeats the last real slot (outputs discarded)."""
+        idx = np.empty((self.n_lanes,), np.int64)
+        idx[: self.n_active] = self.slots
+        idx[self.n_active:] = self.slots[-1]
+        return idx
+
+
+class BatchPlanner:
+    """Collects active slots into K-groups each tick: ceil(active/K)
+    groups, ragged tail padded, or ``None`` when nothing is active."""
+
+    def __init__(self, k: int):
+        if k < 1:
+            raise ValueError(f"group size must be >= 1, got {k}")
+        self.k = int(k)
+
+    def plan(self, active_slots: list[int]) -> GroupPlan | None:
+        if not active_slots:
+            return None
+        return GroupPlan(slots=tuple(sorted(active_slots)), k=self.k)
+
+
+class ServingEngine:
+    """Slot-pool executor + scheduler front over a ``CompiledModel``
+    (construct with ``compile(cfg, params, target).serve()``)."""
+
+    def __init__(
+        self,
+        compiled,
+        *,
+        max_batch: int = 4,
+        max_len: int = 256,
+        scheduler: SchedulerConfig | None = None,
+    ):
+        self.compiled = compiled
+        self.device = compiled.device
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.group_k = compiled.group_size_for(max_batch)
+        self.planner = BatchPlanner(self.group_k)
+        self._exec = compiled.executor(max_batch)
+        self._counts = {
+            "ticks": 0, "decoded": 0, "mmm_groups": 0, "pad_lanes": 0,
+            "prefills": 0, "prefill_tokens": 0, "evictions": 0, "restores": 0,
+        }
+        self.caches = compiled.init_cache(max_batch, max_len)
+        self.pos = np.zeros((max_batch,), np.int64)        # next write position
+        self.tok = np.zeros((max_batch,), np.int64)        # last emitted token
+        self._free = set(range(max_batch))
+        self.scheduler = RequestScheduler(self, scheduler)
+
+    # -- client API (delegates to the request scheduler) ---------------------
+
+    def submit(self, request: Request) -> RequestState:
+        """Enqueue a request; returns its (possibly REJECTED) state."""
+        return self.scheduler.submit(request)
+
+    def step(self) -> list[RequestState]:
+        """One scheduling tick; returns newly terminal states."""
+        return self.scheduler.step()
+
+    def drain(self, max_ticks: int = 10_000) -> list[RequestState]:
+        """Step until idle (``SchedulerExhaustedError`` on tick exhaustion)."""
+        return self.scheduler.drain(max_ticks)
+
+    def stream(self, request: Request):
+        """Submit and iterate the request's tokens as they decode."""
+        return self.scheduler.stream(request)
+
+    def stats(self) -> ServingStats:
+        backend = self._exec.cache_stats() if self._exec is not None else {}
+        return ServingStats(
+            **self._counts,
+            programmed=self.compiled.programmed,
+            program_s=self.compiled.program_s,
+            scheduler=self.scheduler.stats(),
+            caches=backend,
+        )
+
+    # -- slot-pool surface (driven by RequestScheduler) ----------------------
+
+    @property
+    def n_slots(self) -> int:
+        return self.max_batch
+
+    @property
+    def slot_capacity(self) -> int:
+        """KV rows one slot holds — the scheduler's budget unit."""
+        return self.max_len
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    def acquire_slot(self) -> int:
+        if not self._free:
+            raise RuntimeError("no free slot (scheduler admitted past the pool)")
+        slot = min(self._free)
+        self._free.remove(slot)
+        return slot
+
+    def release_slot(self, slot: int) -> None:
+        self.pos[slot] = 0
+        self.tok[slot] = 0
+        self._free.add(slot)
+
+    @torch.no_grad()
+    def prefill_into(self, slot: int, st: RequestState) -> None:
+        """Prefill the request's prompt, write its KV into the slot and
+        emit the first (argmax) token onto the state."""
+        plen = st.request.prompt_len
+        prompt = torch.as_tensor(np.asarray(st.request.prompt, np.int64))[None, :]
+        logits, pre = self.compiled.prefill(prompt)
+        for name, kv in pre.items():
+            for key, src in kv.items():
+                self.caches[name][key][:, slot, :plen] = src[:, 0]
+        st.emit(int(torch.argmax(logits[0])))
+        self._counts["prefill_tokens"] += plen
+        self.pos[slot] = plen
+        self.tok[slot] = st.generated[-1]
+        self._counts["prefills"] += 1
+
+    def slot_exhausted(self, slot: int) -> bool:
+        """True when the next decode write would run off the slot."""
+        return self.pos[slot] + 1 >= self.max_len
+
+    @torch.no_grad()
+    def evict_slot(self, slot: int) -> SlotSnapshot:
+        """Copy the slot's exact cache rows (new tensors) out of the pool
+        and free the slot."""
+        rows = {
+            name: {key: c[:, slot].clone() for key, c in kv.items()}
+            for name, kv in self.caches.items()
+        }
+        snap = SlotSnapshot(
+            pos=int(self.pos[slot]), tok=int(self.tok[slot]), rows=rows,
+            tick=self._counts["ticks"],
+        )
+        self.release_slot(slot)
+        self._counts["evictions"] += 1
+        return snap
+
+    @torch.no_grad()
+    def restore_slot(self, slot: int, snap: SlotSnapshot) -> None:
+        """Write a preemption snapshot into a (possibly different) free
+        slot. The full row is restored — the stale region beyond ``pos``
+        is masked by attention as for a reused slot."""
+        for name, kv in snap.rows.items():
+            for key, src in kv.items():
+                self.caches[name][key][:, slot] = src.to(self.device)
+        self.pos[slot] = snap.pos
+        self.tok[slot] = snap.tok
+        self._counts["restores"] += 1
+
+    def decode_tick(self, running: dict[int, RequestState]) -> None:
+        """One K-grouped decode over the running slots: plan, gather ->
+        decode -> scatter, then emit each slot's token."""
+        plan = self.planner.plan(list(running))
+        if plan is None:
+            return
+        idx = plan.gather_indices()
+        if int(self.pos[idx].max()) >= self.max_len:
+            raise RuntimeError(
+                f"decode would write past the {self.max_len}-row slot "
+                f"(positions {self.pos[idx].tolist()}); the scheduler's "
+                "slot_exhausted check must finish such requests first"
+            )
+        with torch.no_grad():
+            if plan.n_active == self.max_batch and plan.n_pad == 0:
+                # identity plan: decode straight into the pool
+                logits, _ = self.compiled.decode_step(self.tok, self.pos, self.caches)
+            else:
+                lanes = torch.as_tensor(idx, device=self.device)
+                gathered = {
+                    name: {key: c.index_select(1, lanes) for key, c in kv.items()}
+                    for name, kv in self.caches.items()
+                }
+                logits, gathered = self.compiled.decode_step(
+                    self.tok[idx], self.pos[idx], gathered
+                )
+                # pad lanes repeat a real slot and computed identical
+                # rows, so the duplicate indices write equal values
+                for name, kv in gathered.items():
+                    for key, src in kv.items():
+                        self.caches[name][key].index_copy_(1, lanes, src)
+            nxt = torch.argmax(logits[: plan.n_active], dim=-1).cpu().numpy()
+        self._counts["ticks"] += 1
+        self._counts["decoded"] += plan.n_active
+        if self._exec is not None:
+            self._counts["mmm_groups"] += plan.n_groups
+        self._counts["pad_lanes"] += plan.n_pad
+        for lane, slot in enumerate(plan.slots):
+            running[slot].emit(int(nxt[lane]))
+            self.pos[slot] += 1
+            self.tok[slot] = nxt[lane]

@@ -1,0 +1,135 @@
+"""The port stands alone: it imports nothing of JAX or of the JAX
+package, runs on the CPU only when asked, and has no fallback from its
+CUDA kernels (no ``nvcc`` means a named build error, and a tensor on a
+device other than the CPU never takes the plain version)."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import compiler
+from repro_torch.configs import ARCH_IDS, SERVED, get_config, get_smoke_config
+from repro_torch.convert import params_from_jax
+from repro_torch.device import CudaUnavailableError
+from repro_torch.kernels import _build, fused_decode, ops, xnor_matmul
+from repro_torch.launch import serve
+from repro_torch.models import lm
+
+# smoke shapes gain nothing from intra-op threads, which only contend
+# with the other test workers
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = {
+        n for n in _imports(path)
+        if n.split(".")[0] in ("jax", "jaxlib", "flax", "repro")
+    }
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_importing_the_serve_driver_loads_no_jax():
+    code = (
+        "import sys; import repro_torch.launch.serve, repro_torch.convert, "
+        "repro_torch.compiler, repro_torch.serving; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _needs_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    _needs_no_cuda()
+    cfg = get_smoke_config("tinyllama-1.1b")
+    with pytest.raises(CudaUnavailableError):
+        lm.init_params(torch.Generator(), cfg)
+    params = lm.init_params(torch.Generator(), cfg, device="cpu")
+    with pytest.raises(CudaUnavailableError):
+        compiler.compile(cfg, params, compiler.HardwareTarget(engine="packed"))
+    with pytest.raises(CudaUnavailableError):
+        params_from_jax({"blocks": {}})
+    with pytest.raises(CudaUnavailableError):
+        serve.run(["--arch", "tinyllama-1.1b", "--smoke", "--engine", "packed"])
+    # asked for explicitly, the CPU runs
+    cm = compiler.compile(cfg, params, compiler.HardwareTarget(engine="packed"), device="cpu")
+    assert cm.device.type == "cpu"
+    cm_serve = cm.serve(max_batch=2, max_len=16)
+    assert cm_serve.caches["slot0"]["k"].device.type == "cpu"
+
+
+def test_build_raises_named_error_without_nvcc(monkeypatch):
+    try:
+        _build.nvcc_path()
+    except _build.KernelBuildError:
+        pass
+    else:
+        pytest.skip("nvcc is installed here")
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.build()
+    with pytest.raises(_build.KernelBuildError):
+        _build.load("fused_decode")
+    with pytest.raises(_build.KernelBuildError, match="unknown kernel"):
+        _build.library_path("nope")
+
+
+def test_wrappers_never_take_the_plain_version_off_the_cpu():
+    """Only a CPU tensor runs the plain version; anything else launches
+    the kernel or raises (the meta device stands in here for a device
+    without a kernel)."""
+    before = (fused_decode.launches, xnor_matmul.launches)
+    x = torch.empty((2, 64), device="meta")
+    w = torch.empty((2, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no fused BitLinear kernel"):
+        fused_decode.fused_bnn_matmul_kernel(
+            x, w, torch.empty(8, device="meta"), torch.empty(2, device="meta"), m=64, n=8
+        )
+    with pytest.raises(ValueError, match="no Hamming kernel"):
+        xnor_matmul.hamming_matmul_packed(torch.empty((2, 2), dtype=torch.int32, device="meta"), w)
+    # plain-version calls on the CPU are not kernel launches
+    ops.fused_bnn_matmul(torch.randn(3, 64), ops.pack_weights(torch.ones(64, 8)), 1.0, m=64, n=8)
+    ops.xnor_matmul(torch.ones(3, 64), torch.ones(64, 8))
+    assert (fused_decode.launches, xnor_matmul.launches) == before
+
+
+def test_later_slices_are_named():
+    for arch in ARCH_IDS:
+        if arch in SERVED:
+            assert get_config(arch).name == arch
+            continue
+        with pytest.raises(NotImplementedError, match="slice"):
+            get_config(arch)
+    with pytest.raises(compiler.TargetError, match="paper-simulator slice"):
+        compiler.HardwareTarget(engine="tacitmap").validate()
+    with pytest.raises(compiler.TargetError, match="fused=False"):
+        compiler.HardwareTarget(engine="reference", fused=False).validate()
+    with pytest.raises(compiler.GroupSizeError):
+        compiler.HardwareTarget(engine="packed", group_size=-1).validate()
+    assert repro_torch.__doc__
