@@ -1,6 +1,7 @@
 """One-call hardware compilation: ``compile(cfg, params, target)``."""
 
 from repro_torch.compiler.cli import (
+    add_fleet_args,
     add_scheduler_args,
     add_target_args,
     scheduler_from_args,
@@ -14,6 +15,7 @@ __all__ = [
     "GroupSizeError",
     "HardwareTarget",
     "TargetError",
+    "add_fleet_args",
     "add_scheduler_args",
     "add_target_args",
     "compile",

@@ -1,9 +1,10 @@
-"""Shared argparse surface for hardware targets and the request scheduler
-(counterpart of ``repro/compiler/cli.py``, main-path flags).
+"""Shared argparse surface for hardware targets, the request scheduler
+and the fleet (counterpart of ``repro/compiler/cli.py``, serving flags).
 
     ap = argparse.ArgumentParser()
     add_target_args(ap)
     add_scheduler_args(ap)
+    add_fleet_args(ap)
     args = ap.parse_args()
     compiled = compile(cfg, params, target_from_args(args))
     se = compiled.serve(scheduler=scheduler_from_args(args))
@@ -100,6 +101,39 @@ def scheduler_from_args(args: argparse.Namespace):
         max_waiting=args.max_waiting,
         preempt=not args.no_preempt,
     ).validate()
+
+
+def add_fleet_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """Install the fleet-serving flags: replica count, routing policy and
+    prefix block for :class:`repro_torch.fleet.FleetEngine`."""
+    from repro_torch.fleet.router import DEFAULT_BLOCK, ROUTING_POLICIES
+
+    ap.add_argument(
+        "--replicas",
+        type=int,
+        default=1,
+        metavar="N",
+        help="serve from a fleet of N identically-compiled replicas behind "
+        "the prefix-affinity router (1 = plain single-replica serving, no "
+        "fleet layer)",
+    )
+    ap.add_argument(
+        "--routing",
+        default="prefix",
+        choices=ROUTING_POLICIES,
+        help="fleet routing policy: prefix (longest KV-prefix match, then "
+        "load), least-loaded, or round-robin (only with --replicas > 1)",
+    )
+    ap.add_argument(
+        "--prefix-block",
+        type=int,
+        default=DEFAULT_BLOCK,
+        metavar="TOKENS",
+        help="token-block width of the router's chained prefix hashes "
+        "(prefix policy only; smaller blocks match shorter shared prefixes "
+        "at more index churn)",
+    )
+    return ap
 
 
 def target_from_args(args: argparse.Namespace) -> HardwareTarget:

@@ -10,7 +10,8 @@
 
 The map stage, ``price()`` and ``describe()`` arrive with the
 paper-simulator slice. The returned :class:`CompiledModel` is what every
-consumer drives: ``prefill()`` / ``decode_step()`` for batch loops,
+consumer drives: ``prefill()`` / ``prefill_continue()`` /
+``decode_step()`` for batch loops,
 ``serve()`` for a continuous-batching ``ServingEngine``.
 """
 
@@ -66,8 +67,8 @@ def compile(cfg, params, target: HardwareTarget, *, device=None) -> "CompiledMod
 class CompiledModel:
     """The artifact ``compile()`` returns: model + target, executable.
 
-    * :meth:`prefill` / :meth:`decode_step` — LM entry points with the
-      target's K-grouped executor bound;
+    * :meth:`prefill` / :meth:`prefill_continue` / :meth:`decode_step` —
+      LM entry points with the target's K-grouped executor bound;
     * :meth:`serve` — a bound continuous-batching ``ServingEngine``.
 
     Tensors live on :attr:`device`. ``decode_step`` writes into the
@@ -117,6 +118,16 @@ class CompiledModel:
         tokens = self._tokens(tokens)
         ex = self.executor(int(tokens.shape[0]))
         return lm_lib.prefill(self.params, tokens, self.cfg, engine=ex)
+
+    @torch.no_grad()
+    def prefill_continue(self, tokens, prefix_caches: dict):
+        """Suffix tokens (B, S) over prefill-shaped ``prefix_caches`` ->
+        (last-position logits, full-prompt caches), bit-identical to
+        :meth:`prefill` of the whole prompt (the prefix-graft path)."""
+        self._require_params()
+        tokens = self._tokens(tokens)
+        ex = self.executor(int(tokens.shape[0]))
+        return lm_lib.prefill_continue(self.params, tokens, prefix_caches, self.cfg, engine=ex)
 
     @torch.no_grad()
     def decode_step(self, token, pos, caches):

@@ -22,7 +22,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("xnor_matmul", "fused_decode")
+KERNELS = ("xnor_matmul", "fused_decode", "flash_attention", "bitlinear", "wdm_mmm")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LOADED: dict[str, ctypes.CDLL] = {}

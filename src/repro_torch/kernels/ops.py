@@ -16,7 +16,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import bitlinear as _bitlinear_kernel
 from repro_torch.kernels import fused_decode as _fused_kernel
+from repro_torch.kernels import wdm_mmm as _wdm_kernel
 from repro_torch.kernels import xnor_matmul as _xnor_kernel
 
 WORD = 32
@@ -26,6 +28,25 @@ WORD = 32
 # reference's (``repro.kernels.xnor_matmul.DEFAULT_BKW`` / ``DEFAULT_BN``).
 PREPAD_WORDS = 16
 PREPAD_COLS = 128
+
+
+# CUDA's reduction kernel lays out fewer rows than this differently (a
+# wider block, another summation tree), so a row's mean would depend on
+# how many rows share the call; smaller calls are padded to this many.
+MEAN_ROWS = 16
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim, keepdim, with per-row arithmetic that does
+    not depend on the number of rows in the call: a decode tick of 8
+    lanes, one request alone, a 1-token continuation and a full prefill
+    give each row the same bits (the serving invariants need it; the CPU
+    reduction has the property already, and padding leaves it so)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    rows = x2.shape[0]
+    if rows < MEAN_ROWS:
+        x2 = F.pad(x2, (0, 0, 0, MEAN_ROWS - rows))
+    return x2.mean(dim=-1)[:rows].reshape(*x.shape[:-1], 1)
 
 
 # ---------------------------------------------------------------------------
@@ -117,13 +138,13 @@ def fused_bnn_matmul(
     (..., m) raw activations x (ceil(m/32), n) words x alpha -> (..., n)
     fp32 of ``(binarize(x) @ w±1) * (alpha * beta)`` with ``beta =
     mean|x|`` per row, computed here in fp32 with the same expression as
-    ``models.layers.dense``. ``alpha`` is a scalar or an (n,) vector (the
+    ``models.layers.dense`` (:func:`row_mean`). ``alpha`` is a scalar or an (n,) vector (the
     concatenated [q|k|v] projection). Leading dims flatten, so stacked
     (G, K, m) groups are one launch. bf16 and fp32 activations go to the
     kernel as they are; other dtypes are cast to fp32.
     """
     lead = x.shape[:-1]
-    beta = x.abs().to(torch.float32).mean(dim=-1)
+    beta = row_mean(x.abs().to(torch.float32))
     if x.dtype not in (torch.bfloat16, torch.float32):
         x = x.to(torch.float32)
     x2 = x.reshape(-1, m).contiguous()
@@ -133,3 +154,40 @@ def fused_bnn_matmul(
         x2, w_packed, alpha, beta.reshape(-1), m=m, n=n
     )
     return out.reshape(*lead, n)
+
+
+# ---------------------------------------------------------------------------
+# WDM MMM
+# ---------------------------------------------------------------------------
+
+
+def wdm_mmm(groups: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(G, K, m) x (m, n) -> (G, K, n) fp32: K wavelengths per pass, one
+    launch over the G * K rows. Both operands are carried in bf16 (exact
+    for ±1), as the reference does."""
+    g, k, m = groups.shape
+    lhs = groups.reshape(g * k, m).to(torch.bfloat16)
+    out = _wdm_kernel.mmm(lhs, w.to(torch.bfloat16))
+    return out.reshape(g, k, w.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# BitLinear (fused binarize + matmul + rescale)
+# ---------------------------------------------------------------------------
+
+
+def bitlinear(x: torch.Tensor, w_signs: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """(..., m) fp x (m, n) ±1 x (n,) -> (..., n) fp32 fused BitLinear:
+    ``(sign(x) @ w_signs) * alpha`` with sign(0) = +1. Weights go to the
+    kernel in bf16 and alpha in fp32, as the reference casts them; bf16
+    and fp32 activations go as they are, other dtypes as fp32."""
+    m = x.shape[-1]
+    lead = x.shape[:-1]
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.to(torch.float32)
+    out = _bitlinear_kernel.bitlinear_kernel(
+        x.reshape(-1, m),
+        w_signs.to(torch.bfloat16),
+        alpha.to(torch.float32).reshape(-1),
+    )
+    return out.reshape(*lead, w_signs.shape[1])

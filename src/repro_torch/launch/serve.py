@@ -14,6 +14,10 @@ or, with ``--requests N``, drive the request scheduler.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --device cpu --engine packed --requests 12 --sched-policy deadline
 
+    # a fleet of 2 replicas behind the prefix-affinity router:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+        --smoke --engine packed --device cpu --requests 12 --replicas 2 --routing prefix
+
 Weights are random (``init_params`` from a ``torch.Generator`` seeded by
 ``--seed`` on the serving device); prompts come from a numpy generator
 seeded by ``--seed``, and the request trace's prompt lengths from
@@ -56,6 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     compiler_lib.add_target_args(ap)
     compiler_lib.add_scheduler_args(ap)
+    compiler_lib.add_fleet_args(ap)
     return ap
 
 
@@ -127,6 +132,44 @@ def serve_requests(compiled, args) -> dict:
     return {"states": states, "stats": se.stats(), "wall_s": wall, "group_k": se.group_k}
 
 
+def serve_fleet(cfg, params, target, args, device) -> dict:
+    """The fleet path (``--replicas > 1``): N identically-compiled
+    replicas behind the prefix-affinity router, driven by the same
+    staggered request trace as :func:`serve_requests`, one arrival per
+    fleet tick so the prefix library is live for later arrivals."""
+    from repro_torch import compiler as compiler_lib
+    from repro_torch.device import synchronize
+    from repro_torch.fleet import FleetEngine
+    from repro_torch.serving import Request
+
+    fleet = FleetEngine.build(
+        cfg, params, target,
+        n_replicas=args.replicas,
+        max_batch=args.batch,
+        max_len=args.prompt_len + args.gen,
+        scheduler=compiler_lib.scheduler_from_args(args),
+        routing=args.routing,
+        block_size=args.prefix_block,
+        device=device,
+    )
+    tokens = prompts(cfg, args.requests, args.prompt_len, args.seed)
+    trace_seed = args.request_seed if args.request_seed is not None else args.seed
+    rng = np.random.default_rng(trace_seed)
+    states = []
+    synchronize(device)
+    t0 = time.perf_counter()
+    for i in range(args.requests):
+        plen = int(rng.integers(max(1, args.prompt_len // 2), args.prompt_len + 1))
+        states.append(fleet.submit(Request(
+            rid=i, prompt=tokens[i, :plen].astype(np.int32), max_new_tokens=args.gen,
+        )))
+        fleet.step()
+    fleet.drain()
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    return {"fleet": fleet, "states": states, "stats": fleet.stats(), "wall_s": wall}
+
+
 def run(argv: list[str] | None = None) -> dict:
     """Parse ``argv``, build and compile the model, serve, and return the
     results (the CLI prints them)."""
@@ -143,11 +186,19 @@ def run(argv: list[str] | None = None) -> dict:
         ap.error(str(e))
     if target.engine == "reference" and target.group_size:
         ap.error("--group-size requires a non-reference --engine")
+    if args.replicas < 1:
+        ap.error("--replicas must be >= 1")
+    if args.replicas > 1 and not args.requests:
+        ap.error("--replicas > 1 serves the request path; pass --requests N")
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm_lib.init_params(gen, cfg, device=dev)
+    if args.replicas > 1:
+        # each replica compiles and programs its own copy of the target
+        res = serve_fleet(cfg, params, target, args, dev)
+        return {"compiled": res["fleet"].replicas[0].compiled, "args": args, **res}
     compiled = compiler_lib.compile(cfg, params, target, device=dev)
     del params
     result = {"compiled": compiled, "args": args}
@@ -166,7 +217,25 @@ def main(argv: list[str] | None = None) -> int:
     print(f"[serve] arch={cfg.name} device={compiled.device} engine={compiled.target.engine} "
           f"quant={cfg.quant} programmed={compiled.programmed} "
           f"({compiled.program_s * 1e3:.1f} ms)")
-    if args.requests:
+    if args.replicas > 1:
+        s = res["stats"]
+        toks = sum(len(st.generated) for st in res["states"])
+        print(f"[fleet] {s.n_replicas} replica(s) x {args.batch} slot(s), "
+              f"routing={s.routing} (block={args.prefix_block})")
+        print(f"[fleet] drained {args.requests} request(s) in {res['wall_s'] * 1e3:.1f} ms "
+              f"({toks / max(res['wall_s'], 1e-9):.1f} tok/s): finished={s.finished} "
+              f"rejected={s.rejected} expired={s.expired} failed={s.failed}")
+        print(f"[fleet] prefix hits={s.prefix_hits} (rate {s.prefix_hit_rate:.0%}), "
+              f"grafted={s.grafted_tokens} prefilled={s.prefill_tokens} prompt tokens; "
+              f"failovers={s.failovers} (salvaged={s.salvaged}), "
+              f"healthy={s.healthy_replicas}/{s.n_replicas}")
+        per = ", ".join(f"r{i}: {r.ticks}t/{r.decoded}d" for i, r in enumerate(s.replicas))
+        print(f"[fleet] per-replica ticks/decoded: {per}")
+        done = [st for st in res["states"] if st.done]
+        if done:
+            print(f"[fleet] rid={done[0].rid} replica={done[0].replica} "
+                  f"generated[:8] = {done[0].generated[:8]}")
+    elif args.requests:
         st, sch = res["stats"], res["stats"].scheduler
         toks = sum(len(s.generated) for s in res["states"])
         print(f"[serve] scheduler: policy={sch.policy} admission={sch.admission} "

@@ -66,9 +66,8 @@ class ModelConfig:
     norm_eps: float = 1e-5
     loss_chunk: int = 256            # sequence chunking for the softmax loss
     attn_chunk: int = 512            # KV chunk of the chunked attention
-    # "jnp": chunked online-softmax attention in plain ops (the port's
-    # only path so far); "pallas": the fused attention kernel of the
-    # flash-attention slice
+    # "jnp": chunked online-softmax attention in plain ops; "pallas": the
+    # flash-attention kernel (kernels/flash_attention.py)
     attn_impl: Literal["jnp", "pallas"] = "jnp"
     # MoE dispatch of the reference (kept for config parity)
     moe_impl: Literal["pjit", "ep_shard_map"] = "pjit"

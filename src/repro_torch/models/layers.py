@@ -1,6 +1,6 @@
-"""Transformer layers for serving: RMSNorm, RoPE, chunked GQA attention,
-SwiGLU, and the BitLinear seam (counterpart of ``repro/models/layers.py``,
-forward only).
+"""Transformer layers for serving: RMSNorm, RoPE, chunked GQA attention
+(plain ops, or the flash-attention kernel), SwiGLU, and the BitLinear
+seam (counterpart of ``repro/models/layers.py``, forward only).
 
 Conventions as in the reference: activations bf16, accumulations and
 normalizations fp32, latent weights fp32. Attention shapes are
@@ -18,6 +18,8 @@ from torch import nn
 
 from repro_torch.core import bnn
 from repro_torch.core.engine import PreparedWeights
+from repro_torch.kernels.flash_attention import ROW_BLOCK, flash_attention, rowblock_matmul
+from repro_torch.kernels.ops import row_mean
 from repro_torch.models.config import ModelConfig
 
 ACT_DTYPE = torch.bfloat16
@@ -95,9 +97,10 @@ class FFN(nn.Module):
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in fp32, returned in ``x``'s dtype."""
+    """RMSNorm in fp32, returned in ``x``'s dtype. The mean's per-row
+    arithmetic does not depend on the row count (:func:`row_mean`)."""
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = row_mean(xf * xf)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
@@ -137,7 +140,7 @@ def dense(p: BitLinear, x: torch.Tensor, quant: str = "none", engine=None) -> to
         if pw is not None and getattr(engine, "supports_fused_dense", False):
             out = engine.fused_dense(x, pw, p.alpha).to(ACT_DTYPE)
         else:
-            beta = x.abs().to(torch.float32).mean(dim=-1, keepdim=True)
+            beta = row_mean(x.abs().to(torch.float32))
             xb = bnn.binarize_ste(x.to(torch.float32))
             if pw is not None:
                 alpha = p.alpha
@@ -226,19 +229,26 @@ def multi_head_attention(
     q (B, Sq, H, D); k/v (B, Skv, KV, D); positions (S,)-shaped. Returns
     (B, Sq, H, D) in q's dtype. The probabilities and values of each
     chunk round to bf16 before an fp32 contraction, as the reference's
-    bf16 einsum with fp32 accumulation does. ``impl="pallas"`` names the
-    fused attention kernel of the flash-attention slice.
+    bf16 einsum with fp32 accumulation does. The queries are the last Sq
+    of the Skv positions (every model path gives them so), and both
+    contractions run in row blocks aligned to those absolute positions
+    (``rowblock_matmul``), so a row's result does not depend on Sq: a
+    prefix-grafted continuation equals the full prefill bit for bit.
+
+    ``impl="pallas"`` routes through the fused flash-attention kernel
+    (``kernels/flash_attention.py``) on the (B, H, S, D) layout.
     """
     if impl == "pallas":
-        raise NotImplementedError(
-            "attn_impl='pallas' (the fused attention kernel) arrives with the "
-            "flash-attention slice; use attn_impl='jnp'"
+        out = flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal
         )
+        return out.transpose(1, 2)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     scale = 1.0 / math.sqrt(d)
     head_map = torch.arange(h, device=q.device) // g  # head -> kv head
+    first_row = skv - sq  # absolute position of query row 0
 
     n_chunks = math.ceil(skv / chunk)
     pad = n_chunks * chunk - skv
@@ -251,12 +261,12 @@ def multi_head_attention(
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
-    qf = q.to(torch.float32)
+    qf = q.to(torch.float32).transpose(1, 2)  # (B, H, Sq, D)
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
-        kh = k[:, sl][:, :, head_map]  # (B, C, H, D)
+        kh = k[:, sl][:, :, head_map].to(torch.float32)  # (B, C, H, D)
         vh = v[:, sl][:, :, head_map]
-        s = torch.einsum("bqhd,bchd->bhqc", qf, kh.to(torch.float32)) * scale
+        s = rowblock_matmul(qf, kh.permute(0, 2, 3, 1), first_row) * scale  # (B, H, Sq, C)
         if causal:
             mask = kv_positions[sl][None, :] <= q_positions[:, None]  # (Sq, C)
             s = torch.where(mask[None, None], s, NEG_INF)
@@ -266,10 +276,10 @@ def multi_head_attention(
             p = torch.where(mask[None, None], p, 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        av = torch.einsum(
-            "bhqc,bchd->bhqd",
+        av = rowblock_matmul(
             p.to(torch.bfloat16).to(torch.float32),
-            vh.to(torch.bfloat16).to(torch.float32),
+            vh.to(torch.bfloat16).to(torch.float32).transpose(1, 2),
+            first_row,
         )
         acc = acc * corr[..., None] + av
         m = m_new
@@ -283,7 +293,26 @@ def decode_attention(
     """Single-token attention against a (B, T, KV, D) cache; positions
     >= ``cache_len`` are masked. q (B, 1, H, D). Normalizes, then
     contracts (the reference's order, which rounds differently from the
-    prefill path)."""
+    prefill path).
+
+    The lanes run in blocks of ``ROW_BLOCK`` (the last one padded), so
+    every product has one shape whatever the lane count: a GEMM picks
+    its algorithm by shape, and a lane's result must not depend on how
+    many slots share the tick (batched == solo)."""
+    b = q.shape[0]
+    pad = (-b) % ROW_BLOCK
+    if pad:
+        q, k_cache, v_cache = (F.pad(t, (0, 0, 0, 0, 0, 0, 0, pad)) for t in (q, k_cache, v_cache))
+        cache_len = F.pad(cache_len, (0, pad), value=1)
+    out = torch.cat([
+        _decode_block(q[i : i + ROW_BLOCK], k_cache[i : i + ROW_BLOCK],
+                      v_cache[i : i + ROW_BLOCK], cache_len[i : i + ROW_BLOCK])
+        for i in range(0, b + pad, ROW_BLOCK)
+    ])
+    return out[:b]
+
+
+def _decode_block(q, k_cache, v_cache, cache_len):
     b, _, h, d = q.shape
     t, kvh = k_cache.shape[1], k_cache.shape[2]
     g = h // kvh
@@ -317,6 +346,49 @@ def attention_block(
     out = multi_head_attention(
         q, k, v, positions, positions, causal=causal, chunk=cfg.attn_chunk,
         impl=cfg.attn_impl,
+    )
+    out = dense(attn.o, out.reshape(b, s, cfg.n_heads * hd), quant, engine)
+    return out, (k, v)
+
+
+def attention_continue(
+    attn: Attention,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    prefix_k: torch.Tensor,
+    prefix_v: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    quant: str = "none",
+    engine=None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Prefill continuation over a grafted KV prefix (prefix caching).
+
+    ``x`` holds the suffix at absolute ``positions`` (starting at the
+    prefix length); ``prefix_k``/``prefix_v`` (B, start, KV, D) are the
+    cached rows of positions ``[0, start)`` from an earlier prefill of
+    the same token prefix. Returns (out, (k, v)) with k/v covering only
+    the suffix; the caller concatenates them after the prefix rows.
+
+    Equal to the full prefill bit for bit, as in the reference: cached
+    prefix rows do not depend on what followed them (causal masking adds
+    exact zeros), and the suffix runs through the same attention as a
+    prefill, whose per-row arithmetic does not depend on Sq
+    (:func:`multi_head_attention`, the flash kernel). RoPE applies to the
+    suffix only; the prefix rows join in the activation dtype.
+    """
+    b, s, _ = x.shape
+    hd = cfg.hd
+    qkv = _qkv(attn, x, cfg, quant, engine)
+    q = rope(qkv[0].reshape(b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
+    k = rope(qkv[1].reshape(b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+    v = qkv[2].reshape(b, s, cfg.n_kv_heads, hd)
+    k_full = torch.cat([prefix_k.to(k.dtype), k], dim=1)
+    v_full = torch.cat([prefix_v.to(v.dtype), v], dim=1)
+    kv_positions = torch.arange(k_full.shape[1], device=x.device)
+    out = multi_head_attention(
+        q, k_full, v_full, positions, kv_positions, causal=True,
+        chunk=cfg.attn_chunk, impl=cfg.attn_impl,
     )
     out = dense(attn.o, out.reshape(b, s, cfg.n_heads * hd), quant, engine)
     return out, (k, v)

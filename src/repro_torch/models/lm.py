@@ -8,8 +8,9 @@ slot ``i`` (P = ``len(cfg.pattern)``), the order the reference's scan
 applies them in. Caches keep the reference's layout,
 ``{"slot<i>": {"k"/"v": (R, B, T, KV, D)}}``.
 
-Inference consumers reach ``prefill`` / ``decode_step`` /
-``program_weights`` through ``repro_torch.compiler.compile``.
+Inference consumers reach ``prefill`` / ``prefill_continue`` /
+``decode_step`` / ``program_weights`` through
+``repro_torch.compiler.compile``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from torch import nn
 
 from repro_torch.core import bnn
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import rowblock_matmul
 from repro_torch.models.config import ModelConfig, require_servable
 from repro_torch.models.layers import (
     ACT_DTYPE,
@@ -28,6 +30,7 @@ from repro_torch.models.layers import (
     Attention,
     BitLinear,
     attention_block,
+    attention_continue,
     attention_decode_step,
     ffn,
     infer_engine,
@@ -179,8 +182,11 @@ def _mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _logits(model: LM, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Last-position fp32 logits. The head runs in blocks of
+    ``ROW_BLOCK`` rows, so a row's logits do not depend on how many
+    sequences share the call (a GEMM picks its algorithm by shape)."""
     h = rms_norm(h, model.final_norm, cfg.norm_eps)
-    logits = h[:, -1, :].to(torch.float32) @ _head_weights(model, cfg)
+    logits = rowblock_matmul(h[:, -1, :].to(torch.float32), _head_weights(model, cfg), 0)
     return _mask_padded_vocab(logits, cfg)
 
 
@@ -208,6 +214,61 @@ def prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig, engine=None):
         mix, (k, v) = attention_block(blk.attn, hn, positions, cfg, quant=cfg.quant, engine=eng)
         ks[layer % n_slots].append(k.to(ACT_DTYPE))
         vs[layer % n_slots].append(v.to(ACT_DTYPE))
+        h = _ffn_residual(blk, h + mix, cfg, eng)
+    caches = {
+        f"slot{i}": {"k": torch.stack(ks[i]), "v": torch.stack(vs[i])}
+        for i in range(n_slots)
+    }
+    return _logits(model, h, cfg), caches
+
+
+class PrefixContinuationError(ValueError):
+    """``prefill_continue`` was asked to continue a stack it cannot slice
+    at a prefix boundary (SSM/hybrid mixers carry recurrent state, not
+    per-position KV rows)."""
+
+
+def prefill_continue(model: LM, tokens: torch.Tensor, prefix_caches: dict, cfg: ModelConfig,
+                     engine=None):
+    """Prefill only the suffix of a prompt whose prefix KV is cached.
+
+    ``tokens`` (B, S) are the prompt positions after the shared prefix;
+    ``prefix_caches`` is prefill-shaped (``{"slot<i>": {"k"/"v": (R, B,
+    Lp, KV, D)}}``) and covers positions ``[0, Lp)`` of the same token
+    prefix, typically sliced from an earlier :func:`prefill`. Returns
+    ``(logits, caches)`` as :func:`prefill` over the full prompt would:
+    last-position logits and full-prompt caches (prefix rows
+    concatenated back in), bit for bit
+    (:func:`~repro_torch.models.layers.attention_continue`).
+    Attention-only stacks: anything else raises
+    :class:`PrefixContinuationError`.
+    """
+    bad = [f"slot{i}" for i, kind in enumerate(cfg.pattern) if kind.mixer != "attn"]
+    if bad:
+        raise PrefixContinuationError(
+            f"prefix continuation needs per-position KV rows; {cfg.name} has "
+            f"non-attention mixer(s) at {', '.join(bad)} whose recurrent state "
+            "cannot be sliced at a prefix boundary"
+        )
+    require_servable(cfg)
+    tokens = tokens.to(device=model.embed.device, dtype=torch.int64)
+    start = next(iter(prefix_caches.values()))["k"].shape[2]
+    h = model.embed[tokens].to(ACT_DTYPE)
+    positions = torch.arange(start, start + tokens.shape[1], device=h.device)
+    eng = engine if engine is not None else infer_engine(cfg)
+    n_slots = len(cfg.pattern)
+    ks: list[list[torch.Tensor]] = [[] for _ in range(n_slots)]
+    vs: list[list[torch.Tensor]] = [[] for _ in range(n_slots)]
+    for layer, blk in enumerate(model.blocks):
+        pre = prefix_caches[f"slot{layer % n_slots}"]
+        r = layer // n_slots
+        pk, pv = pre["k"][r], pre["v"][r]
+        hn = rms_norm(h, blk.norm1, cfg.norm_eps)
+        mix, (k, v) = attention_continue(
+            blk.attn, hn, positions, pk, pv, cfg, quant=cfg.quant, engine=eng
+        )
+        ks[layer % n_slots].append(torch.cat([pk, k.to(ACT_DTYPE)], dim=1))
+        vs[layer % n_slots].append(torch.cat([pv, v.to(ACT_DTYPE)], dim=1))
         h = _ffn_residual(blk, h + mix, cfg, eng)
     caches = {
         f"slot{i}": {"k": torch.stack(ks[i]), "v": torch.stack(vs[i])}

@@ -2,23 +2,33 @@
 
 from repro_torch.serving.engine import BatchPlanner, GroupPlan, ServingEngine, ServingStats
 from repro_torch.serving.scheduler import (
+    DegradedServiceError,
+    PrefixGraft,
     Request,
+    RequestRejectedError,
     RequestScheduler,
     RequestState,
     RequestStatus,
     SchedulerConfig,
+    SchedulerConfigError,
+    SchedulerExhaustedError,
     SchedulerStats,
     SlotSnapshot,
 )
 
 __all__ = [
     "BatchPlanner",
+    "DegradedServiceError",
     "GroupPlan",
+    "PrefixGraft",
     "Request",
+    "RequestRejectedError",
     "RequestScheduler",
     "RequestState",
     "RequestStatus",
     "SchedulerConfig",
+    "SchedulerConfigError",
+    "SchedulerExhaustedError",
     "SchedulerStats",
     "ServingEngine",
     "ServingStats",

@@ -52,7 +52,8 @@ class ServingStats:
     mmm_groups: int             # K-groups issued to a registry backend
     pad_lanes: int              # idle lanes from ragged tails
     prefills: int
-    prefill_tokens: int         # prompt tokens prefilled
+    prefill_tokens: int         # prompt tokens actually prefilled
+    grafted_tokens: int         # prompt tokens elided by prefix grafts
     evictions: int              # preemption snapshots taken
     restores: int               # snapshots restored into a slot
     programmed: int             # projections made resident in compile()
@@ -130,8 +131,25 @@ class ServingEngine:
         self._exec = compiled.executor(max_batch)
         self._counts = {
             "ticks": 0, "decoded": 0, "mmm_groups": 0, "pad_lanes": 0,
-            "prefills": 0, "prefill_tokens": 0, "evictions": 0, "restores": 0,
+            "prefills": 0, "prefill_tokens": 0, "grafted_tokens": 0,
+            "evictions": 0, "restores": 0,
         }
+        cfg = compiled.cfg
+        # prefix grafting: a continuation prefill slices cached KV at a
+        # token boundary, which only attention mixers support (and only
+        # the token-prompt path can hash)
+        self.supports_prefix_graft = (
+            all(kind.mixer == "attn" for kind in cfg.pattern) and cfg.frontend != "vision"
+        )
+        # fleet hooks: `prefill_observer(state, prompt_rows)` is called
+        # after every prefill with the prompt's batch-squeezed cache rows
+        # (the router's prefix-library feed); `on_degrade(reason)` is for
+        # whatever degrades this engine (the health monitor arrives with
+        # the faults slice, so `health` is None and nothing degrades it
+        # but a direct `scheduler.degrade`)
+        self.prefill_observer = None
+        self.on_degrade = None
+        self.health = None
         self.caches = compiled.init_cache(max_batch, max_len)
         self.pos = np.zeros((max_batch,), np.int64)        # next write position
         self.tok = np.zeros((max_batch,), np.int64)        # last emitted token
@@ -196,18 +214,41 @@ class ServingEngine:
     @torch.no_grad()
     def prefill_into(self, slot: int, st: RequestState) -> None:
         """Prefill the request's prompt, write its KV into the slot and
-        emit the first (argmax) token onto the state."""
+        emit the first (argmax) token onto the state.
+
+        A request carrying a :class:`~repro_torch.serving.scheduler
+        .PrefixGraft` (a fleet prefix-affinity hit) skips the shared
+        prefix: the donated rows stand in for positions ``[0, length)``
+        and only the suffix runs, through ``prefill_continue`` --
+        bit-identical to the full prefill."""
         plen = st.request.prompt_len
         prompt = torch.as_tensor(np.asarray(st.request.prompt, np.int64))[None, :]
-        logits, pre = self.compiled.prefill(prompt)
+        graft = st.request.prefix
+        if graft is not None and self.supports_prefix_graft and 0 < graft.length < plen:
+            pre_rows = {
+                name: {key: r[:, None, : graft.length].to(self.device) for key, r in kv.items()}
+                for name, kv in graft.rows.items()
+            }
+            logits, pre = self.compiled.prefill_continue(prompt[:, graft.length:], pre_rows)
+            self._counts["grafted_tokens"] += graft.length
+            self._counts["prefill_tokens"] += plen - graft.length
+        else:
+            logits, pre = self.compiled.prefill(prompt)
+            self._counts["prefill_tokens"] += plen
         for name, kv in pre.items():
             for key, src in kv.items():
                 self.caches[name][key][:, slot, :plen] = src[:, 0]
         st.emit(int(torch.argmax(logits[0])))
-        self._counts["prefill_tokens"] += plen
         self.pos[slot] = plen
         self.tok[slot] = st.generated[-1]
         self._counts["prefills"] += 1
+        if self.prefill_observer is not None:
+            # full-prompt rows either way (a continuation returns prefix
+            # + suffix), so the prefix library extends its chains from
+            # grafted admissions too
+            self.prefill_observer(
+                st, {name: {key: c[:, 0] for key, c in kv.items()} for name, kv in pre.items()}
+            )
 
     def slot_exhausted(self, slot: int) -> bool:
         """True when the next decode write would run off the slot."""

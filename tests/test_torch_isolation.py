@@ -16,7 +16,15 @@ from repro_torch import compiler
 from repro_torch.configs import ARCH_IDS, SERVED, get_config, get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.device import CudaUnavailableError
-from repro_torch.kernels import _build, fused_decode, ops, xnor_matmul
+from repro_torch.kernels import (
+    _build,
+    bitlinear,
+    flash_attention,
+    fused_decode,
+    ops,
+    wdm_mmm,
+    xnor_matmul,
+)
 from repro_torch.launch import serve
 from repro_torch.models import lm
 
@@ -50,7 +58,8 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_serve_driver_loads_no_jax():
     code = (
         "import sys; import repro_torch.launch.serve, repro_torch.convert, "
-        "repro_torch.compiler, repro_torch.serving; "
+        "repro_torch.compiler, repro_torch.serving, repro_torch.fleet, "
+        "repro_torch.kernels.ops, repro_torch.kernels.ref, repro_torch.kernels.flash_attention; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -133,3 +142,39 @@ def test_later_slices_are_named():
     with pytest.raises(compiler.GroupSizeError):
         compiler.HardwareTarget(engine="packed", group_size=-1).validate()
     assert repro_torch.__doc__
+
+
+NEW_MODULES = ("fleet/pool.py", "fleet/replica.py", "fleet/router.py", "kernels/ref.py",
+               "kernels/flash_attention.py", "kernels/bitlinear.py", "kernels/wdm_mmm.py")
+
+
+def test_import_scan_covers_the_new_modules():
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in PORT_FILES
+               if p.is_relative_to(ROOT / "src" / "repro_torch")}
+    assert set(NEW_MODULES) <= scanned
+
+
+def test_new_wrappers_raise_for_a_cuda_tensor_without_a_card():
+    """A CUDA tensor (a fake one: there is no card here) goes to the
+    kernel, whose build fails without ``nvcc``; it never takes the plain
+    version, and no launch is counted."""
+    _needs_no_cuda()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    before = (flash_attention.launches, bitlinear.launches, wdm_mmm.launches)
+    with FakeTensorMode():
+        q = torch.empty((1, 4, 8, 64), device="cuda", dtype=torch.bfloat16)
+        kv = torch.empty((1, 2, 8, 64), device="cuda", dtype=torch.bfloat16)
+        x = torch.empty((3, 64), device="cuda")
+        w = torch.empty((64, 8), device="cuda", dtype=torch.bfloat16)
+        calls = (
+            lambda: flash_attention.flash_attention(q, kv, kv),
+            lambda: bitlinear.bitlinear_kernel(x, w, torch.empty(8, device="cuda")),
+            lambda: wdm_mmm.mmm(x.to(torch.bfloat16), w),
+            lambda: ops.bitlinear(x, w.float(), torch.empty(8, device="cuda")),
+            lambda: ops.wdm_mmm(x.reshape(1, 3, 64), w),
+        )
+        for call in calls:
+            with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+                call()
+    assert (flash_attention.launches, bitlinear.launches, wdm_mmm.launches) == before

@@ -118,10 +118,20 @@ def test_multi_head_attention(sq, skv, chunk, h, kvh, causal):
 
 
 def test_multi_head_attention_pallas_waits_for_its_slice():
-    x = torch.zeros((1, 2, 2, 4))
-    with pytest.raises(NotImplementedError, match="flash-attention slice"):
-        layers.multi_head_attention(x, x, x, torch.arange(2), torch.arange(2),
-                                    causal=True, chunk=2, impl="pallas")
+    """The flash-attention slice has landed: ``impl="pallas"`` runs the
+    flash kernel's plain version here and agrees with the reference's
+    Pallas path (interpret mode) to one bf16 ulp."""
+    rng = np.random.default_rng(11)
+    q = jnp.asarray(rng.normal(size=(2, 6, 4, 16)), jnp.bfloat16)
+    kv = [jnp.asarray(rng.normal(size=(2, 9, 2, 16)), jnp.bfloat16) for _ in range(2)]
+    qpos, kpos = jnp.arange(3, 9), jnp.arange(9)
+    want = jax_layers.multi_head_attention(q, *kv, qpos, kpos, causal=True, chunk=4,
+                                           impl="pallas")
+    got = layers.multi_head_attention(
+        *(_t(_np(a), torch.bfloat16) for a in (q, *kv)), torch.arange(3, 9), torch.arange(9),
+        causal=True, chunk=4, impl="pallas",
+    )
+    _assert_bf16_ulp(got, want)
 
 
 def test_decode_attention():
