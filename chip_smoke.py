@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--mma-only]
 
-Needs one CUDA card (device 0), the CUDA toolkit's ``nvcc`` and
+``--mma-only`` stops after bitlinear's and the WDM MMM's checks and
+timings and prints no result line. Needs one CUDA card (device 0), the CUDA toolkit's ``nvcc`` and
 ``nvidia-smi``; exits non-zero without them. Phases, each announced on
 its own ``[phase]`` line:
 
@@ -14,9 +15,12 @@ its own ``[phase]`` line:
    BitLinear and Hamming kernels at the tinyllama-1.1b projection shapes
    (bit-exact, ``torch.equal``), flash attention on prefill,
    continuation, ragged, D = 128 and non-causal cases (within a stated
-   tolerance), bitlinear and the WDM MMM at the projection shapes
-   (``torch.equal``) -- with kernel, plain-version and one-PyTorch-call
-   times and the card's bound;
+   tolerance), bitlinear and the WDM MMM at the projection shapes, a
+   ragged shape (their WMMA variant) and an aligned shape with a partial
+   last k tile (``torch.equal``; two launches bit-identical; each
+   shape's variant and launch plan printed) -- with kernel, plain-version
+   and one-PyTorch-call times and the card's bound (the two MMAs and
+   their ``torch.matmul`` timed by CUDA-graph replay, and eagerly too);
 4. entry points: ``ops.bitlinear`` / ``ops.wdm_mmm`` against the dense
    oracles, the path of those two kernels;
 5. serve: tinyllama-1.1b at full width (random weights from a seeded
@@ -121,9 +125,34 @@ def build_kernels() -> None:
     print(f"[build] {', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())} "
           f"(all {time.perf_counter() - t0:.1f} s, started together)", flush=True)
     for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+        for fn, regs in _ptxas_report(_build.build_log(name)):
+            print(f"[build] {name}: {fn}: {regs}", flush=True)
+
+
+def _ptxas_report(log: str) -> list[tuple[str, str]]:
+    """(kernel instance, ptxas's register / spill / shared-memory lines)
+    from ``nvcc -Xptxas -v`` output, names demangled where ``c++filt`` is
+    installed."""
+    import re
+    import shutil
+
+    out, fn, facts = [], None, []
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            if fn is not None:
+                out.append((fn, "; ".join(facts)))
+            fn, facts = m.group(1), []
+        elif fn is not None and ("registers" in line or "spill" in line):
+            facts.append(line.split(":", 1)[-1].strip())
+    if fn is not None:
+        out.append((fn, "; ".join(facts)))
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(f for f, _ in out),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            out = [(re.sub(r"\(.*", "", nm), facts) for nm, (_, facts) in zip(names, out)]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +296,8 @@ FLASH_CASES = (
 FLASH_MAIN = ("tinyllama prefill", "bf16")
 # bitlinear / WDM MMM: the tinyllama-1.1b projection shapes (m, n)
 MMA_SHAPES = {"w_qkv": (2048, 2560), "w1/w3": (2048, 5632), "w2": (5632, 2048)}
-MMA_RAGGED = (9, 513, 3)  # rows, m, n
+MMA_RAGGED = (9, 513, 3)  # rows, m, n: the WMMA variant (n % 8 != 0)
+MMA_EDGE = (8, 2056, 264)  # the sm90 variant, m not a multiple of its 64 k tile
 MMA_MAIN = ("w1/w3", 128)
 
 
@@ -351,47 +381,109 @@ def _signs(gen, shape, dtype):
     return torch.where(torch.randn(shape, generator=gen, device="cuda") >= 0, 1.0, -1.0).to(dtype)
 
 
+def _graph_ms(fn, arg_sets, iters: int) -> float:
+    """Mean ms per launch of ``fn(*args)`` on the card alone: one CUDA graph
+    captures ``iters`` launches cycling through ``arg_sets`` (weight copies
+    past the 50 MB L2) and is replayed between two CUDA events, so the
+    wrapper's per-call host work is not timed."""
+    import torch
+
+    for args in arg_sets[: min(3, len(arg_sets))]:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def _plan_line(kname: str, plan, clusters) -> str:
+    text = f"{kname} {plan.describe()}"
+    if clusters is not None:
+        text += f", {clusters} such clusters resident at once (need {plan.ctas // plan.split})"
+    return text
+
+
 def check_mma(gen) -> dict:
     """bitlinear and the WDM MMM against their plain versions at the
-    tinyllama-1.1b projection shapes (8 and 128 rows) and a ragged case:
-    ``torch.equal`` for ±1 operands (integer sums, exact in fp32), and
-    the MMM on real-valued bf16 weights within the fp32 summation bound
-    m * 2^-24 * sum|terms| (order only). Timings of kernel, plain version
-    and ``torch.matmul`` on the bf16 operands."""
+    tinyllama-1.1b projection shapes (8 and 128 rows), a ragged case (the
+    WMMA variant) and an aligned case whose m is not a multiple of the 64
+    k tile (the sm90 variant's zero-filled edge and bitlinear's k mask):
+    ``torch.equal`` for ±1 operands (integer sums, exact in fp32), the MMM
+    on real-valued bf16 weights within the fp32 summation bound
+    m * 2^-24 * sum|terms| (order only), and two launches of each kernel
+    bit-identical (the split-K reduction's fixed order). Prints each
+    shape's variant and plan. Times kernel and ``torch.matmul`` on the
+    bf16 operands by CUDA-graph replay (the card's time) and the kernel
+    also eagerly (CUDA events around a loop of calls, as the other
+    kernels are timed), and the plain version."""
     import torch
 
     from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import mma_plan
     from repro_torch.kernels import wdm_mmm as wm
 
     rec = {"bitlinear": {}, "wdm_mmm": {}}
     cases = [(name, rows, m, n) for name, (m, n) in MMA_SHAPES.items() for rows in (8, 128)]
-    cases.append(("ragged", *MMA_RAGGED))
+    cases += [("ragged", *MMA_RAGGED), ("k-edge", *MMA_EDGE)]
     for name, rows, m, n in cases:
         x = torch.randn((rows, m), generator=gen, device="cuda").to(torch.bfloat16)
         w = _signs(gen, (m, n), torch.bfloat16)
         alpha = torch.rand((n,), generator=gen, device="cuda") + 0.5
         a = _signs(gen, (rows, m), torch.bfloat16)
-        checks = (
-            ("bitlinear", bl.bitlinear_kernel(x, w, alpha), bl.bitlinear_plain(x, w, alpha)),
-            ("wdm_mmm", wm.mmm(a, w), wm.mmm_plain(a, w)),
+        wr = torch.randn((m, n), generator=gen, device="cuda").to(torch.bfloat16)
+        out = torch.empty((rows, n), device="cuda")
+        plans = {"bitlinear": mma_plan.choose(x, w, out, alpha), "wdm_mmm": mma_plan.choose(a, w, out)}
+        want_variant = "wmma" if name == "ragged" else "sm90"
+        before = {k: dict(mod.launches_by_variant) for k, mod in (("bitlinear", bl), ("wdm_mmm", wm))}
+        runs = (
+            ("bitlinear", lambda: bl.bitlinear_kernel(x, w, alpha), bl.bitlinear_plain(x, w, alpha)),
+            ("wdm_mmm", lambda: wm.mmm(a, w), wm.mmm_plain(a, w)),
         )
-        torch.cuda.synchronize()
-        for kname, got, want in checks:
+        for kname, fn, want in runs:
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"{kname} kernel != plain version at {name} rows={rows}: "
                                      f"max |diff| {(got - want).abs().max().item()}")
-        wr = torch.randn((m, n), generator=gen, device="cuda").to(torch.bfloat16)
-        got, want = wm.mmm(a, wr), wm.mmm_plain(a, wr)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{kname}: two launches differ at {name} rows={rows}")
+        got, again, want = wm.mmm(a, wr), wm.mmm(a, wr), wm.mmm_plain(a, wr)
         bound = m * 2.0**-24 * (a.float().abs() @ wr.float().abs())
         torch.cuda.synchronize()
         real_err = (got - want).abs()
         if not bool((real_err <= bound).all()):
             raise AssertionError(f"wdm_mmm on real-valued weights beyond the summation bound "
                                  f"at {name} rows={rows}: max |diff| {real_err.max().item()}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"wdm_mmm on real-valued weights: two launches differ at "
+                                 f"{name} rows={rows}")
+        for kname, mod in (("bitlinear", bl), ("wdm_mmm", wm)):
+            used = {v: mod.launches_by_variant[v] - before[kname][v] for v in before[kname]}
+            want_used = 2 + (kname == "wdm_mmm") * 2
+            if plans[kname].variant != want_variant or used[want_variant] != want_used:
+                raise AssertionError(f"{kname} at {name} rows={rows}: plan {plans[kname].variant}, "
+                                     f"launches by variant {used}; expected {want_variant}")
+        clusters = {
+            "bitlinear": bl.max_active_clusters(plans["bitlinear"], x.dtype),
+            "wdm_mmm": wm.max_active_clusters(plans["wdm_mmm"]),
+        } if want_variant == "sm90" else {"bitlinear": None, "wdm_mmm": None}
         print(f"[kernels] {name} rows={rows} (m={m}, n={n}): bitlinear == plain, wdm_mmm == "
               f"plain (±1); real-valued wdm_mmm max |diff| {real_err.max().item():.3g} within "
-              f"m * 2^-24 * sum|terms|", flush=True)
-        if name == "ragged":
+              f"m * 2^-24 * sum|terms|; two launches bit-identical (both kernels, real-valued "
+              f"MMM too)", flush=True)
+        for kname in ("bitlinear", "wdm_mmm"):
+            print(f"[kernels]   {_plan_line(kname, plans[kname], clusters[kname])}", flush=True)
+        if name in ("ragged", "k-edge"):
             continue
         w_sets = [w] + [w.clone() for _ in range(_copies(m * n * 2) - 1)]
         xs_pm = torch.where(x >= 0, 1.0, -1.0).to(torch.bfloat16)
@@ -403,20 +495,26 @@ def check_mma(gen) -> dict:
             ("wdm_mmm", lambda w_: wm.mmm(a, w_), lambda w_: wm.mmm_plain(a, w_),
              lambda w_: torch.matmul(a, w_), rows * m * 2),
         ):
-            ms = _time_ms(fn, [(w_,) for w_ in w_sets], 200)
+            sets = [(w_,) for w_ in w_sets]
+            ms = _graph_ms(fn, sets, 200)
+            eager = _time_ms(fn, sets, 200)
             plain = _time_ms(plain_fn, [(w,)], 3)
-            lib = _time_ms(lib_fn, [(w_,) for w_ in w_sets], 200)
+            lib = _graph_ms(lib_fn, sets, 200)
             nbytes = lhs_bytes + m * n * 2 + rows * n * 4
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            rec[kname][(name, rows)] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                                        "bytes_ms": t_bytes, "ops_ms": t_ops}
-            print(f"[kernels] {kname} {name} rows={rows} (m={m}, n={n}): kernel {ms:.4f} ms, "
-                  f"bound {max(t_bytes, t_ops):.4f} ms by "
+            plan = plans[kname]
+            rec[kname][(name, rows)] = {"ms": ms, "eager_ms": eager, "plain_ms": plain,
+                                        "library_ms": lib, "bytes_ms": t_bytes, "ops_ms": t_ops,
+                                        "ctas": plan.ctas, "split": plan.split}
+            print(f"[kernels] {kname} {name} rows={rows} (m={m}, n={n}): kernel {ms:.4f} ms "
+                  f"(graph replay; eager {eager:.4f} ms), bound {max(t_bytes, t_ops):.4f} ms by "
                   f"{'bytes' if t_bytes >= t_ops else 'operations'} ({nbytes} B, "
-                  f"{2 * rows * m * n} FLOP), plain {plain:.4f} ms, torch.matmul {lib:.4f} ms",
+                  f"{2 * rows * m * n} FLOP; {100 * max(t_bytes, t_ops) / ms:.0f}% of it), "
+                  f"plain {plain:.4f} ms, torch.matmul {lib:.4f} ms (graph replay); "
+                  f"{plan.variant}, {plan.ctas} CTAs, split {plan.split}, {plan.stages} stages",
                   flush=True)
-    print("[kernels] bitlinear and wdm_mmm check: torch.equal at every shape, max |diff| 0",
-          flush=True)
+    print("[kernels] bitlinear and wdm_mmm check: torch.equal at every shape, max |diff| 0; "
+          "two launches bit-identical at every shape", flush=True)
     return rec
 
 
@@ -449,10 +547,15 @@ def entry_point_phase(device: str = "cuda") -> dict:
         if not torch.equal(ops.wdm_mmm(groups, w), ref.wdm_mmm_ref(groups, w)):
             raise AssertionError(f"ops.wdm_mmm != wdm_mmm_ref at {(rows, m, n)}")
     launches = {"bitlinear": bl.launches, "wdm_mmm": wm.launches}
+    variants = {"bitlinear": dict(bl.launches_by_variant), "wdm_mmm": dict(wm.launches_by_variant)}
     _check_launches(device, launches, {"bitlinear": len(cases), "wdm_mmm": len(cases)},
                     "entry points")
+    # the six projection shapes take the sm90 variant, the ragged one WMMA
+    by_variant = {"sm90": len(cases) - 1, "wmma": 1}
+    _check_launches(device, variants, {"bitlinear": by_variant, "wdm_mmm": by_variant},
+                    "entry points by variant")
     print(f"[entry] ops.bitlinear and ops.wdm_mmm == dense oracles at {len(cases)} shapes; "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, by variant {variants}", flush=True)
     return launches
 
 
@@ -469,6 +572,8 @@ def _reset_counts() -> None:
 
     for mod in (fused_decode, xnor_matmul, flash_attention, bitlinear, wdm_mmm):
         mod.launches = 0
+    for mod in (bitlinear, wdm_mmm):
+        mod.launches_by_variant = dict.fromkeys(mod.launches_by_variant, 0)
 
 
 def _counts() -> dict:
@@ -1019,7 +1124,10 @@ def launch_summary(flash: dict, mma: dict, launches: dict) -> list[dict]:
     return out
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--mma-only"]):
+        print("usage: chip_smoke.py [--mma-only]", file=sys.stderr)
+        return 2
     phase("device")
     card, clock_mhz = check_device()
     sys.path.insert(0, str(ROOT / "src"))
@@ -1028,6 +1136,10 @@ def main() -> int:
     phase("build")
     build_kernels()
     phase("kernels")
+    if argv:  # bitlinear and the WDM MMM alone; no result line
+        check_mma(torch.Generator(device="cuda").manual_seed(SEED))
+        print(card, flush=True)
+        return 0
     checked = check_kernels(clock_mhz)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash = check_flash(gen)
@@ -1051,4 +1163,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

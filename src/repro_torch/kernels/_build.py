@@ -2,9 +2,13 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/kernels/lib<name>-<digest>.so`` at the repository root
-(``.gitignore`` lists ``build/``); the digest of the source names the
-library, so an edited source never loads a stale build. Building happens
-at first use, inside the call that needs a kernel, never at import.
+(``.gitignore`` lists ``build/``); the digest of the source and of every
+shared header ``csrc/*.cuh`` names the library, so an edited source or
+header never loads a stale build. Building happens at first use, inside
+the call that needs a kernel, never at import. ``sm90_mma.cuh`` finds
+``cuTensorMapEncodeTiled`` through the runtime's driver entry point, so
+nothing links against ``libcuda``; it raises its dynamic shared-memory
+limit with ``cudaFuncSetAttribute`` once per process and kernel.
 
 There is no fallback: a missing ``nvcc`` or a failed compile raises
 :class:`KernelBuildError` with the compiler's output.
@@ -19,6 +23,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -56,8 +62,11 @@ def library_path(name: str) -> Path:
     """Where the shared library of kernel ``name`` is (or will be) built."""
     if name not in KERNELS:
         raise KernelBuildError(f"unknown kernel {name!r}; known: {', '.join(KERNELS)}")
-    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: tuple[str, ...] = KERNELS) -> dict[str, float]:
@@ -106,8 +115,10 @@ def build_log(name: str) -> str:
     return log.read_text() if log.is_file() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+def load(name: str, signatures: dict[str, list] | None = None) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed. At the
+    first load each C function in ``signatures`` gets its ``argtypes``
+    (the list given) and an ``int`` return type, once per process."""
     lib = _LOADED.get(name)
     if lib is None:
         build((name,))
@@ -115,5 +126,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
         except OSError as e:
             raise KernelBuildError(f"cannot load the {name} kernel library: {e}") from e
+        for fn_name, argtypes in (signatures or {}).items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
+
+
+def on_device(device: torch.device, fn, *args):
+    """``fn(*args, stream)`` on ``device``'s current stream, switching the
+    current device only when it is another one (the switch costs a few
+    microseconds of host time per launch)."""
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    return fn(*args, torch.cuda.current_stream(device).cuda_stream)

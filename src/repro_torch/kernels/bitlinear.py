@@ -15,8 +15,11 @@ public entry point.
 
 With ±1 weights the sums are integers below 2^24, exact in fp32 in any
 order, so kernel, plain version and the JAX kernel agree bit for bit.
-What bounds it on an H100: the weight bytes at a few rows, the tensor
-cores at many; the kernel is a plain WMMA tile loop (see the source).
+What bounds it on an H100: the weight bytes at the tinyllama-1.1b shapes,
+8 and 128 rows. The kernel is the shared Hopper tile loop of
+``csrc/sm90_mma.cuh`` (variant ``sm90``: TMA ring, wgmma, cluster
+split-K), or its WMMA variant for shapes TMA cannot describe;
+:func:`mma_plan.choose` picks one before the launch.
 """
 
 from __future__ import annotations
@@ -25,13 +28,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, mma_plan
 
 # launches of the CUDA kernel since the last reset (the plain version
-# does not count)
+# does not count), in all and per variant
 launches = 0
+launches_by_variant = dict.fromkeys(mma_plan.VARIANTS, 0)
 
 _ENTRY = {torch.bfloat16: "bitlinear_bf16", torch.float32: "bitlinear_f32"}
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def bitlinear_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -42,12 +47,22 @@ def bitlinear_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> to
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("bitlinear")
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.load("bitlinear", {
+        **{name: _ARGTYPES for name in _ENTRY.values()},
+        "bitlinear_max_active_clusters": [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)],
+    })
+
+
+def max_active_clusters(plan: mma_plan.Plan, x_dtype: torch.dtype) -> int:
+    """Clusters of ``plan.split`` CTAs of the sm90 variant that the card
+    holds at once (CUDA's occupancy query)."""
+    clusters = ctypes.c_int(0)
+    rc = _lib().bitlinear_max_active_clusters(
+        int(x_dtype == torch.bfloat16), plan.row_tile, plan.split, plan.stages,
+        ctypes.byref(clusters))
+    if rc != 0:
+        raise RuntimeError(f"bitlinear occupancy query failed: error {rc}")
+    return clusters.value
 
 
 def bitlinear_kernel(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -71,18 +86,17 @@ def bitlinear_kernel(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> t
         return bitlinear_plain(x, w, alpha)
     if x.device.type != "cuda":
         raise ValueError(f"no bitlinear kernel for device {x.device}")
+    fn = getattr(_lib(), _ENTRY[x.dtype])
     x, w, alpha = x.contiguous(), w.contiguous(), alpha.contiguous()
     out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, _ENTRY[x.dtype])(
-            x.data_ptr(), w.data_ptr(), alpha.data_ptr(), out.data_ptr(), rows, m, n,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    plan = mma_plan.choose(x, w, out, alpha)
+    rc = _build.on_device(x.device, fn, x.data_ptr(), w.data_ptr(), alpha.data_ptr(),
+                          out.data_ptr(), rows, m, n, *plan.args)
     if rc != 0:
-        raise RuntimeError(f"bitlinear launch failed: CUDA error {rc}")
+        raise RuntimeError(f"bitlinear launch failed ({plan.describe()}): error {rc}")
     global launches
     launches += 1
+    launches_by_variant[plan.variant] += 1
     return out

@@ -136,18 +136,16 @@ def flash_attention_plain(
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
 
 
+_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong] * 3
+    + [ctypes.c_void_p]
+    + [ctypes.c_int] * 8
+    + [ctypes.c_void_p]
+)
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        fn.argtypes = (
-            [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong] * 3
-            + [ctypes.c_void_p]
-            + [ctypes.c_int] * 8
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.load("flash_attention", {name: _ARGTYPES for name in _ENTRY.values()})
 
 
 def flash_attention(

@@ -58,17 +58,15 @@ def fused_bnn_matmul_plain(
     return dot * (alpha.reshape(1, n) * beta.reshape(-1, 1))
 
 
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_decode")
-    for entry in _ENTRY.values():
-        fn = getattr(lib, entry)
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.load("fused_decode", {entry: _ARGTYPES for entry in _ENTRY.values()})
 
 
 def fused_bnn_matmul_kernel(

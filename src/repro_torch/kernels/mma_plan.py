@@ -1,0 +1,119 @@
+"""Launch plan and variant choice of the two MMA kernels, bitlinear and the
+WDM MMM: one Hopper tile loop (``csrc/sm90_mma.cuh``) behind both.
+
+Variant ``sm90`` (TMA + wgmma + cluster split-K) takes every shape TMA
+can describe: 16-byte-aligned bases for x, w, alpha and out, n % 8 == 0
+(w's row stride) and m * itemsize(x) % 16 == 0 (x's row stride). Any
+other shape takes variant ``wmma``. :func:`choose` picks before the
+launch, from shapes and ``data_ptr()`` alone; a wrapper never retries
+another variant, or the plain version, after a failed launch.
+
+The plan is computed here, not in the kernel, so that the CPU tests can
+check it: a 128-column n tile per CTA, a row tile of N rows (wgmma's N,
+8..128; more rows take more row tiles), a split S of the contraction
+over the S CTAs of a cluster (S <= 8, enough CTAs for the card's SMs,
+each split at least one 64-feature k tile), and a ring depth sized for
+two CTAs per SM where three stages fit, else one CTA with the deepest
+ring that fits. :func:`smem_bytes` mirrors ``sm90mma::smem_bytes``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import torch
+
+BN = 128  # n columns per CTA
+BK = 64  # features per stage
+PITCH = BN + 4  # fp32 partial-tile row pitch
+W_STAGE_BYTES = BN * BK * 2
+ROW_TILES = (8, 16, 32, 64, 128)
+MAX_SPLIT = 8
+MAX_STAGES = 8
+MAX_SMEM = 232448  # per block on sm_90
+TWO_PER_SM_SMEM = (233472 - 2 * 1024) // 2  # 228 KB per SM, 1 KB reserved per block
+H100_SMS = 132
+VARIANTS = {"wmma": 0, "sm90": 1}  # the C entry points' variant numbers
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    variant: str
+    row_tile: int = 0
+    split: int = 1
+    stages: int = 0
+    grid: tuple[int, int, int] = (0, 0, 0)
+    smem: int = 0
+
+    @property
+    def ctas(self) -> int:
+        return math.prod(self.grid)
+
+    @property
+    def args(self) -> tuple[int, int, int, int]:
+        """(variant, row tile, split, stages) as the C entry points take them."""
+        return VARIANTS[self.variant], self.row_tile, self.split, self.stages
+
+    def describe(self) -> str:
+        if self.variant != "sm90":
+            return f"variant {self.variant} (64 x 64 output tiles, {self.ctas} blocks)"
+        return (f"variant sm90: n tile {BN}, row tile {self.row_tile}, split {self.split} "
+                f"(cluster {self.split}x1x1), grid {self.grid}, {self.ctas} CTAs, "
+                f"{self.stages} stages, {self.smem} B shared memory")
+
+
+def smem_bytes(row_tile: int, x_size: int, sign: bool, stages: int) -> int:
+    """Dynamic shared memory of one sm90 CTA: 1 KB of alignment slack, the
+    stage ring (reused for the fp32 partial tile), the double buffer of ±1
+    tiles (bitlinear on fp32 x; bf16 x is binarized in place) and the
+    barriers."""
+    stage = W_STAGE_BYTES + row_tile * BK * x_size
+    ring = -(-max(stages * stage, row_tile * PITCH * 4) // 1024) * 1024
+    return 1024 + ring + (2 * row_tile * BK * 2 if sign and x_size == 4 else 0) + 16 * stages
+
+
+def sm90_plan(rows: int, m: int, n: int, x_size: int, sign: bool, sms: int = H100_SMS) -> Plan:
+    row_tile = next((t for t in ROW_TILES if t >= rows), ROW_TILES[-1])
+    tiles = -(-n // BN) * -(-rows // row_tile)
+    kt = -(-m // BK)
+    split = max(1, min(MAX_SPLIT, kt, -(-sms // tiles)))
+    split = -(-kt // -(-kt // split))  # no split without a k tile
+    fits = [s for s in range(2, MAX_STAGES + 1)
+            if smem_bytes(row_tile, x_size, sign, s) <= TWO_PER_SM_SMEM]
+    if not fits or fits[-1] < 3:
+        fits = [s for s in range(2, MAX_STAGES + 1)
+                if smem_bytes(row_tile, x_size, sign, s) <= MAX_SMEM]
+    stages = fits[-1]
+    return Plan("sm90", row_tile, split, stages,
+                (split, -(-n // BN), -(-rows // row_tile)),
+                smem_bytes(row_tile, x_size, sign, stages))
+
+
+def wmma_plan(rows: int, n: int) -> Plan:
+    return Plan("wmma", grid=(-(-n // 64), -(-rows // 64), 1))
+
+
+def tma_ok(rows: int, m: int, n: int, x_size: int, ptrs: tuple[int, ...]) -> bool:
+    """Whether TMA can describe the operands: 16-byte-aligned bases, n % 8
+    == 0 and m * x_size % 16 == 0 (the row strides of w and x)."""
+    return (rows > 0 and m > 0 and n % 8 == 0 and (m * x_size) % 16 == 0
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def choose(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
+           alpha: torch.Tensor | None = None) -> Plan:
+    """The variant and plan for (rows, m) x @ (m, n) w into out, by shape
+    and pointer alignment, before any launch."""
+    rows, m = x.shape
+    n = w.shape[1]
+    ptrs = tuple(t.data_ptr() for t in (x, w, out, alpha) if t is not None)
+    if tma_ok(rows, m, n, x.element_size(), ptrs):
+        return sm90_plan(rows, m, n, x.element_size(), alpha is not None, _sm_count(x.device))
+    return wmma_plan(rows, n)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

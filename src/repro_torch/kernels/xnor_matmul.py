@@ -61,15 +61,14 @@ def hamming_matmul_plain(a_packed: torch.Tensor, w_packed: torch.Tensor) -> torc
     return out
 
 
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("xnor_matmul")
-    fn = lib.hamming_matmul
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return lib
+    return _build.load("xnor_matmul", {"hamming_matmul": _ARGTYPES})
 
 
 def hamming_matmul_packed(

@@ -101,3 +101,21 @@ def test_launch_summary_has_every_key():
         path, line = k["replaces"].split(":")
         assert "pallas_call" in (ROOT / path).read_text() and int(line) > 0
     assert summary[0]["launches"] == 704 and summary[0]["bound_by"] == "operations"
+
+
+def test_mma_cases_cover_both_variants_and_the_k_edge():
+    """check_mma's ragged case can only take the WMMA variant; its edge
+    case takes the sm90 variant with m past a whole number of k tiles."""
+    from repro_torch.kernels import mma_plan
+
+    cs = _chip_smoke()
+    rows, m, n = cs.MMA_RAGGED
+    assert not mma_plan.tma_ok(rows, m, n, 2, (0,))
+    rows, m, n = cs.MMA_EDGE
+    assert mma_plan.tma_ok(rows, m, n, 2, (0,)) and m % mma_plan.BK != 0
+    assert cs.MMA_MAIN[0] in cs.MMA_SHAPES
+
+
+def test_unknown_arguments_are_refused(capsys):
+    assert _chip_smoke().main(["--no-such-flag"]) == 2
+    assert "usage" in capsys.readouterr().err

@@ -33,7 +33,8 @@ from repro_torch.models import lm
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imports(path: Path) -> set[str]:
@@ -145,7 +146,8 @@ def test_later_slices_are_named():
 
 
 NEW_MODULES = ("fleet/pool.py", "fleet/replica.py", "fleet/router.py", "kernels/ref.py",
-               "kernels/flash_attention.py", "kernels/bitlinear.py", "kernels/wdm_mmm.py")
+               "kernels/flash_attention.py", "kernels/bitlinear.py", "kernels/wdm_mmm.py",
+               "kernels/mma_plan.py")
 
 
 def test_import_scan_covers_the_new_modules():
@@ -178,3 +180,37 @@ def test_new_wrappers_raise_for_a_cuda_tensor_without_a_card():
             with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
                 call()
     assert (flash_attention.launches, bitlinear.launches, wdm_mmm.launches) == before
+
+
+@pytest.mark.parametrize("rows,m,n", [(8, 2048, 5632), (9, 513, 3)], ids=["aligned", "ragged"])
+def test_mma_wrappers_raise_for_a_cuda_tensor_at_either_variant_shape(monkeypatch, rows, m, n):
+    """An aligned shape (the sm90 variant's) and a ragged one (the WMMA
+    variant's) on a fake CUDA tensor both reach the build error: no
+    launch is counted, for either variant, and the plain version never
+    runs."""
+    _needs_no_cuda()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(bitlinear, "bitlinear_plain", no_plain)
+    monkeypatch.setattr(wdm_mmm, "mmm_plain", no_plain)
+    before = (bitlinear.launches, dict(bitlinear.launches_by_variant),
+              wdm_mmm.launches, dict(wdm_mmm.launches_by_variant))
+    with FakeTensorMode():
+        x = torch.empty((rows, m), device="cuda", dtype=torch.bfloat16)
+        w = torch.empty((m, n), device="cuda", dtype=torch.bfloat16)
+        alpha = torch.empty(n, device="cuda")
+        calls = (
+            lambda: bitlinear.bitlinear_kernel(x, w, alpha),
+            lambda: bitlinear.bitlinear_kernel(x.float(), w, alpha),
+            lambda: wdm_mmm.mmm(x, w),
+            lambda: ops.bitlinear(x, w.float(), alpha),
+            lambda: ops.wdm_mmm(x.reshape(1, rows, m), w),
+        )
+        for call in calls:
+            with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+                call()
+    assert before == (bitlinear.launches, dict(bitlinear.launches_by_variant),
+                      wdm_mmm.launches, dict(wdm_mmm.launches_by_variant))
