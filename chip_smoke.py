@@ -1,39 +1,44 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--mma-only]
+    python3 chip_smoke.py [--mma-only | --flash-only | --hamming-only | --kernels-only]
 
-``--mma-only`` stops after bitlinear's and the WDM MMM's checks and
-timings and prints no result line. Needs one CUDA card (device 0), the CUDA toolkit's ``nvcc`` and
-``nvidia-smi``; exits non-zero without them. Phases, each announced on
-its own ``[phase]`` line:
+Each ``--*-only`` argument stops after those kernels' checks and timings
+(``--kernels-only``: every kernel's) and prints no result line. Needs one
+CUDA card (device 0), the CUDA toolkit's ``nvcc`` and ``nvidia-smi``;
+exits non-zero without them. Phases, each announced on its own
+``[phase]`` line:
 
 1. device: card name and power limit, TF32 off for fp32 matmuls;
 2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version -- the fused
    BitLinear and Hamming kernels at the tinyllama-1.1b projection shapes
-   (bit-exact, ``torch.equal``), flash attention on prefill,
-   continuation, ragged, D = 128 and non-causal cases (within a stated
-   tolerance), bitlinear and the WDM MMM at the projection shapes, a
+   with 8, 128 and 1024 rows, a ragged and two block-padded shapes
+   (bit-exact, ``torch.equal``; the Hamming kernel's variant, ``b1`` or
+   ``popc``, and plan printed, two launches equal), flash attention on
+   prefill, continuation, ragged, D = 128 and non-causal cases in bf16
+   (variant ``sm90``) and fp32 (``fma``), within a stated tolerance, two
+   launches bit-identical, bitlinear and the WDM MMM at the projection shapes, a
    ragged shape (their WMMA variant) and an aligned shape with a partial
    last k tile (``torch.equal``; two launches bit-identical; each
    shape's variant and launch plan printed) -- with kernel, plain-version
-   and one-PyTorch-call times and the card's bound (the two MMAs and
-   their ``torch.matmul`` timed by CUDA-graph replay, and eagerly too);
+   and one-PyTorch-call times and the card's bound (every kernel and its
+   one-call yardstick timed by CUDA-graph replay, the kernel eagerly too);
 4. entry points: ``ops.bitlinear`` / ``ops.wdm_mmm`` against the dense
    oracles, the path of those two kernels;
 5. serve: tinyllama-1.1b at full width (random weights from a seeded
    generator) through ``repro_torch.launch.serve``: a lockstep batch on
    the ``packed`` engine, the same batch under ``--raw-weights`` and on
    the ``reference`` engine (tokens must match), and the request
-   scheduler path. The kernels' launch counts are read around each run,
-   and a few decode ticks run under ``torch.profiler`` to show where a
-   tick's time goes;
+   scheduler path. The kernels' launch counts (the Hamming kernel's by
+   variant: all ``b1``) are read around each run, and a few decode ticks
+   run under ``torch.profiler`` to show where a tick's time goes;
 6. serve pallas: the same model with ``attn_impl="pallas"`` -- lockstep,
    ``prefill_continue`` == ``prefill``, a 2-replica prefix-routed fleet,
-   batched == alone -- after a check that the port's per-row ops give a
-   row the same bits whatever the row count.
+   batched == alone, every flash launch of the ``sm90`` variant -- after
+   a check that the port's per-row ops give a row the same bits whatever
+   the row count.
 
 Then one ``{"kernels": [...]}`` JSON line, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -58,6 +63,11 @@ SEED = 0
 # the tensor cores, 67 TFLOP/s fp32 outside them.
 HBM_BYTES_PER_S = 3.35e12
 POPC_PER_CLOCK_PER_SM = 16
+# the binary tensor cores' rate (mma.sync m16n8k256 .and.popc), which no
+# data sheet gives: measured by ``tools/tc_probe.py --sections b1`` on an
+# H100 80GB HBM3 at 700 W (one bit-operation: one bit pair of the
+# contraction); the Hamming kernel's operation bound
+B1_BITOPS_PER_S = 5126e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
 
@@ -70,7 +80,8 @@ SHAPES = {
     "w1/w3": (2048, 5632),
     "w2": (5632, 2048),
 }
-ROWS = (8, 128)  # a decode tick of 8 slots; one 128-token prompt prefill
+ROWS = (8, 128, 1024)  # a decode tick of 8 slots; one 128-token prompt; the lockstep
+# prefill of 8 x 128 tokens (one call per projection)
 # one layer's launches per decode tick: fused [q|k|v], o, w1, w3, w2;
 # unfused / raw-weights q, k, v, o, w1, w3, w2
 LAYER_FUSED = ("qkv", "q/o", "w1/w3", "w1/w3", "w2")
@@ -199,98 +210,131 @@ def _case(gen, rows: int, m: int, n: int, prepad: bool):
     return x, w_signs, wp, alpha, beta
 
 
-def check_kernels(clock_mhz: float) -> dict:
-    """Every kernel against its plain version; returns per-kernel,
-    per-shape records for the summary line."""
+def check_kernels(clock_mhz: float, which: tuple[str, ...] = ("fused_bnn_matmul", "hamming_matmul")) -> dict:
+    """The fused BitLinear and Hamming kernels (those in ``which``) against
+    their plain versions at every shape (``torch.equal``); returns
+    per-kernel, per-shape records for the summary line. Kernel and
+    ``torch.matmul`` are timed by CUDA-graph replay (the card's time),
+    the kernel also eagerly (CUDA events around a loop of calls: the
+    wrapper's host work included), the plain version eagerly."""
     import torch
 
-    from repro_torch.kernels import fused_decode, ops, xnor_matmul
+    from repro_torch.kernels import fused_decode, mma_plan, ops, xnor_matmul
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     popc_per_s = POPC_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * clock_mhz * 1e6
     cases = [(f"{name} B={b}", b, m, n, False) for name, (m, n) in SHAPES.items() for b in ROWS]
     cases += [("ragged m=100 n=48 B=3", 3, 100, 48, False),
               ("prepad m=100 n=48 B=3", 3, 100, 48, True),
+              # a padded artifact with n % 4 != 0: the b1 variant's
+              # element-wise store
+              ("prepad m=100 n=45 B=3", 3, 100, 45, True),
               ("prepad m=300 n=200 B=8", 8, 300, 200, True)]
-    rec = {"fused_bnn_matmul": {}, "hamming_matmul": {}}
-    worst = {"fused_bnn_matmul": 0.0, "hamming_matmul": 0.0}
+    rec = {k: {} for k in which}
+    worst = dict.fromkeys(which, 0.0)
     for label, b, m, n, prepad in cases:
         x, w_signs, wp, alpha, beta = _case(gen, b, m, n, prepad)
         kw = -(-m // 32)
         a = ops.pack_bits(x >= 0)
-
-        got = fused_decode.fused_bnn_matmul_kernel(x, wp, alpha, beta, m=m, n=n)
-        want = fused_decode.fused_bnn_matmul_plain(x, wp, alpha, beta, m=m, n=n)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"fused kernel != plain version at {label}: max "
-                                 f"|diff| {(got - want).abs().max().item()}")
-        worst["fused_bnn_matmul"] = max(worst["fused_bnn_matmul"], (got - want).abs().max().item())
-        ham = xnor_matmul.hamming_matmul_packed(a, wp, n=n)
-        ham_plain = xnor_matmul.hamming_matmul_plain(a, wp[:kw, :n])
-        torch.cuda.synchronize()
-        if not torch.equal(ham, ham_plain):
-            raise AssertionError(f"Hamming kernel != plain version at {label}")
+        if "fused_bnn_matmul" in which:
+            got = fused_decode.fused_bnn_matmul_kernel(x, wp, alpha, beta, m=m, n=n)
+            want = fused_decode.fused_bnn_matmul_plain(x, wp, alpha, beta, m=m, n=n)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"fused kernel != plain version at {label}: max "
+                                     f"|diff| {(got - want).abs().max().item()}")
+            worst["fused_bnn_matmul"] = max(worst["fused_bnn_matmul"],
+                                            (got - want).abs().max().item())
         dot = (x >= 0).float() * 2 - 1
-        if not torch.equal((m - 2 * ham).float(), dot @ w_signs):
-            raise AssertionError(f"Hamming kernel != the ±1 matmul at {label}")
-        worst["hamming_matmul"] = max(worst["hamming_matmul"], (ham - ham_plain).abs().max().item())
-        print(f"[kernels] {label}: fused == plain, hamming == plain == ±1 matmul", flush=True)
+        plan_text = ""
+        if "hamming_matmul" in which:
+            plan = mma_plan.choose_hamming(a, wp, torch.empty((b, n), dtype=torch.int32,
+                                                              device="cuda"))
+            # every shape takes the b1 variant but m = 300 (10 words a row:
+            # a row stride TMA cannot describe)
+            want_variant = "popc" if m == 300 else "b1"
+            before = dict(xnor_matmul.launches_by_variant)
+            ham = xnor_matmul.hamming_matmul_packed(a, wp, n=n)
+            again = xnor_matmul.hamming_matmul_packed(a, wp, n=n)
+            ham_plain = xnor_matmul.hamming_matmul_plain(a, wp[:kw, :n])
+            torch.cuda.synchronize()
+            if not torch.equal(ham, ham_plain):
+                raise AssertionError(f"Hamming kernel != plain version at {label} "
+                                     f"({plan.describe()})")
+            if not torch.equal(ham, again):
+                raise AssertionError(f"Hamming kernel: two launches differ at {label}")
+            if not torch.equal((m - 2 * ham).float(), dot @ w_signs):
+                raise AssertionError(f"Hamming kernel != the ±1 matmul at {label}")
+            used = {v: xnor_matmul.launches_by_variant[v] - before[v] for v in before}
+            if plan.variant != want_variant or used[want_variant] != 2:
+                raise AssertionError(f"Hamming kernel at {label}: plan {plan.variant}, launches "
+                                     f"by variant {used}; expected {want_variant}")
+            worst["hamming_matmul"] = max(worst["hamming_matmul"],
+                                          (ham - ham_plain).abs().max().item())
+            plan_text = f"; Hamming {plan.describe()}"
+        print(f"[kernels] {label}: {' and '.join(which)} == plain"
+              f"{' == ±1 matmul, two launches equal' if 'hamming_matmul' in which else ''}"
+              f"{plan_text}", flush=True)
         if prepad or label.startswith("ragged"):
             continue
 
         name = label.split()[0]
         reps = _copies(wp.numel() * 4)
-        w_sets = [wp] + [wp.clone() for _ in range(reps - 1)]
+        w_sets = [(wp,)] + [(wp.clone(),) for _ in range(reps - 1)]
         lib_sets = [w_signs.to(torch.bfloat16)]
-        lib_sets += [lib_sets[0].clone() for _ in range(_copies(m * n * 2) - 1)]
+        lib_sets = [(w,) for w in lib_sets + [lib_sets[0].clone() for _ in range(_copies(m * n * 2) - 1)]]
         x_pm = dot.to(torch.bfloat16)
         scale = alpha[None, :] * beta[:, None]
-
-        f_ms = _time_ms(lambda w: fused_decode.fused_bnn_matmul_kernel(x, w, alpha, beta, m=m, n=n),
-                        [(w,) for w in w_sets], 200)
-        f_plain = _time_ms(lambda w: fused_decode.fused_bnn_matmul_plain(x, w, alpha, beta, m=m, n=n),
-                           [(wp,)], 3)
-        f_lib = _time_ms(lambda w: torch.matmul(x_pm, w).float() * scale, [(w,) for w in lib_sets], 50)
-        h_ms = _time_ms(lambda w: xnor_matmul.hamming_matmul_packed(a, w, n=n),
-                        [(w,) for w in w_sets], 200)
-        h_plain = _time_ms(lambda w: xnor_matmul.hamming_matmul_plain(a, w), [(wp,)], 3)
-        h_lib = _time_ms(lambda w: torch.matmul(x_pm, w), [(w,) for w in lib_sets], 50)
-
         popc = b * n * kw
-        f_bytes = b * m * 2 + kw * n * 4 + n * 4 + b * 4 + b * n * 4
-        h_bytes = b * kw * 4 + kw * n * 4 + b * n * 4
-        for kname, ms, plain, lib, nbytes in (
-            ("fused_bnn_matmul", f_ms, f_plain, f_lib, f_bytes),
-            ("hamming_matmul", h_ms, h_plain, h_lib, h_bytes),
-        ):
+        ops_ms = {"fused_bnn_matmul": popc / popc_per_s * 1e3,
+                  "hamming_matmul": popc * 32 / B1_BITOPS_PER_S * 1e3}
+        runs = {
+            "fused_bnn_matmul": (
+                lambda w: fused_decode.fused_bnn_matmul_kernel(x, w, alpha, beta, m=m, n=n),
+                lambda w: fused_decode.fused_bnn_matmul_plain(x, w, alpha, beta, m=m, n=n),
+                lambda w: torch.matmul(x_pm, w).float() * scale,
+                b * m * 2 + kw * n * 4 + n * 4 + b * 4 + b * n * 4),
+            "hamming_matmul": (
+                lambda w: xnor_matmul.hamming_matmul_packed(a, w, n=n),
+                lambda w: xnor_matmul.hamming_matmul_plain(a, w),
+                lambda w: torch.matmul(x_pm, w),
+                b * kw * 4 + kw * n * 4 + b * n * 4),
+        }
+        for kname in which:
+            fn, plain_fn, lib_fn, nbytes = runs[kname]
+            ms = _graph_ms(fn, w_sets, 200)
+            eager = _time_ms(fn, w_sets, 200)
+            plain = _time_ms(plain_fn, w_sets[:1], 3)
+            lib = _graph_ms(lib_fn, lib_sets, 200)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = popc / popc_per_s * 1e3
+            t_ops = ops_ms[kname]
             rec[kname][(name, b)] = {
-                "ms": ms, "plain_ms": plain, "library_ms": lib,
+                "ms": ms, "eager_ms": eager, "plain_ms": plain, "library_ms": lib,
                 "bytes_ms": t_bytes, "ops_ms": t_ops,
             }
-            print(f"[kernels] {kname} {name} B={b} (m={m}, n={n}): kernel {ms:.4f} ms, "
-                  f"bound {max(t_bytes, t_ops):.4f} ms by "
+            print(f"[kernels] {kname} {name} B={b} (m={m}, n={n}): kernel {ms:.4f} ms "
+                  f"(graph replay; eager {eager:.4f} ms), bound {max(t_bytes, t_ops):.4f} ms by "
                   f"{'bytes' if t_bytes >= t_ops else 'operations'} "
-                  f"({nbytes} B, {popc} popc), plain {plain:.4f} ms, "
-                  f"torch.matmul {lib:.4f} ms", flush=True)
-    print(f"[kernels] fused_bnn_matmul check: torch.equal at every shape, max |diff| "
-          f"{worst['fused_bnn_matmul']}; hamming_matmul check: torch.equal at every "
-          f"shape, max |diff| {worst['hamming_matmul']}", flush=True)
+                  f"({nbytes} B, {popc} 32-bit words; {100 * max(t_bytes, t_ops) / ms:.0f}% of it), "
+                  f"plain {plain:.4f} ms, torch.matmul {lib:.4f} ms (graph replay)", flush=True)
+    print("[kernels] " + "; ".join(f"{k} check: torch.equal at every shape, max |diff| "
+                                    f"{worst[k]}" for k in which), flush=True)
     return {"records": rec, "worst": worst}
 
 
 # flash attention cases (label, B, H, KV, Sq, Skv, D, causal): the
 # tinyllama-1.1b prefill of the lockstep batch, a continuation of 64
 # tokens over a 256-token graft, a ragged length, llama3.2-3b's heads
-# (D = 128) and a non-causal square
+# (D = 128), a non-causal square and a short non-causal ragged case
 FLASH_CASES = (
     ("tinyllama prefill", 8, 32, 4, 128, 128, 64, True),
     ("continuation 64 over 320", 1, 32, 4, 64, 320, 64, True),
     ("ragged 200", 2, 32, 4, 200, 200, 64, True),
     ("llama3.2-3b D=128", 1, 24, 8, 512, 512, 128, True),
     ("non-causal square", 1, 32, 4, 128, 128, 64, False),
+    # fewer queries than a tile over a ragged key length: the masked edge
+    # tile without a diagonal
+    ("non-causal 40 over 100", 2, 8, 2, 40, 100, 64, False),
 )
 # the main-path launch the summary line reports: one prefill layer
 FLASH_MAIN = ("tinyllama prefill", "bf16")
@@ -320,7 +364,8 @@ def _within(got, want, atol: float, rtol: float) -> tuple[bool, float]:
 
 def check_flash(gen) -> dict:
     """The flash kernel against its plain version on every case, in bf16
-    and fp32; timings of kernel, plain version and SDPA. Tolerance: the
+    and fp32; timings of kernel and SDPA by CUDA-graph replay, of the
+    kernel eagerly too, and of the plain version. Tolerance: the
     two differ by summation order only (the q.k dot and the P.V sum in a
     tile), so fp32 agrees to 1e-5 and bf16 to one bf16 ulp (2^-7 of the
     value) where such a difference crosses a rounding boundary."""
@@ -335,21 +380,32 @@ def check_flash(gen) -> dict:
             q = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dtype)
             k = torch.randn((b, kvh, skv, d), generator=gen, device="cuda").to(dtype)
             v = torch.randn((b, kvh, skv, d), generator=gen, device="cuda").to(dtype)
+            # bf16 takes the tensor-core variant, fp32 the FMA one
+            want_variant = "sm90" if dtype == torch.bfloat16 else "fma"
+            before = dict(fa.launches_by_variant)
             got = fa.flash_attention(q, k, v, causal=causal)
+            again = fa.flash_attention(q, k, v, causal=causal)
             want = fa.flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
             atol, rtol = (1e-5, 2.0**-7) if dtype == torch.bfloat16 else (1e-5, 1e-5)
             ok, err = _within(got, want, atol, rtol)
             if not ok or got.shape != want.shape:
-                raise AssertionError(f"flash kernel != plain version at {label} {dname}: "
-                                     f"max |diff| {err}")
+                raise AssertionError(f"flash kernel ({want_variant}) != plain version at {label} "
+                                     f"{dname}: max |diff| {err}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash kernel: two launches differ at {label} {dname}")
+            used = {k_: fa.launches_by_variant[k_] - before[k_] for k_ in before}
+            if fa.choose_variant(q, k, v) != want_variant or used[want_variant] != 2:
+                raise AssertionError(f"flash at {label} {dname}: launches by variant {used}; "
+                                     f"expected {want_variant}")
             worst = max(worst, err)
 
             nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
             sets = [(q, k, v)] + [(q.clone(), k.clone(), v.clone())
                                   for _ in range(_copies(nbytes) - 1)]
-            ms = _time_ms(lambda q_, k_, v_: fa.flash_attention(q_, k_, v_, causal=causal),
-                          sets, 50)
+            kernel_fn = lambda q_, k_, v_: fa.flash_attention(q_, k_, v_, causal=causal)  # noqa: E731
+            ms = _graph_ms(kernel_fn, sets, 50)
+            eager = _time_ms(kernel_fn, sets, 50)
             plain = _time_ms(lambda q_, k_, v_: fa.flash_attention_plain(q_, k_, v_, causal=causal),
                              sets[:1], 3)
             if causal and sq != skv:
@@ -359,17 +415,21 @@ def check_flash(gen) -> dict:
             else:
                 lib_fn = lambda q_, k_, v_: F.scaled_dot_product_attention(  # noqa: E731
                     q_, k_, v_, is_causal=causal, enable_gqa=True)
-            lib = _time_ms(lib_fn, sets, 50)
+            lib = _graph_ms(lib_fn, sets, 50)
             flops = 4 * b * h * _visible_pairs(sq, skv, causal) * d
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / (BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S) * 1e3
-            rec[(label, dname)] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                                   "bytes_ms": t_bytes, "ops_ms": t_ops, "max_abs_err": err}
+            rec[(label, dname)] = {"ms": ms, "eager_ms": eager, "plain_ms": plain,
+                                   "library_ms": lib, "bytes_ms": t_bytes, "ops_ms": t_ops,
+                                   "max_abs_err": err}
+            bound = max(t_bytes, t_ops)
             print(f"[kernels] flash_attention {label} {dname} (B={b} H={h} KV={kvh} Sq={sq} "
-                  f"Skv={skv} D={d} causal={causal}): kernel {ms:.4f} ms, bound "
-                  f"{max(t_bytes, t_ops):.4f} ms by {'bytes' if t_bytes >= t_ops else 'operations'} "
-                  f"({nbytes} B, {flops} FLOP), plain {plain:.4f} ms, SDPA {lib:.4f} ms; "
-                  f"max |diff| vs plain {err:.3g}", flush=True)
+                  f"Skv={skv} D={d} causal={causal}): kernel {ms:.4f} ms (graph replay; eager "
+                  f"{eager:.4f} ms), bound {bound:.4f} ms by "
+                  f"{'bytes' if t_bytes >= t_ops else 'operations'} ({nbytes} B, {flops} FLOP; "
+                  f"{100 * bound / ms:.0f}% of it), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
+                  f"(graph replay); variant {want_variant}, max |diff| vs plain {err:.3g}, two "
+                  f"launches bit-identical", flush=True)
     print(f"[kernels] flash_attention check: within tolerance at every case "
           f"(fp32 1e-5, bf16 one bf16 ulp; sum order only), max |diff| {worst}", flush=True)
     return {"records": rec, "worst": worst}
@@ -554,6 +614,7 @@ def entry_point_phase(device: str = "cuda") -> dict:
     by_variant = {"sm90": len(cases) - 1, "wmma": 1}
     _check_launches(device, variants, {"bitlinear": by_variant, "wdm_mmm": by_variant},
                     "entry points by variant")
+    BY_VARIANT.update(variants)
     print(f"[entry] ops.bitlinear and ops.wdm_mmm == dense oracles at {len(cases)} shapes; "
           f"launches {launches}, by variant {variants}", flush=True)
     return launches
@@ -572,8 +633,13 @@ def _reset_counts() -> None:
 
     for mod in (fused_decode, xnor_matmul, flash_attention, bitlinear, wdm_mmm):
         mod.launches = 0
-    for mod in (bitlinear, wdm_mmm):
+    for mod in (xnor_matmul, flash_attention, bitlinear, wdm_mmm):
         mod.launches_by_variant = dict.fromkeys(mod.launches_by_variant, 0)
+
+
+# each kernel's launches by variant in the run that counts its launches
+# (filled by the phases; the fused kernel has one variant)
+BY_VARIANT: dict[str, dict[str, int]] = {}
 
 
 def _counts() -> dict:
@@ -663,6 +729,7 @@ def serve_phase(device: str = "cuda", smoke: bool = False) -> dict:
 
     from repro_torch import compiler
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import xnor_matmul
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
@@ -687,6 +754,7 @@ def serve_phase(device: str = "cuda", smoke: bool = False) -> dict:
     # [q|k|v], o, w1, w3, w2 per layer, in the prefill and GEN - 1 ticks
     _check_launches(device, n_packed, {"fused_bnn_matmul": layers * 5 * GEN,
                                        "hamming_matmul": 0}, "packed lockstep")
+    BY_VARIANT["fused_bnn_matmul"] = {"popc": n_packed["fused_bnn_matmul"]}
     print(f"[serve] packed lockstep {ARCH} batch={BATCH} prompt={PROMPT} gen={GEN}: "
           f"prefill {packed['prefill_s'] * 1e3:.2f} ms, decode {GEN - 1} ticks "
           f"{packed['decode_s'] * 1e3:.2f} ms ({packed['decode_tok_s']:.1f} tok/s); "
@@ -701,12 +769,19 @@ def serve_phase(device: str = "cuda", smoke: bool = False) -> dict:
     # q, k, v, o, w1, w3, w2 per layer
     _check_launches(device, n_raw, {"fused_bnn_matmul": 0, "hamming_matmul": layers * 7 * GEN},
                     "raw-weights lockstep")
+    # every projection's packed words have a row stride TMA can describe
+    ham_variants = dict(xnor_matmul.launches_by_variant)
+    _check_launches(device, {"hamming_matmul": ham_variants},
+                    {"hamming_matmul": {"popc": 0, "b1": layers * 7 * GEN}},
+                    "raw-weights lockstep by variant")
+    BY_VARIANT["hamming_matmul"] = ham_variants
     if not np.array_equal(raw["generated"], gen_packed):
         raise AssertionError("raw-weights generations differ from the programmed ones")
     if not torch.equal(raw["prefill_logits"], logits):
         raise AssertionError("raw-weights prefill logits differ from the programmed ones")
     print(f"[serve] packed --raw-weights lockstep: prefill {raw['prefill_s'] * 1e3:.2f} ms, "
-          f"decode {raw['decode_tok_s']:.1f} tok/s; launches {n_raw}; tokens and "
+          f"decode {raw['decode_tok_s']:.1f} tok/s; launches {n_raw}, by variant "
+          f"{ham_variants}; tokens and "
           f"prefill logits == programmed", flush=True)
     _release(raw)
 
@@ -823,6 +898,12 @@ def _flash_count() -> int:
     return flash_attention.launches
 
 
+def _flash_variants() -> dict[str, int]:
+    from repro_torch.kernels import flash_attention
+
+    return dict(flash_attention.launches_by_variant)
+
+
 def fleet_requests(cfg) -> list:
     """The seeded shared-prefix request trace (``REQUEST_SEED``)."""
     import numpy as np
@@ -900,8 +981,10 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
     _reset_counts()
     lock = serve.lockstep(packed, tokens, GEN)
     n_flash = _flash_count()
-    if device == "cuda" and n_flash != layers:
-        raise AssertionError(f"pallas lockstep launched flash {n_flash} times, expected {layers}")
+    # bf16 (B, H, S, D) views of the model's activations: the sm90 variant
+    _check_launches(device, {"flash": n_flash, "by variant": _flash_variants()},
+                    {"flash": layers, "by variant": {"fma": 0, "sm90": layers}},
+                    "pallas lockstep")
     ref_model = compiler.compile(dataclasses.replace(cfg, quant="bnn"), params(),
                                  compiler.HardwareTarget(engine="reference"), device=device)
     ref = serve.lockstep(ref_model, tokens, GEN)
@@ -1020,9 +1103,12 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
     if st.finished != FLEET_REQUESTS or st.grafted_tokens <= 0:
         raise AssertionError(f"fleet finished {st.finished} of {FLEET_REQUESTS}, grafted "
                              f"{st.grafted_tokens} tokens")
-    if device == "cuda" and (n_fleet != layers * prefills or fused == 0):
-        raise AssertionError(f"fleet launched flash {n_fleet} times for {prefills} prefills "
-                             f"({layers} layers), fused {fused}")
+    fleet_variants = _flash_variants()
+    if device == "cuda" and (n_fleet != layers * prefills or fused == 0
+                             or fleet_variants != {"fma": 0, "sm90": n_fleet}):
+        raise AssertionError(f"fleet launched flash {n_fleet} times ({fleet_variants}) for "
+                             f"{prefills} prefills ({layers} layers), fused {fused}")
+    BY_VARIANT["flash_attention"] = fleet_variants
     toks = sum(len(s.generated) for s in states)
     del fleet
 
@@ -1053,7 +1139,8 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
           f"prefix hits {st.prefix_hits}, grafted {st.grafted_tokens} tokens, prefilled "
           f"{st.prefill_tokens}; prefill per admission: full {np.mean(full_adm):.2f} ms "
           f"({len(full_adm)}), grafted {np.mean(grafted):.2f} ms ({len(grafted)}); flash "
-          f"launches {n_fleet} for {layers} layers x {prefills} prefills; tokens == single "
+          f"launches {n_fleet} for {layers} layers x {prefills} prefills, by variant "
+          f"{fleet_variants}; tokens == single "
           f"engine; single engine == each request alone for all {alone['pallas']} (pallas) "
           f"and {alone['jnp']} (jnp)", flush=True)
     return n_fleet
@@ -1084,6 +1171,8 @@ def kernel_summary(checked: dict, launches: dict) -> list[dict]:
             "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in recs),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": sum(r["library_ms"] for r in recs),
+            "eager_ms": sum(r["eager_ms"] for r in recs),
+            "launches_by_variant": BY_VARIANT.get(kname, {}),
             "per": "one tinyllama-1.1b layer of a decode tick, 8 slots: "
                    + ", ".join(layer),
         })
@@ -1119,14 +1208,24 @@ def launch_summary(flash: dict, mma: dict, launches: dict) -> list[dict]:
             "bound_ms": max(rec["bytes_ms"], rec["ops_ms"]),
             "bound_by": "bytes" if rec["bytes_ms"] >= rec["ops_ms"] else "operations",
             "library_ms": rec["library_ms"],
+            "eager_ms": rec["eager_ms"],
+            "launches_by_variant": BY_VARIANT.get(name, {}),
             "per": per,
         })
     return out
 
 
+ONLY = {  # an argument that stops after some kernels' checks and times (no result line)
+    "--mma-only": ("mma",),
+    "--flash-only": ("flash",),
+    "--hamming-only": ("hamming",),
+    "--kernels-only": ("fused", "hamming", "flash", "mma"),
+}
+
+
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--mma-only"]):
-        print("usage: chip_smoke.py [--mma-only]", file=sys.stderr)
+    if argv and (len(argv) > 1 or argv[0] not in ONLY):
+        print(f"usage: chip_smoke.py [{' | '.join(ONLY)}]", file=sys.stderr)
         return 2
     phase("device")
     card, clock_mhz = check_device()
@@ -1136,8 +1235,17 @@ def main(argv: list[str]) -> int:
     phase("build")
     build_kernels()
     phase("kernels")
-    if argv:  # bitlinear and the WDM MMM alone; no result line
-        check_mma(torch.Generator(device="cuda").manual_seed(SEED))
+    if argv:  # some kernels alone; no result line
+        only = ONLY[argv[0]]
+        ham = tuple(k for k, o in (("fused_bnn_matmul", "fused"), ("hamming_matmul", "hamming"))
+                    if o in only)
+        if ham:
+            check_kernels(clock_mhz, ham)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        if "flash" in only:
+            check_flash(gen)
+        if "mma" in only:
+            check_mma(gen)
         print(card, flush=True)
         return 0
     checked = check_kernels(clock_mhz)

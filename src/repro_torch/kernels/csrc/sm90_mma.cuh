@@ -71,7 +71,11 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "sm90_ptx.cuh"
+
 namespace sm90mma {
+
+using namespace sm90ptx;
 
 // ---------------------------------------------------------------------------
 // launch-plan constants (mirrored by repro_torch/kernels/mma_plan.py)
@@ -87,13 +91,6 @@ constexpr int kConsumerThreads = 128;           // one warpgroup
 constexpr int kThreads = kConsumerThreads + 32; // + one producer warp
 constexpr int kMaxSplit = 8;
 constexpr int kMaxSmem = 232448;                // per block, sm_90
-
-// error codes of the C entry points besides CUDA's own (positive)
-constexpr int kErrPlan = -1;     // plan outside what the kernel takes
-constexpr int kErrDriver = -2;   // cuTensorMapEncodeTiled unavailable
-constexpr int kErrTensorMap = -3;
-
-__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
 // dynamic shared memory of one CTA: 1 KB of alignment slack, the stage
 // ring (the fp32 partial tile reuses it after the main loop), the
@@ -114,86 +111,7 @@ __host__ __device__ constexpr int smem_bytes(int rows_tile, int x_size, bool sig
          (sign_buffer(sign, x_size) ? 2 * rows_tile * kBK * 2 : 0) + 16 * stages;
 }
 
-// ---------------------------------------------------------------------------
-// PTX helpers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(saddr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(saddr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(saddr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(saddr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// 2-D TMA load of one box at (c0 inner, c1 outer) into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];" ::"r"(saddr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
-}
-
-// keep the compiler from moving accumulator registers across wgmma issue
-// and wait (the tensor cores write them asynchronously)
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
+__device__ __forceinline__ void consumer_sync() { named_sync<kConsumerThreads>(); }
 
 // wgmma m64nNk16, bf16 in, fp32 accumulate (D += A.B), A transposed
 // (n-major weight tile), B k-major (activation rows)
@@ -389,8 +307,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (warp == kConsumerThreads / 32) {
     // producer: one thread keeps the ring full
     if (lane == 0) {
-      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tw)) : "memory");
-      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tx)) : "memory");
+      prefetch_tensormap(&tw);
+      prefetch_tensormap(&tx);
       for (int i = 0; i < kt_n; ++i) {
         const int s = i % stages;
         if (i >= stages) mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
@@ -495,43 +413,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   cluster.sync();  // every rank stays resident until its peers have read it
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point (no
-// link against libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // a row-major (outer, inner) matrix, boxes of (box_outer, box_inner);
 // out-of-bounds elements read as 0
 inline int encode_2d(CUtensorMap* map, CUtensorMapDataType dtype, int elem_size, const void* base,
                      int outer, int inner, int box_inner, int box_outer, CUtensorMapSwizzle swz) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return kErrDriver;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * elem_size};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = fn(map, dtype, 2, const_cast<void*>(base), dims, strides, box, estr,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+  return encode(map, dtype, 2, base, dims, strides, box, swz);
 }
 
 // dynamic shared memory above 48 KB: opt in once per process and kernel

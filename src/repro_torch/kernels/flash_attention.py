@@ -14,8 +14,9 @@ needs. The wrapper :func:`flash_attention` launches
 ``csrc/flash_attention.cu`` for CUDA tensors and runs
 :func:`flash_attention_plain` for CPU tensors; any other device raises.
 
-Both walk the keys in tiles of :data:`KEY_TILE` starting at key 0, with
-the TPU kernel's per-tile update::
+The plain version and the kernel's ``sm90`` variant walk the keys in
+tiles of :data:`KEY_TILE` starting at key 0 (the ``fma`` variant in tiles
+of 32), with the TPU kernel's per-tile update::
 
     s = (q . k) * scale, NEG_INF where masked
     m' = max(m, rowmax(s));  p = exp(s - m'), 0 where s <= NEG_INF / 2
@@ -28,10 +29,20 @@ wholly above a row's diagonal adds exactly 0 with a correction of
 exactly 1. That is what makes a prefix-grafted continuation equal the
 full prefill bit for bit (``models.layers.attention_continue``).
 
-What bounds it on an H100: at the serving shapes (Sq, Skv <= a few
-thousand, D = 64 or 128) the q/k/v/o bytes are small and the QK^T and
-PV products dominate, so the operation rate bounds it; this first kernel
-runs them on the fp32 FMA units, not the tensor cores (see the source).
+Two variants of the CUDA kernel sit behind the wrapper, chosen by
+:func:`choose_variant` from dtypes, head dim, strides and alignment
+before the launch; a variant that fails to build or launch raises (no
+other variant and no plain version takes over):
+
+* ``sm90`` -- bf16 q/k/v, D in :data:`HEAD_DIMS`, strides and bases TMA
+  can describe: a TMA ring of K/V tiles, QK^T and P.V on the tensor cores
+  (``wgmma``), p split exactly into three bf16 terms so that P.V stays
+  exact (:func:`split_bf16x3`). What bounds it on an H100: the q/k/v/o
+  bytes at the serving shapes, the products close behind;
+* ``fma`` -- fp32, or a view TMA cannot describe: the products on the fp32
+  FMA pipes.
+
+See the source for both designs.
 """
 
 from __future__ import annotations
@@ -45,15 +56,18 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 # launches of the CUDA kernel since the last reset (the plain version
-# does not count)
+# does not count), in all and per variant
 launches = 0
+VARIANTS = ("fma", "sm90")
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 NEG_INF = -1e30
-KEY_TILE = 32          # keys per tile (one per lane in the kernel)
+KEY_TILE = 64          # keys per tile (the sm90 variant's wgmma N)
 ROW_BLOCK = 16         # query rows per block of the plain contractions
 HEAD_DIMS = (64, 128)  # head dims the CUDA kernel is built for
 
 _ENTRY = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
+_SM90_ENTRY = "flash_attention_sm90"
 
 
 def rowblock_matmul(a: torch.Tensor, b: torch.Tensor, first_row: int) -> torch.Tensor:
@@ -78,6 +92,40 @@ def rowblock_matmul(a: torch.Tensor, b: torch.Tensor, first_row: int) -> torch.T
         for i in range(0, a.shape[-2], ROW_BLOCK)
     ], dim=-2)
     return out[..., front : front + m, :]
+
+
+def split_bf16x3(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fp32 ``p`` as three bf16 terms (returned in fp32) with ``p == hi +
+    mid + lo`` exactly: ``hi = bf16(p)``, ``mid = bf16(p - hi)``, ``lo =
+    bf16(p - hi - mid)``. Each difference is exact in fp32 and holds at
+    most 16, then 8, significant bits, and bf16 has fp32's exponent range,
+    so nothing is lost while the residuals stay normal (|p| >= 2^-110).
+    The sm90 kernel computes P.V as hi.V + mid.V + lo.V this way, every
+    product exact, so it differs from the plain version's fp32 p @ v by
+    summation order only."""
+    p = p.to(torch.float32)
+    hi = p.to(torch.bfloat16).to(torch.float32)
+    mid = (p - hi).to(torch.bfloat16).to(torch.float32)
+    lo = (p - hi - mid).to(torch.bfloat16).to(torch.float32)
+    return hi, mid, lo
+
+
+def tma_ok(t: torch.Tensor) -> bool:
+    """Whether TMA can describe a (B, N, S, D) bf16 view: d contiguous,
+    the other strides positive multiples of 16 bytes, the base 16-byte
+    aligned."""
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(t.stride(i) > 0 and t.stride(i) % 8 == 0 for i in range(3)))
+
+
+def choose_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The CUDA variant for these operands, before any launch: ``sm90`` for
+    bf16 with D in :data:`HEAD_DIMS` and views TMA can describe, else
+    ``fma``."""
+    if (q.dtype == torch.bfloat16 and q.shape[3] in HEAD_DIMS
+            and all(tma_ok(t) for t in (q, k, v))):
+        return "sm90"
+    return "fma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> int:
@@ -145,7 +193,8 @@ _ARGTYPES = (
 
 
 def _lib() -> ctypes.CDLL:
-    return _build.load("flash_attention", {name: _ARGTYPES for name in _ENTRY.values()})
+    return _build.load("flash_attention",
+                       {name: _ARGTYPES for name in (*_ENTRY.values(), _SM90_ENTRY)})
 
 
 def flash_attention(
@@ -154,8 +203,9 @@ def flash_attention(
     """q (B, H, Sq, D); k/v (B, KV, Skv, D) with KV | H -> (B, H, Sq, D)
     in q's dtype. Ragged Sq and Skv are masked, never padded; non-causal
     attention over a ragged Skv raises as the reference kernel does. On
-    CUDA: fp32 or bf16, D in :data:`HEAD_DIMS`, any strides with D
-    contiguous."""
+    CUDA: fp32 or bf16, D in :data:`HEAD_DIMS`, any strides (a view whose
+    D is not contiguous is copied first); :func:`choose_variant` picks the
+    kernel."""
     diag = _check(q, k, v, causal)
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
@@ -175,16 +225,18 @@ def flash_attention(
     if out.numel() == 0:
         return out
     lib = _lib()
-    with torch.cuda.device(q.device):
-        rc = getattr(lib, _ENTRY[q.dtype])(
-            q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-            k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
-            v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
-            out.data_ptr(), b, h, kvh, sq, skv, d, int(causal), diag,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    variant = choose_variant(q, k, v)
+    fn = getattr(lib, _SM90_ENTRY if variant == "sm90" else _ENTRY[q.dtype])
+    rc = _build.on_device(
+        q.device, fn,
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+        k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
+        v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
+        out.data_ptr(), b, h, kvh, sq, skv, d, int(causal), diag,
+    )
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention launch failed (variant {variant}): error {rc}")
     global launches
     launches += 1
+    launches_by_variant[variant] += 1
     return out

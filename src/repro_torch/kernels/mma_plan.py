@@ -1,5 +1,7 @@
-"""Launch plan and variant choice of the two MMA kernels, bitlinear and the
-WDM MMM: one Hopper tile loop (``csrc/sm90_mma.cuh``) behind both.
+"""Launch plans and variant choice of the tensor-core GEMM-like kernels:
+bitlinear and the WDM MMM -- one Hopper tile loop (``csrc/sm90_mma.cuh``)
+behind both -- and the Hamming matmul (``csrc/xnor_matmul.cu``, at the
+end of this module).
 
 Variant ``sm90`` (TMA + wgmma + cluster split-K) takes every shape TMA
 can describe: 16-byte-aligned bases for x, w, alpha and out, n % 8 == 0
@@ -117,3 +119,95 @@ def choose(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
+# the Hamming matmul (csrc/xnor_matmul.cu): variant "b1" (TMA + mma.sync
+# m16n8k256 on the binary tensor cores + cluster split-K) for operands TMA
+# can describe, variant "popc" (the 32-bit popcount kernel) otherwise
+# ---------------------------------------------------------------------------
+
+HAM_BN = 128  # weight columns per CTA
+HAM_BKW = 8  # packed words per k stage (256 bits: one instruction)
+HAM_PITCH = HAM_BN + 4  # int32 partial-tile row pitch
+HAM_ROW_TILES = (8, 16, 32, 64)
+HAM_MAX_STAGES = 8
+HAM_VARIANTS = ("popc", "b1")
+
+
+@dataclasses.dataclass(frozen=True)
+class HammingPlan:
+    variant: str
+    row_tile: int = 0
+    split: int = 1
+    stages: int = 0
+    grid: tuple[int, int, int] = (0, 0, 0)
+    smem: int = 0
+
+    @property
+    def ctas(self) -> int:
+        return math.prod(self.grid)
+
+    @property
+    def args(self) -> tuple[int, int, int]:
+        """(row tile, split, stages) as ``hamming_matmul_b1`` takes them."""
+        return self.row_tile, self.split, self.stages
+
+    def describe(self) -> str:
+        if self.variant != "b1":
+            return f"variant {self.variant} (8 rows x 128 columns per block, {self.ctas} blocks)"
+        return (f"variant b1: n tile {HAM_BN}, row tile {self.row_tile}, split {self.split} "
+                f"(cluster {self.split}x1x1), grid {self.grid}, {self.ctas} CTAs, "
+                f"{self.stages} stages of {HAM_BKW} words, {self.smem} B shared memory")
+
+
+def hamming_smem_bytes(row_tile: int, stages: int) -> int:
+    """Mirrors ``b1::smem_bytes``: 1 KB of alignment slack, the ring of
+    weight and activation tiles (reused for the int32 partial tile) and
+    the barriers."""
+    ring = max(stages * (HAM_BN * HAM_BKW * 4 + row_tile * HAM_BKW * 4),
+               row_tile * HAM_PITCH * 4)
+    return 1024 + -(-ring // 1024) * 1024 + 16 * stages
+
+
+def hamming_plan(rows: int, kw: int, n: int, sms: int = H100_SMS) -> HammingPlan:
+    """A 128-column n tile and a row tile of 8..64 rows per CTA -- the
+    smallest that holds the rows, halved while there are fewer tiles than
+    ``sms`` (re-reading a tile's operands from L2 is cheaper than a
+    split-K reduction through distributed shared memory) -- then a split
+    S <= 8 of the kw words over a cluster for >= ``sms`` CTAs where the k
+    stages allow (each split holds at least one), and a ring as deep as a
+    split's stages (2..8)."""
+    def tiles_of(t: int) -> int:
+        return -(-n // HAM_BN) * -(-rows // t)
+
+    row_tile = next((t for t in HAM_ROW_TILES if t >= rows), HAM_ROW_TILES[-1])
+    while row_tile > HAM_ROW_TILES[0] and tiles_of(row_tile) < sms:
+        row_tile //= 2
+    tiles = tiles_of(row_tile)
+    kt = -(-kw // HAM_BKW)
+    split = max(1, min(MAX_SPLIT, kt, -(-sms // tiles)))
+    split = -(-kt // -(-kt // split))  # no split without a k stage
+    stages = min(HAM_MAX_STAGES, max(2, -(-kt // split)))
+    return HammingPlan("b1", row_tile, split, stages,
+                       (split, -(-n // HAM_BN), -(-rows // row_tile)),
+                       hamming_smem_bytes(row_tile, stages))
+
+
+def hamming_tma_ok(rows: int, kw: int, n: int, lda: int, ldw: int, ptrs: tuple[int, ...]) -> bool:
+    """Whether TMA can describe the packed operands: row strides of a and
+    w that are multiples of 4 words (16 bytes) and 16-byte-aligned bases."""
+    return (rows > 0 and kw > 0 and n > 0 and lda % 4 == 0 and ldw % 4 == 0
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def choose_hamming(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> HammingPlan:
+    """The variant and plan for (rows, kw) words ``a`` against the (KW',
+    N') word artifact ``w`` into (rows, n) ``out``, by strides and
+    pointer alignment, before any launch."""
+    rows, kw = a.shape
+    n = out.shape[1]
+    if hamming_tma_ok(rows, kw, n, a.stride(0), w.stride(0),
+                      (a.data_ptr(), w.data_ptr(), out.data_ptr())):
+        return hamming_plan(rows, kw, n, _sm_count(a.device))
+    return HammingPlan("popc", grid=(-(-rows // 8), -(-n // 128), 1))

@@ -10,12 +10,19 @@ for CUDA tensors and runs :func:`hamming_matmul_plain` for CPU tensors;
 any other device raises. The ops wrapper applies Eq. 1
 (``dot = m - 2 * ham``).
 
-What bounds it on an H100: at decode (a handful of rows) the weight
-words are nearly all the bytes and each is read once per 8-row tile, so
-it is memory bound; at prefill widths the 32-bit popcount rate (16 per
-clock per SM) bounds it. The kernel keeps a row tile's activation words
-in shared memory, gives each thread one output column so a warp's weight
-reads coalesce, and accumulates in int32 registers (see the source).
+Two variants of the CUDA kernel sit behind the wrapper, chosen by
+:func:`mma_plan.choose_hamming` from strides and alignment before the
+launch; a variant that fails to build or launch raises:
+
+* ``b1`` -- row strides of both operands multiples of 4 words: the
+  binary tensor cores (``mma.sync`` m16n8k256 ``.and.popc``, ham =
+  popc(a) + popc(w) - 2 popc(a & w)), a TMA ring of the artifact's word
+  tiles and a cluster split-K planned in :mod:`mma_plan`. What bounds it
+  on an H100: the weight words at decode, the int32 output at the
+  lockstep prefill's 1024 rows;
+* ``popc`` -- any strides: 32-bit popcounts, one thread per column.
+
+See the source for both designs.
 """
 
 from __future__ import annotations
@@ -24,11 +31,12 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, mma_plan
 
 # launches of the CUDA kernel since the last reset (the plain version
-# does not count)
+# does not count), in all and per variant
 launches = 0
+launches_by_variant = dict.fromkeys(mma_plan.HAM_VARIANTS, 0)
 
 # rows per chunk of the plain version are sized so the (rows, KW, N)
 # XOR intermediate stays near this many elements
@@ -67,8 +75,12 @@ _ARGTYPES = [
 ]
 
 
+_B1_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
 def _lib() -> ctypes.CDLL:
-    return _build.load("xnor_matmul", {"hamming_matmul": _ARGTYPES})
+    return _build.load("xnor_matmul", {"hamming_matmul": _ARGTYPES,
+                                       "hamming_matmul_b1": _B1_ARGTYPES})
 
 
 def hamming_matmul_packed(
@@ -109,13 +121,16 @@ def hamming_matmul_packed(
     if rows == 0 or n == 0:
         return out
     lib = _lib()
-    with torch.cuda.device(a.device):
-        rc = lib.hamming_matmul(
-            a.data_ptr(), a.stride(0), w_packed.data_ptr(), w_packed.stride(0),
-            out.data_ptr(), rows, n, kw, torch.cuda.current_stream().cuda_stream,
-        )
+    plan = mma_plan.choose_hamming(a, w_packed, out)
+    args = (a.data_ptr(), a.stride(0), w_packed.data_ptr(), w_packed.stride(0),
+            out.data_ptr(), rows, n, kw)
+    if plan.variant == "b1":
+        rc = _build.on_device(a.device, lib.hamming_matmul_b1, *args, *plan.args)
+    else:
+        rc = _build.on_device(a.device, lib.hamming_matmul, *args)
     if rc != 0:
-        raise RuntimeError(f"hamming_matmul launch failed: CUDA error {rc}")
+        raise RuntimeError(f"hamming_matmul launch failed ({plan.describe()}): error {rc}")
     global launches
     launches += 1
+    launches_by_variant[plan.variant] += 1
     return out

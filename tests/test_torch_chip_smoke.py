@@ -46,7 +46,8 @@ def test_serve_phase_rehearses_on_cpu(capsys):
 
 def test_kernel_summary_has_every_key():
     cs = _chip_smoke()
-    rec = {(s, 8): {"ms": 1.0, "plain_ms": 2.0, "library_ms": 3.0, "bytes_ms": 0.1, "ops_ms": 0.2}
+    rec = {(s, 8): {"ms": 1.0, "eager_ms": 4.0, "plain_ms": 2.0, "library_ms": 3.0,
+                    "bytes_ms": 0.1, "ops_ms": 0.2}
            for s in cs.SHAPES}
     summary = cs.kernel_summary(
         {"records": {"fused_bnn_matmul": rec, "hamming_matmul": rec},
@@ -86,7 +87,8 @@ def test_entry_point_phase_rehearses_on_cpu(capsys):
 
 def test_launch_summary_has_every_key():
     cs = _chip_smoke()
-    rec = {"ms": 1.0, "plain_ms": 2.0, "library_ms": 3.0, "bytes_ms": 0.1, "ops_ms": 0.2}
+    rec = {"ms": 1.0, "eager_ms": 4.0, "plain_ms": 2.0, "library_ms": 3.0, "bytes_ms": 0.1,
+           "ops_ms": 0.2}
     summary = cs.launch_summary(
         {"records": {cs.FLASH_MAIN: rec}, "worst": 0.5},
         {"bitlinear": {cs.MMA_MAIN: rec}, "wdm_mmm": {cs.MMA_MAIN: rec}},
@@ -119,3 +121,37 @@ def test_mma_cases_cover_both_variants_and_the_k_edge():
 def test_unknown_arguments_are_refused(capsys):
     assert _chip_smoke().main(["--no-such-flag"]) == 2
     assert "usage" in capsys.readouterr().err
+
+
+def test_only_modes_name_known_kernel_groups(capsys):
+    cs = _chip_smoke()
+    assert set(cs.ONLY) == {"--mma-only", "--flash-only", "--hamming-only", "--kernels-only"}
+    for groups in cs.ONLY.values():
+        assert set(groups) <= {"fused", "hamming", "flash", "mma"}
+    assert cs.main(["--flash-only", "--mma-only"]) == 2
+    assert "usage" in capsys.readouterr().err
+
+
+def test_summaries_carry_launches_by_variant():
+    """The kernels line reports, for each kernel, the launches of each
+    variant on its path (filled in by the serve and entry-point phases)."""
+    cs = _chip_smoke()
+    cs.BY_VARIANT.update({"hamming_matmul": {"popc": 0, "b1": 4928},
+                          "flash_attention": {"fma": 0, "sm90": 352}})
+    rec = {"ms": 1.0, "eager_ms": 4.0, "plain_ms": 2.0, "library_ms": 3.0, "bytes_ms": 0.1,
+           "ops_ms": 0.2}
+    ham = cs.kernel_summary(
+        {"records": {k: {(s, 8): rec for s in cs.SHAPES}
+                     for k in ("fused_bnn_matmul", "hamming_matmul")},
+         "worst": {"fused_bnn_matmul": 0.0, "hamming_matmul": 0.0}},
+        {"fused_bnn_matmul": 3520, "hamming_matmul": 4928})
+    flash = cs.launch_summary(
+        {"records": {cs.FLASH_MAIN: rec}, "worst": 0.5},
+        {"bitlinear": {cs.MMA_MAIN: rec}, "wdm_mmm": {cs.MMA_MAIN: rec}},
+        {"flash_attention": 352, "bitlinear": 7, "wdm_mmm": 7})
+    by_name = {k["name"]: k for k in ham + flash}
+    assert by_name["hamming_matmul"]["launches_by_variant"] == {"popc": 0, "b1": 4928}
+    assert by_name["flash_attention"]["launches_by_variant"] == {"fma": 0, "sm90": 352}
+    assert all("launches_by_variant" in k and "eager_ms" in k for k in by_name.values())
+    # the b1 tensor cores' measured rate sets the Hamming kernel's operation bound
+    assert cs.B1_BITOPS_PER_S > 32 * cs.POPC_PER_CLOCK_PER_SM * 132 * 1.98e9

@@ -128,7 +128,8 @@ def epilogue(gen) -> None:
         (d / "k.cu").write_text(entry.replace("sm90mma::", f"{ns}::"))
         procs[name] = (d, subprocess.Popen(
             [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-o", str(d / "lib.so"), str(d / "k.cu")]))
+             "-Xcompiler", "-fPIC", "-I", str(_build.SRC_DIR), "-o", str(d / "lib.so"),
+             str(d / "k.cu")]))
     for name, (d, proc) in procs.items():
         if proc.wait() != 0:
             raise SystemExit(f"nvcc failed for {name!r}")
