@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--mma-only | --flash-only | --hamming-only | --kernels-only]
+    python3 chip_smoke.py [--mma-only | --flash-only | --hamming-only | --fused-only |
+                           --kernels-only]
 
 Each ``--*-only`` argument stops after those kernels' checks and timings
 (``--kernels-only``: every kernel's) and prints no result line. Needs one
@@ -14,9 +15,11 @@ exits non-zero without them. Phases, each announced on its own
    one ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version -- the fused
    BitLinear and Hamming kernels at the tinyllama-1.1b projection shapes
-   with 8, 128 and 1024 rows, a ragged and two block-padded shapes
-   (bit-exact, ``torch.equal``; the Hamming kernel's variant, ``b1`` or
-   ``popc``, and plan printed, two launches equal), flash attention on
+   with 8, 128 and 1024 rows, a ragged and three block-padded shapes
+   (bit-exact, ``torch.equal``; each kernel's variant, ``b1`` or ``popc``,
+   and plan printed, two launches equal), the fused kernel also at an
+   edge shape (partial last word and k stage, n % 128 != 0) in bf16 and
+   fp32 and on signed zeros, NaN and subnormals, flash attention on
    prefill, continuation, ragged, D = 128 and non-causal cases in bf16
    (variant ``sm90``) and fp32 (``fma``), within a stated tolerance, two
    launches bit-identical, bitlinear and the WDM MMM at the projection shapes, a
@@ -31,12 +34,13 @@ exits non-zero without them. Phases, each announced on its own
    generator) through ``repro_torch.launch.serve``: a lockstep batch on
    the ``packed`` engine, the same batch under ``--raw-weights`` and on
    the ``reference`` engine (tokens must match), and the request
-   scheduler path. The kernels' launch counts (the Hamming kernel's by
-   variant: all ``b1``) are read around each run, and a few decode ticks
+   scheduler path. The kernels' launch counts (by variant: all ``b1``)
+   are read around each run, and a few decode ticks
    run under ``torch.profiler`` to show where a tick's time goes;
 6. serve pallas: the same model with ``attn_impl="pallas"`` -- lockstep,
    ``prefill_continue`` == ``prefill``, a 2-replica prefix-routed fleet,
-   batched == alone, every flash launch of the ``sm90`` variant -- after
+   batched == alone, every flash launch of the ``sm90`` variant and every
+   fused launch of ``b1`` -- after
    a check that the port's per-row ops give a row the same bits whatever
    the row count.
 
@@ -66,7 +70,7 @@ POPC_PER_CLOCK_PER_SM = 16
 # the binary tensor cores' rate (mma.sync m16n8k256 .and.popc), which no
 # data sheet gives: measured by ``tools/tc_probe.py --sections b1`` on an
 # H100 80GB HBM3 at 700 W (one bit-operation: one bit pair of the
-# contraction); the Hamming kernel's operation bound
+# contraction); the operation bound of the Hamming and fused kernels
 B1_BITOPS_PER_S = 5126e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
@@ -120,7 +124,7 @@ def check_device():
     print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"sm clock max {clock_mhz:.0f} MHz, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
-    return card, clock_mhz
+    return card
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +214,94 @@ def _case(gen, rows: int, m: int, n: int, prepad: bool):
     return x, w_signs, wp, alpha, beta
 
 
-def check_kernels(clock_mhz: float, which: tuple[str, ...] = ("fused_bnn_matmul", "hamming_matmul")) -> dict:
+def packed_work(kname: str, rows: int, m: int, n: int) -> tuple[int, int]:
+    """(bytes, bit-operations) of one fused BitLinear or Hamming launch at
+    (rows, m) x (m, n): each input read once (bf16 x, or its packed
+    words; the weight words; alpha and beta), the output (fp32, or int32
+    Hamming sums) written once, and one bit-operation per bit pair of the
+    packed contraction -- both kernels' b1 variants run it on the binary
+    tensor cores (B1_BITOPS_PER_S)."""
+    kw = -(-m // 32)
+    if kname == "fused_bnn_matmul":
+        activations = rows * m * 2 + n * 4 + rows * 4
+    else:
+        activations = rows * kw * 4
+    return activations + kw * n * 4 + rows * n * 4, rows * n * kw * 32
+
+
+def _check_fused(label: str, x, wp, alpha, beta, m: int, n: int, want_variant: str):
+    """The fused kernel at one case: its plan's variant is ``want_variant``,
+    two launches of that variant are ``torch.equal`` to each other and to
+    the plain version. Returns (plan, max |diff|)."""
+    import torch
+
+    from repro_torch.kernels import fused_decode, mma_plan
+
+    plan = mma_plan.choose_fused(x, wp, torch.empty((x.shape[0], n), device="cuda"), alpha,
+                                 beta, m=m)
+    before = dict(fused_decode.launches_by_variant)
+    got = fused_decode.fused_bnn_matmul_kernel(x, wp, alpha, beta, m=m, n=n)
+    again = fused_decode.fused_bnn_matmul_kernel(x, wp, alpha, beta, m=m, n=n)
+    want = fused_decode.fused_bnn_matmul_plain(x, wp, alpha, beta, m=m, n=n)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = got != want
+        raise AssertionError(f"fused kernel != plain version at {label} ({plan.describe()}): "
+                             f"{int(bad.sum())} elements differ, first at "
+                             f"{bad.nonzero()[0].tolist()}, max |diff| "
+                             f"{(got - want).abs().nan_to_num(float('inf')).max().item()}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"fused kernel: two launches differ at {label}")
+    used = {v: fused_decode.launches_by_variant[v] - before[v] for v in before}
+    if plan.variant != want_variant or used[want_variant] != 2:
+        raise AssertionError(f"fused kernel at {label}: plan {plan.variant}, launches by "
+                             f"variant {used}; expected {want_variant}")
+    return plan, (got - want).abs().max().item()
+
+
+# the fused kernel's edge shape (rows, m, n): b1 with a partial last word
+# (2056 = 64 * 32 + 8), a partial last k stage (65 words: 8 stages and
+# one word) and n % 128 != 0
+FUSED_EDGE = (8, 2056, 264)
+
+
+def check_fused_edges(gen) -> float:
+    """The fused kernel at FUSED_EDGE with bf16 and fp32 x, and with bf16 x
+    holding +0.0, -0.0, NaN and subnormals of both signs (with a finite
+    beta passed in: mean|x| is NaN there): the b1 variant, two launches
+    ``torch.equal``, ``torch.equal`` to the plain version, whose ``x >=
+    0`` gives -0.0 bit 1, NaN bit 0 and a subnormal its sign. Returns the
+    largest |diff| (0.0)."""
+    import torch
+
+    rows, m, n = FUSED_EDGE
+    worst = 0.0
+    for label, dtype, special in (("bf16", torch.bfloat16, False), ("fp32", torch.float32, False),
+                                  ("bf16 signed zeros, NaN, subnormals", torch.bfloat16, True)):
+        x, _, wp, alpha, beta = _case(gen, rows, m, n, False)
+        x = x.to(dtype)
+        if special:
+            tiny = torch.tensor(2.0**-133, dtype=torch.bfloat16).item()  # bf16's least subnormal
+            for j, v in enumerate((0.0, -0.0, float("nan"), tiny, -tiny, 3 * tiny, -3 * tiny,
+                                   -float("nan"))):
+                x[:, j::9] = v
+            x[:, -1] = -0.0  # the last, partial word
+            x[:, -2] = float("nan")
+            beta = torch.rand((rows,), generator=gen, device="cuda") + 0.5
+            counts = {"+0": int((x == 0).logical_and(~x.signbit()).sum()),
+                      "-0": int((x == 0).logical_and(x.signbit()).sum()),
+                      "nan": int(x.isnan().sum()),
+                      "subnormal": int(((x != 0) & (x.abs() < 2.0**-126)).sum())}
+            if min(counts.values()) == 0:
+                raise AssertionError(f"special-value case lacks a kind: {counts}")
+        plan, err = _check_fused(f"edge {label}", x, wp, alpha, beta, m, n, "b1")
+        worst = max(worst, err)
+        print(f"[kernels] fused_bnn_matmul edge m={m} n={n} B={rows} {label}: == plain, two "
+              f"launches equal; {plan.describe()}", flush=True)
+    return worst
+
+
+def check_kernels(which: tuple[str, ...] = ("fused_bnn_matmul", "hamming_matmul")) -> dict:
     """The fused BitLinear and Hamming kernels (those in ``which``) against
     their plain versions at every shape (``torch.equal``); returns
     per-kernel, per-shape records for the summary line. Kernel and
@@ -222,7 +313,6 @@ def check_kernels(clock_mhz: float, which: tuple[str, ...] = ("fused_bnn_matmul"
     from repro_torch.kernels import fused_decode, mma_plan, ops, xnor_matmul
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    popc_per_s = POPC_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * clock_mhz * 1e6
     cases = [(f"{name} B={b}", b, m, n, False) for name, (m, n) in SHAPES.items() for b in ROWS]
     cases += [("ragged m=100 n=48 B=3", 3, 100, 48, False),
               ("prepad m=100 n=48 B=3", 3, 100, 48, True),
@@ -232,21 +322,21 @@ def check_kernels(clock_mhz: float, which: tuple[str, ...] = ("fused_bnn_matmul"
               ("prepad m=300 n=200 B=8", 8, 300, 200, True)]
     rec = {k: {} for k in which}
     worst = dict.fromkeys(which, 0.0)
+    if "fused_bnn_matmul" in which:
+        worst["fused_bnn_matmul"] = check_fused_edges(gen)
     for label, b, m, n, prepad in cases:
         x, w_signs, wp, alpha, beta = _case(gen, b, m, n, prepad)
         kw = -(-m // 32)
         a = ops.pack_bits(x >= 0)
-        if "fused_bnn_matmul" in which:
-            got = fused_decode.fused_bnn_matmul_kernel(x, wp, alpha, beta, m=m, n=n)
-            want = fused_decode.fused_bnn_matmul_plain(x, wp, alpha, beta, m=m, n=n)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"fused kernel != plain version at {label}: max "
-                                     f"|diff| {(got - want).abs().max().item()}")
-            worst["fused_bnn_matmul"] = max(worst["fused_bnn_matmul"],
-                                            (got - want).abs().max().item())
-        dot = (x >= 0).float() * 2 - 1
         plan_text = ""
+        if "fused_bnn_matmul" in which:
+            # the projection shapes take b1; the ragged and block-padded
+            # ones (bf16 rows of 200 or 600 bytes) popc
+            fplan, err = _check_fused(label, x, wp, alpha, beta, m, n,
+                                      "popc" if m in (100, 300) else "b1")
+            worst["fused_bnn_matmul"] = max(worst["fused_bnn_matmul"], err)
+            plan_text = f"; fused {fplan.describe()}"
+        dot = (x >= 0).float() * 2 - 1
         if "hamming_matmul" in which:
             plan = mma_plan.choose_hamming(a, wp, torch.empty((b, n), dtype=torch.int32,
                                                               device="cuda"))
@@ -271,7 +361,7 @@ def check_kernels(clock_mhz: float, which: tuple[str, ...] = ("fused_bnn_matmul"
                                      f"by variant {used}; expected {want_variant}")
             worst["hamming_matmul"] = max(worst["hamming_matmul"],
                                           (ham - ham_plain).abs().max().item())
-            plan_text = f"; Hamming {plan.describe()}"
+            plan_text += f"; Hamming {plan.describe()}"
         print(f"[kernels] {label}: {' and '.join(which)} == plain"
               f"{' == ±1 matmul, two launches equal' if 'hamming_matmul' in which else ''}"
               f"{plan_text}", flush=True)
@@ -285,29 +375,24 @@ def check_kernels(clock_mhz: float, which: tuple[str, ...] = ("fused_bnn_matmul"
         lib_sets = [(w,) for w in lib_sets + [lib_sets[0].clone() for _ in range(_copies(m * n * 2) - 1)]]
         x_pm = dot.to(torch.bfloat16)
         scale = alpha[None, :] * beta[:, None]
-        popc = b * n * kw
-        ops_ms = {"fused_bnn_matmul": popc / popc_per_s * 1e3,
-                  "hamming_matmul": popc * 32 / B1_BITOPS_PER_S * 1e3}
         runs = {
             "fused_bnn_matmul": (
                 lambda w: fused_decode.fused_bnn_matmul_kernel(x, w, alpha, beta, m=m, n=n),
                 lambda w: fused_decode.fused_bnn_matmul_plain(x, w, alpha, beta, m=m, n=n),
-                lambda w: torch.matmul(x_pm, w).float() * scale,
-                b * m * 2 + kw * n * 4 + n * 4 + b * 4 + b * n * 4),
+                lambda w: torch.matmul(x_pm, w).float() * scale),
             "hamming_matmul": (
                 lambda w: xnor_matmul.hamming_matmul_packed(a, w, n=n),
                 lambda w: xnor_matmul.hamming_matmul_plain(a, w),
-                lambda w: torch.matmul(x_pm, w),
-                b * kw * 4 + kw * n * 4 + b * n * 4),
+                lambda w: torch.matmul(x_pm, w)),
         }
         for kname in which:
-            fn, plain_fn, lib_fn, nbytes = runs[kname]
+            fn, plain_fn, lib_fn = runs[kname]
             ms = _graph_ms(fn, w_sets, 200)
             eager = _time_ms(fn, w_sets, 200)
             plain = _time_ms(plain_fn, w_sets[:1], 3)
             lib = _graph_ms(lib_fn, lib_sets, 200)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops_ms[kname]
+            nbytes, bit_ops = packed_work(kname, b, m, n)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, bit_ops / B1_BITOPS_PER_S * 1e3
             rec[kname][(name, b)] = {
                 "ms": ms, "eager_ms": eager, "plain_ms": plain, "library_ms": lib,
                 "bytes_ms": t_bytes, "ops_ms": t_ops,
@@ -315,8 +400,10 @@ def check_kernels(clock_mhz: float, which: tuple[str, ...] = ("fused_bnn_matmul"
             print(f"[kernels] {kname} {name} B={b} (m={m}, n={n}): kernel {ms:.4f} ms "
                   f"(graph replay; eager {eager:.4f} ms), bound {max(t_bytes, t_ops):.4f} ms by "
                   f"{'bytes' if t_bytes >= t_ops else 'operations'} "
-                  f"({nbytes} B, {popc} 32-bit words; {100 * max(t_bytes, t_ops) / ms:.0f}% of it), "
-                  f"plain {plain:.4f} ms, torch.matmul {lib:.4f} ms (graph replay)", flush=True)
+                  f"({nbytes} B, {bit_ops} bit-operations; "
+                  f"{100 * max(t_bytes, t_ops) / ms:.0f}% of it), plain {plain:.4f} ms, "
+                  f"torch.matmul {lib:.4f} ms (graph replay)"
+                  f"{'; ' + fplan.describe() if kname == 'fused_bnn_matmul' else ''}", flush=True)
     print("[kernels] " + "; ".join(f"{k} check: torch.equal at every shape, max |diff| "
                                     f"{worst[k]}" for k in which), flush=True)
     return {"records": rec, "worst": worst}
@@ -633,12 +720,12 @@ def _reset_counts() -> None:
 
     for mod in (fused_decode, xnor_matmul, flash_attention, bitlinear, wdm_mmm):
         mod.launches = 0
-    for mod in (xnor_matmul, flash_attention, bitlinear, wdm_mmm):
+    for mod in (fused_decode, xnor_matmul, flash_attention, bitlinear, wdm_mmm):
         mod.launches_by_variant = dict.fromkeys(mod.launches_by_variant, 0)
 
 
 # each kernel's launches by variant in the run that counts its launches
-# (filled by the phases; the fused kernel has one variant)
+# (filled by the phases)
 BY_VARIANT: dict[str, dict[str, int]] = {}
 
 
@@ -646,6 +733,12 @@ def _counts() -> dict:
     from repro_torch.kernels import fused_decode, xnor_matmul
 
     return {"fused_bnn_matmul": fused_decode.launches, "hamming_matmul": xnor_matmul.launches}
+
+
+def _fused_variants() -> dict[str, int]:
+    from repro_torch.kernels import fused_decode
+
+    return dict(fused_decode.launches_by_variant)
 
 
 def _release(res: dict) -> None:
@@ -754,11 +847,16 @@ def serve_phase(device: str = "cuda", smoke: bool = False) -> dict:
     # [q|k|v], o, w1, w3, w2 per layer, in the prefill and GEN - 1 ticks
     _check_launches(device, n_packed, {"fused_bnn_matmul": layers * 5 * GEN,
                                        "hamming_matmul": 0}, "packed lockstep")
-    BY_VARIANT["fused_bnn_matmul"] = {"popc": n_packed["fused_bnn_matmul"]}
+    # every projection's activations and words have strides TMA can describe
+    fused_variants = _fused_variants()
+    _check_launches(device, {"fused_bnn_matmul": fused_variants},
+                    {"fused_bnn_matmul": {"popc": 0, "b1": layers * 5 * GEN}},
+                    "packed lockstep by variant")
+    BY_VARIANT["fused_bnn_matmul"] = fused_variants
     print(f"[serve] packed lockstep {ARCH} batch={BATCH} prompt={PROMPT} gen={GEN}: "
           f"prefill {packed['prefill_s'] * 1e3:.2f} ms, decode {GEN - 1} ticks "
           f"{packed['decode_s'] * 1e3:.2f} ms ({packed['decode_tok_s']:.1f} tok/s); "
-          f"launches {n_packed}", flush=True)
+          f"launches {n_packed}, fused by variant {fused_variants}", flush=True)
     profile_decode(packed["compiled"], serve.prompts(cfg, BATCH, PROMPT, SEED),
                    packed["decode_s"] * 1e3 / (GEN - 1))
     _release(packed)
@@ -808,16 +906,18 @@ def serve_phase(device: str = "cuda", smoke: bool = False) -> dict:
     _reset_counts()
     req = serve.run(lock + ["--engine", "packed", "--requests", str(REQUESTS)])
     n_req = _counts()
+    req_variants = _fused_variants()
     sch = req["stats"].scheduler
     if sch.finished != REQUESTS or any(len(s.generated) != GEN for s in req["states"]):
         raise AssertionError(f"request path finished {sch.finished} of {REQUESTS}")
-    if device == "cuda" and (n_req["fused_bnn_matmul"] == 0 or n_req["hamming_matmul"] != 0):
-        raise AssertionError(f"request path launched {n_req}")
+    if device == "cuda" and (n_req["fused_bnn_matmul"] == 0 or n_req["hamming_matmul"] != 0
+                             or req_variants != {"popc": 0, "b1": n_req["fused_bnn_matmul"]}):
+        raise AssertionError(f"request path launched {n_req}, fused by variant {req_variants}")
     toks = sum(len(s.generated) for s in req["states"])
     print(f"[serve] request path: {REQUESTS} requests (prompts {PROMPT // 2}-{PROMPT}, gen "
           f"{GEN}) into {BATCH} slots in {req['wall_s'] * 1e3:.1f} ms ({toks / req['wall_s']:.1f} "
           f"tok/s), ticks={req['stats'].ticks}, prefills={req['stats'].prefills}; "
-          f"launches {n_req}", flush=True)
+          f"launches {n_req}, fused by variant {req_variants}", flush=True)
     _release(req)
     return {"fused_bnn_matmul": n_packed["fused_bnn_matmul"],
             "hamming_matmul": n_raw["hamming_matmul"]}
@@ -982,8 +1082,10 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
     lock = serve.lockstep(packed, tokens, GEN)
     n_flash = _flash_count()
     # bf16 (B, H, S, D) views of the model's activations: the sm90 variant
-    _check_launches(device, {"flash": n_flash, "by variant": _flash_variants()},
-                    {"flash": layers, "by variant": {"fma": 0, "sm90": layers}},
+    _check_launches(device, {"flash": n_flash, "by variant": _flash_variants(),
+                             "fused by variant": _fused_variants()},
+                    {"flash": layers, "by variant": {"fma": 0, "sm90": layers},
+                     "fused by variant": {"popc": 0, "b1": layers * 5 * GEN}},
                     "pallas lockstep")
     ref_model = compiler.compile(dataclasses.replace(cfg, quant="bnn"), params(),
                                  compiler.HardwareTarget(engine="reference"), device=device)
@@ -1104,10 +1206,13 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
         raise AssertionError(f"fleet finished {st.finished} of {FLEET_REQUESTS}, grafted "
                              f"{st.grafted_tokens} tokens")
     fleet_variants = _flash_variants()
+    fleet_fused = _fused_variants()
     if device == "cuda" and (n_fleet != layers * prefills or fused == 0
-                             or fleet_variants != {"fma": 0, "sm90": n_fleet}):
+                             or fleet_variants != {"fma": 0, "sm90": n_fleet}
+                             or fleet_fused != {"popc": 0, "b1": fused}):
         raise AssertionError(f"fleet launched flash {n_fleet} times ({fleet_variants}) for "
-                             f"{prefills} prefills ({layers} layers), fused {fused}")
+                             f"{prefills} prefills ({layers} layers), fused {fused} "
+                             f"({fleet_fused})")
     BY_VARIANT["flash_attention"] = fleet_variants
     toks = sum(len(s.generated) for s in states)
     del fleet
@@ -1140,7 +1245,7 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
           f"{st.prefill_tokens}; prefill per admission: full {np.mean(full_adm):.2f} ms "
           f"({len(full_adm)}), grafted {np.mean(grafted):.2f} ms ({len(grafted)}); flash "
           f"launches {n_fleet} for {layers} layers x {prefills} prefills, by variant "
-          f"{fleet_variants}; tokens == single "
+          f"{fleet_variants}; fused launches {fused}, by variant {fleet_fused}; tokens == single "
           f"engine; single engine == each request alone for all {alone['pallas']} (pallas) "
           f"and {alone['jnp']} (jnp)", flush=True)
     return n_fleet
@@ -1219,6 +1324,7 @@ ONLY = {  # an argument that stops after some kernels' checks and times (no resu
     "--mma-only": ("mma",),
     "--flash-only": ("flash",),
     "--hamming-only": ("hamming",),
+    "--fused-only": ("fused",),
     "--kernels-only": ("fused", "hamming", "flash", "mma"),
 }
 
@@ -1228,7 +1334,7 @@ def main(argv: list[str]) -> int:
         print(f"usage: chip_smoke.py [{' | '.join(ONLY)}]", file=sys.stderr)
         return 2
     phase("device")
-    card, clock_mhz = check_device()
+    card = check_device()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
 
@@ -1240,7 +1346,7 @@ def main(argv: list[str]) -> int:
         ham = tuple(k for k, o in (("fused_bnn_matmul", "fused"), ("hamming_matmul", "hamming"))
                     if o in only)
         if ham:
-            check_kernels(clock_mhz, ham)
+            check_kernels(ham)
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         if "flash" in only:
             check_flash(gen)
@@ -1248,7 +1354,7 @@ def main(argv: list[str]) -> int:
             check_mma(gen)
         print(card, flush=True)
         return 0
-    checked = check_kernels(clock_mhz)
+    checked = check_kernels()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash = check_flash(gen)
     mma = check_mma(gen)

@@ -1,36 +1,57 @@
 // Fused BitLinear for Hopper (sm_90a): binarize + pack + XNOR + popcount
-// + Eq. 1 affine correction + alpha*beta rescale, one launch.
+// + Eq. 1 affine correction + alpha*beta rescale, one launch. Two variants
+// behind the C entry points, chosen by the Python wrapper before the
+// launch (kernels/mma_plan.py: choose_fused).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fused_decode.py
 // (_fused_kernel / fused_bnn_matmul_kernel).
 //
 //   out[b, c] = (m - 2 * sum_j popc(pack(x[b] >= 0)_j ^ w[j, c])) * (alpha[c] * beta[b])
 //
-// Layout. One block owns kRows activation rows and kCols output columns;
-// each of its kCols threads owns one column. Per stage of kWordTile
-// packed words the block first binarizes and packs its rows into shared
-// memory: a warp step reads 32 consecutive features of one row, lane i
-// holding feature 32j+i, and __ballot_sync turns the 32 sign tests into
-// word j -- exactly the ops.pack_bits layout (bit i of word j is feature
-// 32j+i). Lanes at or beyond m vote 0, which is what the reference's
-// -1.0 feature pad does. Then every thread streams its column's weight
-// words (a warp reads 32 neighbouring columns of one word row: coalesced)
-// and accumulates __popc(xw ^ ww) for each of its rows in int32
-// registers. The epilogue applies Eq. 1 and the BitLinear rescale with
-// alpha*beta multiplied first, as the reference does.
+// Variant "b1" (x's row stride a multiple of 16 bytes, the weight row
+// stride a multiple of 4 words, bases 16-byte aligned): the binary
+// tensor-core tile loop of sm90_b1.cuh with its RawRows activation stage
+// -- each k stage's rows x 256 features of x arrive by TMA in x's own
+// dtype beside the weight boxes, and the consumer threads binarize them by
+// comparison (v >= 0: -0.0 -> 1, NaN -> 0), mask features >= m by index
+// and pack them into the word tile the b1 fragments read -- and its
+// BitLinearOut epilogue: float(m - 2 ham) * (alpha[c] * beta[b]), alpha *
+// beta first as the reference does, after the rank-ordered cluster
+// split-K. The plan (mma_plan.fused_plan) picks one consumer warpgroup
+// (a 128-column n tile) for a decode tick's 8 rows and two (256 columns)
+// past it: x is 16x the bytes of its packed words and every n tile
+// re-reads and re-packs it, so the wide tile halves the packing per
+// output; at the lockstep prefill's 1024 rows 32-row tiles and a 2-stage
+// ring keep several CTAs per SM.
+//   What bounds it: the bytes (weight words and bf16 x at decode, the
+//   fp32 output at 1024 rows); the bit-operations (5126 T/s on the binary
+//   tensor cores) come after them at every shape of the main path. What
+//   holds it back (tools/tc_probe.py --sections fused, PERF.md): at decode
+//   the ~5 us of launch, pipeline fill and cluster barriers; at 1024 rows
+//   the packing, the tensor-core work and the epilogue in turn in each
+//   CTA, none of them alone.
 //
-// What bounds it. At decode (8 rows) the weight words are the bytes that
-// matter and each is read once per row tile, so the kernel is bound by
-// memory; at prefill (128+ rows) each word feeds kRows popcounts per
-// block and the popcount rate bounds it. The row tile of 8 keeps the
-// per-thread accumulators in registers; ragged rows and columns are
-// masked in the kernel, and `ldw` lets block-padded ("prepad") weight
-// artifacts pass without a copy. Tensor-core b1 tiles, TMA and
-// persistent blocks are later work.
+// Variant "popc" (any strides): the first port of the kernel, unchanged.
+// One block owns kRows activation rows and kCols output columns; each of
+// its kCols threads owns one column. Per stage of kWordTile packed words
+// the block first binarizes and packs its rows into shared memory: a warp
+// step reads 32 consecutive features of one row, lane i holding feature
+// 32j+i, and __ballot_sync turns the 32 sign tests into word j -- exactly
+// the ops.pack_bits layout (bit i of word j is feature 32j+i). Lanes at or
+// beyond m vote 0, which is what the reference's -1.0 feature pad does.
+// Then every thread streams its column's weight words (a warp reads 32
+// neighbouring columns of one word row: coalesced) and accumulates
+// __popc(xw ^ ww) for each of its rows in int32 registers on the 32-bit
+// popcount pipe. The epilogue applies Eq. 1 and the BitLinear rescale with
+// alpha*beta multiplied first, as the reference does. Ragged rows and
+// columns are masked in the kernel, and `ldw` lets block-padded
+// ("prepad") weight artifacts pass without a copy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90_b1.cuh"
 
 namespace {
 
@@ -140,4 +161,23 @@ extern "C" int fused_bnn_matmul_f32(const void* x, long long ldx,
                                     void* out, int rows, int n, int m,
                                     void* stream) {
   return launch<float>(x, ldx, w, ldw, alpha, beta, out, rows, n, m, stream);
+}
+
+// variant "b1": x's row stride a multiple of 16 bytes, the weight row
+// stride a multiple of 4 words, bases 16-byte aligned (checked by the
+// wrapper), plan from mma_plan.fused_plan
+extern "C" int fused_bnn_matmul_b1_bf16(const void* x, long long ldx, const void* w,
+                                        long long ldw, const void* alpha, const void* beta,
+                                        void* out, int rows, int n, int m, int row_tile, int wg,
+                                        int split, int stages, void* stream) {
+  return b1::run_fused<__nv_bfloat16>(x, ldx, w, ldw, alpha, beta, out, rows, n, m, row_tile, wg,
+                                      split, stages, (cudaStream_t)stream);
+}
+
+extern "C" int fused_bnn_matmul_b1_f32(const void* x, long long ldx, const void* w,
+                                       long long ldw, const void* alpha, const void* beta,
+                                       void* out, int rows, int n, int m, int row_tile, int wg,
+                                       int split, int stages, void* stream) {
+  return b1::run_fused<float>(x, ldx, w, ldw, alpha, beta, out, rows, n, m, row_tile, wg, split,
+                              stages, (cudaStream_t)stream);
 }

@@ -1,5 +1,5 @@
 """Fused BitLinear (binarize + pack + XNOR + popcount + scale): CUDA
-kernel, plain version, launch count.
+kernel, plain version, launch counts.
 
 Replaces the Pallas TPU kernel ``repro/kernels/fused_decode.py``
 (``_fused_kernel`` / ``fused_bnn_matmul_kernel``)::
@@ -13,13 +13,25 @@ same ``beta``. The wrapper :func:`fused_bnn_matmul_kernel` launches
 ``csrc/fused_decode.cu`` for CUDA tensors and runs
 :func:`fused_bnn_matmul_plain` for CPU tensors; any other device raises.
 
-What bounds it on an H100: at decode the weight words dominate the bytes
-(memory bound); at prefill widths the popcount rate does. The kernel
-reads the activations in the dtype they arrive in (bf16 on the serving
-path: ``x >= 0`` gives the same bit as on its fp32 cast, so no cast pass
-runs), packs 32 features per warp step with ``__ballot_sync`` into
-shared memory, and streams coalesced weight words per output column
-(see the source).
+Two variants of the CUDA kernel sit behind the wrapper, chosen by
+:func:`mma_plan.choose_fused` from dtype, strides and alignment before
+the launch; a variant that fails to build or launch raises, naming the
+plan:
+
+* ``b1`` -- x's row stride a multiple of 16 bytes, the weight row stride
+  a multiple of 4 words, 16-byte-aligned bases: the binary tensor-core
+  tile loop of ``csrc/sm90_b1.cuh`` (shared with the Hamming matmul) over
+  raw activations. Each k stage's 256 features of x arrive by TMA in x's
+  dtype and are binarized (``x >= 0``) and packed in the kernel; the
+  epilogue applies Eq. 1 and ``alpha * beta`` after a cluster split-K.
+  What bounds it on an H100: the bytes (weight words and x at decode,
+  the fp32 output at the lockstep prefill's 1024 rows);
+* ``popc`` -- any strides: one thread per column on the 32-bit popcount
+  pipe, packing 32 features per warp step with ``__ballot_sync``.
+
+Both read the activations in the dtype they arrive in (bf16 on the
+serving path: ``x >= 0`` gives the same bit as on its fp32 cast, so no
+cast pass runs). See the source for both designs.
 """
 
 from __future__ import annotations
@@ -28,14 +40,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, mma_plan
 from repro_torch.kernels.xnor_matmul import hamming_matmul_plain
 
 # launches of the CUDA kernel since the last reset (the plain version
-# does not count)
+# does not count), in all and per variant
 launches = 0
+launches_by_variant = dict.fromkeys(mma_plan.FUSED_VARIANTS, 0)
 
-_ENTRY = {torch.bfloat16: "fused_bnn_matmul_bf16", torch.float32: "fused_bnn_matmul_f32"}
+_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def fused_bnn_matmul_plain(
@@ -63,10 +76,15 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
+_B1_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _lib() -> ctypes.CDLL:
-    return _build.load("fused_decode", {entry: _ARGTYPES for entry in _ENTRY.values()})
+    sigs = {}
+    for d in _DTYPES.values():
+        sigs[f"fused_bnn_matmul_{d}"] = _ARGTYPES
+        sigs[f"fused_bnn_matmul_b1_{d}"] = _B1_ARGTYPES
+    return _build.load("fused_decode", sigs)
 
 
 def fused_bnn_matmul_kernel(
@@ -87,7 +105,7 @@ def fused_bnn_matmul_kernel(
     """
     if x.ndim != 2 or x.shape[1] < m:
         raise ValueError(f"activations must be (B, >= {m}), got {tuple(x.shape)}")
-    if x.dtype not in _ENTRY:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"activations must be bf16 or fp32, got {x.dtype}")
     if w_packed.dtype != torch.int32 or w_packed.ndim != 2:
         raise TypeError(f"weights must be 2-D int32 words, got {w_packed.dtype}")
@@ -118,15 +136,19 @@ def fused_bnn_matmul_kernel(
     out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     if rows == 0 or n == 0:
         return out
-    fn = getattr(_lib(), _ENTRY[x.dtype])
-    with torch.cuda.device(x.device):
-        rc = fn(
-            x.data_ptr(), x.stride(0), w_packed.data_ptr(), w_packed.stride(0),
-            alpha.data_ptr(), beta.data_ptr(), out.data_ptr(), rows, n, m,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    lib = _lib()
+    plan = mma_plan.choose_fused(x, w_packed, out, alpha, beta, m=m)
+    args = (x.data_ptr(), x.stride(0), w_packed.data_ptr(), w_packed.stride(0),
+            alpha.data_ptr(), beta.data_ptr(), out.data_ptr(), rows, n, m)
+    dt = _DTYPES[x.dtype]
+    if plan.variant == "b1":
+        rc = _build.on_device(x.device, getattr(lib, f"fused_bnn_matmul_b1_{dt}"), *args,
+                              *plan.args)
+    else:
+        rc = _build.on_device(x.device, getattr(lib, f"fused_bnn_matmul_{dt}"), *args)
     if rc != 0:
-        raise RuntimeError(f"fused_bnn_matmul launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fused_bnn_matmul launch failed ({plan.describe()}): error {rc}")
     global launches
     launches += 1
+    launches_by_variant[plan.variant] += 1
     return out

@@ -1,7 +1,8 @@
 """Launch plans and variant choice of the tensor-core GEMM-like kernels:
 bitlinear and the WDM MMM -- one Hopper tile loop (``csrc/sm90_mma.cuh``)
-behind both -- and the Hamming matmul (``csrc/xnor_matmul.cu``, at the
-end of this module).
+behind both -- and, at the end of this module, the Hamming matmul
+(``csrc/xnor_matmul.cu``) and the fused BitLinear (``csrc/fused_decode.cu``),
+one binary tensor-core tile loop (``csrc/sm90_b1.cuh``) behind both.
 
 Variant ``sm90`` (TMA + wgmma + cluster split-K) takes every shape TMA
 can describe: 16-byte-aligned bases for x, w, alpha and out, n % 8 == 0
@@ -122,17 +123,29 @@ def _sm_count(device: torch.device) -> int:
 
 
 # ---------------------------------------------------------------------------
-# the Hamming matmul (csrc/xnor_matmul.cu): variant "b1" (TMA + mma.sync
-# m16n8k256 on the binary tensor cores + cluster split-K) for operands TMA
-# can describe, variant "popc" (the 32-bit popcount kernel) otherwise
+# the binary tensor-core tile loop (csrc/sm90_b1.cuh) behind the Hamming
+# matmul and the fused BitLinear: variant "b1" (TMA + mma.sync m16n8k256 on
+# the binary tensor cores + cluster split-K) for operands TMA can describe,
+# variant "popc" (the 32-bit popcount kernels) otherwise
 # ---------------------------------------------------------------------------
 
-HAM_BN = 128  # weight columns per CTA
+HAM_BN = 128  # weight columns per consumer warpgroup (b1::kBN)
 HAM_BKW = 8  # packed words per k stage (256 bits: one instruction)
-HAM_PITCH = HAM_BN + 4  # int32 partial-tile row pitch
+HAM_PITCH = HAM_BN + 4  # int32 partial-tile row pitch of one warpgroup (b1::pitch(1))
 HAM_ROW_TILES = (8, 16, 32, 64)
 HAM_MAX_STAGES = 8
 HAM_VARIANTS = ("popc", "b1")
+W_BOX_STAGE = HAM_BN * HAM_BKW * 4  # a warpgroup's weight words per stage (b1::kWBytes)
+
+
+def b1_smem_bytes(row_tile: int, wg: int, x_row: int, tile_row: int, stages: int) -> int:
+    """Mirrors ``b1::smem_bytes``: 1 KB of alignment slack, the ring (per
+    stage ``wg`` weight tiles, the activation box of ``x_row`` bytes a row
+    and the packed tile of ``tile_row`` bytes a row built from it; reused
+    for the int32 partial tile) and the barriers."""
+    ring = max(stages * (wg * W_BOX_STAGE + row_tile * (x_row + tile_row)),
+               row_tile * (wg * HAM_BN + HAM_PITCH - HAM_BN) * 4)
+    return 1024 + -(-ring // 1024) * 1024 + 16 * stages
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,12 +175,9 @@ class HammingPlan:
 
 
 def hamming_smem_bytes(row_tile: int, stages: int) -> int:
-    """Mirrors ``b1::smem_bytes``: 1 KB of alignment slack, the ring of
-    weight and activation tiles (reused for the int32 partial tile) and
-    the barriers."""
-    ring = max(stages * (HAM_BN * HAM_BKW * 4 + row_tile * HAM_BKW * 4),
-               row_tile * HAM_PITCH * 4)
-    return 1024 + -(-ring // 1024) * 1024 + 16 * stages
+    """Shared memory of one b1 Hamming CTA: one warpgroup, the packed
+    words by TMA as the tile."""
+    return b1_smem_bytes(row_tile, 1, HAM_BKW * 4, 0, stages)
 
 
 def hamming_plan(rows: int, kw: int, n: int, sms: int = H100_SMS) -> HammingPlan:
@@ -211,3 +221,114 @@ def choose_hamming(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> Hammi
                       (a.data_ptr(), w.data_ptr(), out.data_ptr())):
         return hamming_plan(rows, kw, n, _sm_count(a.device))
     return HammingPlan("popc", grid=(-(-rows // 8), -(-n // 128), 1))
+
+
+# ---------------------------------------------------------------------------
+# the fused BitLinear (csrc/fused_decode.cu): variant "b1" binarizes and
+# packs raw activations inside the b1 tile loop, variant "popc" is the
+# 32-bit popcount kernel
+# ---------------------------------------------------------------------------
+
+FUSED_FEATURES = HAM_BKW * 32  # features per k stage (b1::kStageFeatures)
+FUSED_WGS = (1, 2)  # consumer warpgroups per CTA: 128- or 256-column n tiles
+FUSED_ROW_TILES = (8, 16, 32)
+FUSED_VARIANTS = ("popc", "b1")
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    variant: str
+    row_tile: int = 0
+    wg: int = 1
+    split: int = 1
+    stages: int = 0
+    grid: tuple[int, int, int] = (0, 0, 0)
+    smem: int = 0
+
+    @property
+    def ctas(self) -> int:
+        return math.prod(self.grid)
+
+    @property
+    def args(self) -> tuple[int, int, int, int]:
+        """(row tile, warpgroups, split, stages) as ``fused_bnn_matmul_b1_*``
+        take them."""
+        return self.row_tile, self.wg, self.split, self.stages
+
+    def describe(self) -> str:
+        if self.variant != "b1":
+            return f"variant {self.variant} (8 rows x 128 columns per block, {self.ctas} blocks)"
+        return (f"variant b1: n tile {self.wg * HAM_BN} ({self.wg} consumer warpgroup"
+                f"{'s' if self.wg > 1 else ''}), row tile {self.row_tile}, split {self.split} "
+                f"(cluster {self.split}x1x1), grid {self.grid}, {self.ctas} CTAs, "
+                f"{self.stages} stages of {FUSED_FEATURES} features, {self.smem} B shared memory")
+
+
+def fused_smem_bytes(row_tile: int, wg: int, x_size: int, stages: int) -> int:
+    """Shared memory of one fused b1 CTA: ``wg`` warpgroups, a box of
+    256 features of x in its dtype and the 8-word tile packed from it."""
+    return b1_smem_bytes(row_tile, wg, FUSED_FEATURES * x_size, HAM_BKW * 4, stages)
+
+
+def fused_plan(rows: int, m: int, n: int, x_size: int, sms: int = H100_SMS,
+               wg: int | None = None) -> FusedPlan:
+    """As :func:`hamming_plan` over n tiles of ``wg`` * 128 columns -- a row
+    tile of 8..32 rows (FUSED_ROW_TILES), the smallest that holds the
+    rows, halved while there are fewer tiles than ``sms``; then a split
+    S <= 8 of the k stages over a cluster, the fewest stages per split
+    that give >= ``sms`` CTAs where the stages allow.
+
+    The choices below were measured on an H100 (``tools/tc_probe.py
+    --sections fused``; PERF.md). x is 16x (bf16) or 32x (fp32) the bytes
+    of its packed words, and every n tile re-reads and re-packs it: past
+    a decode tick's 8 rows two warpgroups (a 256-column n tile, half the
+    packing per output) are taken, at 8 rows one. The row tile stops at
+    32 rows, and a grid of more CTAs than SMs gets a 2-stage ring: a CTA
+    packs, multiplies and stores in turn, and more CTAs per SM fill each
+    other's gaps better than a deeper ring (a 64-row tile or a deeper
+    ring holds fewer CTAs per SM and left a partial last wave at 1024
+    rows). A grid the card holds at once gets a ring as deep as a split's
+    stages (2..8) within 227 KB."""
+    kt = -(-m // FUSED_FEATURES)
+    if wg is None:
+        wg = 2 if rows > FUSED_ROW_TILES[0] else 1
+    n_tiles = -(-n // (wg * HAM_BN))
+    row_tile = next((t for t in FUSED_ROW_TILES if t >= rows), FUSED_ROW_TILES[-1])
+    while row_tile > FUSED_ROW_TILES[0] and n_tiles * -(-rows // row_tile) < sms:
+        row_tile //= 2
+    tiles = n_tiles * -(-rows // row_tile)
+    # the fewest k stages per split that still give >= sms CTAs where the
+    # stages allow; then no split without a k stage
+    per_cta = -(-sms // tiles)
+    kt_per = max(-(-kt // MAX_SPLIT), kt // per_cta if per_cta <= kt else 1)
+    split = -(-kt // kt_per)
+    fits = [s for s in range(2, min(HAM_MAX_STAGES, max(2, kt_per)) + 1)
+            if fused_smem_bytes(row_tile, wg, x_size, s) <= MAX_SMEM]
+    stages = 2 if split * tiles > sms else fits[-1]
+    return FusedPlan("b1", row_tile, wg, split, stages, (split, n_tiles, -(-rows // row_tile)),
+                     fused_smem_bytes(row_tile, wg, x_size, stages))
+
+
+def fused_tma_ok(rows: int, m: int, n: int, ldx: int, x_size: int, ldw: int,
+                 ptrs: tuple[int, ...]) -> bool:
+    """Whether TMA can describe the operands: x's row stride a multiple of
+    16 bytes, the weight row stride a multiple of 4 words and 16-byte
+    aligned bases (alpha and beta are read element by element)."""
+    return (rows > 0 and m > 0 and n > 0 and (ldx * x_size) % 16 == 0 and ldw % 4 == 0
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def choose_fused(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, alpha: torch.Tensor,
+                 beta: torch.Tensor, *, m: int | None = None) -> FusedPlan:
+    """The variant and plan for (rows, >= m) activations ``x`` against
+    the (KW', N') word artifact ``w`` into (rows, n) ``out`` with scales
+    ``alpha`` (n,) and ``beta`` (rows,), by dtype, strides and pointer
+    alignment, before any launch. ``m`` defaults to x's width."""
+    del alpha, beta  # read element by element: any base will do
+    rows = x.shape[0]
+    m = x.shape[1] if m is None else int(m)
+    n = out.shape[1]
+    if fused_tma_ok(rows, m, n, x.stride(0), x.element_size(), w.stride(0),
+                    (x.data_ptr(), w.data_ptr(), out.data_ptr())):
+        return fused_plan(rows, m, n, x.element_size(), _sm_count(x.device))
+    return FusedPlan("popc", grid=(-(-rows // 8), -(-n // 128), 1))

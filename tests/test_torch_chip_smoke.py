@@ -125,7 +125,8 @@ def test_unknown_arguments_are_refused(capsys):
 
 def test_only_modes_name_known_kernel_groups(capsys):
     cs = _chip_smoke()
-    assert set(cs.ONLY) == {"--mma-only", "--flash-only", "--hamming-only", "--kernels-only"}
+    assert set(cs.ONLY) == {"--mma-only", "--flash-only", "--hamming-only", "--fused-only",
+                           "--kernels-only"}
     for groups in cs.ONLY.values():
         assert set(groups) <= {"fused", "hamming", "flash", "mma"}
     assert cs.main(["--flash-only", "--mma-only"]) == 2
@@ -137,7 +138,8 @@ def test_summaries_carry_launches_by_variant():
     variant on its path (filled in by the serve and entry-point phases)."""
     cs = _chip_smoke()
     cs.BY_VARIANT.update({"hamming_matmul": {"popc": 0, "b1": 4928},
-                          "flash_attention": {"fma": 0, "sm90": 352}})
+                          "flash_attention": {"fma": 0, "sm90": 352},
+                          "fused_bnn_matmul": {"popc": 0, "b1": 3520}})
     rec = {"ms": 1.0, "eager_ms": 4.0, "plain_ms": 2.0, "library_ms": 3.0, "bytes_ms": 0.1,
            "ops_ms": 0.2}
     ham = cs.kernel_summary(
@@ -152,6 +154,59 @@ def test_summaries_carry_launches_by_variant():
     by_name = {k["name"]: k for k in ham + flash}
     assert by_name["hamming_matmul"]["launches_by_variant"] == {"popc": 0, "b1": 4928}
     assert by_name["flash_attention"]["launches_by_variant"] == {"fma": 0, "sm90": 352}
+    assert by_name["fused_bnn_matmul"]["launches_by_variant"] == {"popc": 0, "b1": 3520}
     assert all("launches_by_variant" in k and "eager_ms" in k for k in by_name.values())
     # the b1 tensor cores' measured rate sets the Hamming kernel's operation bound
     assert cs.B1_BITOPS_PER_S > 32 * cs.POPC_PER_CLOCK_PER_SM * 132 * 1.98e9
+
+
+def test_fused_bound_is_bytes_on_the_binary_tensor_cores():
+    """The fused kernel's operation bound counts bit pairs at the b1 tensor
+    cores' rate, as the Hamming kernel's does, so one decode-tick layer is
+    bound by its bytes: ~6.4 MB, 0.0019 ms at 3.35 TB/s."""
+    cs = _chip_smoke()
+    t_bytes = t_ops = 0.0
+    for shape in cs.LAYER_FUSED:
+        m, n = cs.SHAPES[shape]
+        nbytes, bit_ops = cs.packed_work("fused_bnn_matmul", 8, m, n)
+        assert bit_ops == 8 * n * -(-m // 32) * 32
+        assert cs.packed_work("hamming_matmul", 8, m, n)[1] == bit_ops
+        t_bytes += nbytes / cs.HBM_BYTES_PER_S * 1e3
+        t_ops += bit_ops / cs.B1_BITOPS_PER_S * 1e3
+    assert t_bytes == pytest.approx(0.0019, abs=5e-5) and t_ops < t_bytes / 10
+    rows = 1024  # at the lockstep prefill too
+    m, n = cs.SHAPES["w1/w3"]
+    nbytes, bit_ops = cs.packed_work("fused_bnn_matmul", rows, m, n)
+    assert nbytes / cs.HBM_BYTES_PER_S > bit_ops / cs.B1_BITOPS_PER_S
+
+
+def test_fused_edge_case_is_b1_with_a_partial_word_and_k_stage():
+    """check_fused_edges' shape takes the b1 variant in bf16 and fp32, with
+    m past a whole word, kw past a whole 8-word k stage and n % 128 != 0;
+    the ragged and block-padded cases keep the popc variant."""
+    from repro_torch.kernels import mma_plan
+
+    cs = _chip_smoke()
+    rows, m, n = cs.FUSED_EDGE
+    kw = -(-m // 32)
+    assert m % 32 and kw % mma_plan.HAM_BKW and n % mma_plan.HAM_BN
+    for x_size in (2, 4):
+        assert mma_plan.fused_tma_ok(rows, m, n, m, x_size, n, (0,))
+        plan = mma_plan.fused_plan(rows, m, n, x_size)
+        kt = -(-m // mma_plan.FUSED_FEATURES)
+        assert plan.split > 1 and kt % -(-kt // plan.split)  # a last split of fewer stages
+    for m_ in (100, 300):  # bf16 rows of 200 and 600 bytes
+        assert not mma_plan.fused_tma_ok(3, m_, 48, m_, 2, 128, (0,))
+
+
+def test_fused_only_runs_the_device_phase_first(capsys):
+    """``--fused-only`` is a known argument: without a card it gets as far
+    as the device check (a SystemExit), not the usage error."""
+    cs = _chip_smoke()
+    assert ("fused",) == cs.ONLY["--fused-only"]
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        cs.main(["--fused-only"])
+    assert e.value.code != 0
+    assert "usage" not in capsys.readouterr().err

@@ -214,3 +214,39 @@ def test_mma_wrappers_raise_for_a_cuda_tensor_at_either_variant_shape(monkeypatc
                 call()
     assert before == (bitlinear.launches, dict(bitlinear.launches_by_variant),
                       wdm_mmm.launches, dict(wdm_mmm.launches_by_variant))
+
+
+@pytest.mark.parametrize("rows,m,n,dtype", [(8, 2048, 5632, torch.bfloat16),
+                                            (1024, 2048, 256, torch.float32),
+                                            (3, 100, 48, torch.bfloat16)],
+                         ids=["b1 bf16", "b1 fp32", "popc"])
+def test_fused_and_hamming_wrappers_raise_for_a_cuda_tensor_at_either_variant_shape(
+        monkeypatch, rows, m, n, dtype):
+    """The fused BitLinear and Hamming wrappers on fake CUDA tensors at a
+    b1 shape and a popc shape reach the build error: no launch is counted
+    for either variant, and the plain versions never run."""
+    _needs_no_cuda()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fused_decode, "fused_bnn_matmul_plain", no_plain)
+    monkeypatch.setattr(xnor_matmul, "hamming_matmul_plain", no_plain)
+    before = (fused_decode.launches, dict(fused_decode.launches_by_variant),
+              xnor_matmul.launches, dict(xnor_matmul.launches_by_variant))
+    kw = -(-m // 32)
+    with FakeTensorMode():
+        x = torch.empty((rows, m), device="cuda", dtype=dtype)
+        w = torch.empty((kw, n), device="cuda", dtype=torch.int32)
+        a = torch.empty((rows, kw), device="cuda", dtype=torch.int32)
+        calls = (
+            lambda: fused_decode.fused_bnn_matmul_kernel(
+                x, w, torch.empty(n, device="cuda"), torch.empty(rows, device="cuda"), m=m, n=n),
+            lambda: xnor_matmul.hamming_matmul_packed(a, w),
+        )
+        for call in calls:
+            with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+                call()
+    assert before == (fused_decode.launches, dict(fused_decode.launches_by_variant),
+                      xnor_matmul.launches, dict(xnor_matmul.launches_by_variant))

@@ -2,7 +2,7 @@
 """Probes of the tensor-core paths behind the Hamming and flash kernels, on
 one CUDA card (run from the repository root):
 
-    python3 tools/tc_probe.py [--sections b1,flash,hamming]
+    python3 tools/tc_probe.py [--sections b1,flash,hamming,fused]
 
 - ``b1``: whether ptxas takes ``mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32``
   with ``.xor.popc`` and with ``.and.popc`` for ``sm_90a``; each form that
@@ -21,9 +21,17 @@ one CUDA card (run from the repository root):
   launch bounds for three CTAs per SM; at the tinyllama-1.1b prefill, the
   continuation and llama3.2-3b's D = 128 (``chip_smoke.FLASH_CASES``).
 - ``hamming``: the b1 Hamming kernel from copies of ``csrc/xnor_matmul.cu``
-  without the row / column popcounts on the CUDA cores, without the
-  tensor-core instructions, without the split-K reduction and store, at
-  w1/w3 and w2 with 8, 128 and 1024 rows.
+  (with ``csrc/sm90_b1.cuh`` inlined) without the row / column popcounts
+  on the CUDA cores, without the tensor-core instructions, without the
+  split-K reduction and store, at w1/w3 and w2 with 8, 128 and 1024 rows.
+- ``fused``: the b1 fused BitLinear from copies of ``csrc/fused_decode.cu``
+  (``sm90_b1.cuh`` inlined) without the binarize-and-pack (the fragments
+  read a word tile that is never written), without the x box loads,
+  without the tensor-core instructions, without the split-K reduction
+  and epilogue; and the shipped build under other plans: one and two
+  consumer warpgroups (128- and 256-column n tiles), at 128 and 1024
+  rows every other ring depth, at 1024 rows a 64-row tile and a split of
+  2 -- at w1/w3, qkv and w2 with 8, 128 and 1024 rows, bf16 x.
 
 Each knock-out is its own library under ``build/probe/tc/`` with its own
 namespace; the knocked-out builds compute wrong results and exist only to
@@ -37,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import importlib.util
 import subprocess
 import sys
@@ -181,11 +190,18 @@ def b1(_gen) -> None:
                   flush=True)
 
 
+B1_HEADER = '#include "sm90_b1.cuh"'
+
+
 def _knockouts(source: str, namespace: str, knockouts: dict, signatures: dict) -> dict:
-    """Build one library per knock-out from ``csrc/<source>`` with its text
-    edits applied and its ``namespace`` renamed, all in parallel; returns
-    the loaded libraries by knock-out name."""
+    """Build one library per knock-out from ``csrc/<source>`` (with the b1
+    tile loop's header inlined where it includes it) with its text edits
+    applied and its ``namespace`` renamed, all in parallel; returns the
+    loaded libraries by knock-out name."""
     text = (_build.SRC_DIR / source).read_text()
+    if B1_HEADER in text:
+        header = (_build.SRC_DIR / "sm90_b1.cuh").read_text().replace("#pragma once\n", "")
+        text = text.replace(B1_HEADER, header)
     procs = {}
     for i, (name, edits) in enumerate(knockouts.items()):
         t = text
@@ -283,8 +299,8 @@ HAMMING_KNOCKOUTS = {
     "no tensor-core instructions": [
         ("          mma_and(acc[x][0][nt], w0.x, w0.y, w1.x, w1.y, bf[nt].x, bf[nt].y);\n"
          "          mma_and(acc[x][1][nt], w0.z, w0.w, w1.z, w1.w, bf[nt].x, bf[nt].y);\n", "")],
-    "no reduction or store": [("  for (int q = rank * kThreads + tid; q < N * (kBN / 4);",
-                               "  for (int q = N * (kBN / 4) + rank * kThreads + tid; q < N * (kBN / 4);")],
+    "no reduction or store": [("  for (int q = rank * kThreads + tid; q < N * (kCols / 4);",
+                               "  for (int q = N * (kCols / 4) + rank * kThreads + tid; q < N * (kCols / 4);")],
 }
 
 
@@ -318,7 +334,72 @@ def hamming(gen) -> None:
                   flush=True)
 
 
-SECTIONS = {"b1": b1, "flash": flash, "hamming": hamming}
+FUSED_KNOCKOUTS = {
+    "as built": [],
+    "no pack": [("        Act::template pack<N, kConsumers>(at, tile, tid, (kt0 + i) * kStageFeatures, m);\n",
+                 "")],
+    "no x box loads": [("        mbar_expect_tx(&full[s], kWStage + kXBytes);",
+                        "        mbar_expect_tx(&full[s], kWStage);"),
+                       ("        tma_load(xring + s * kXBytes, &ta, &full[s], k0 * Act::kWordsPerCoord, r0);\n",
+                        "")],
+    "no tensor-core instructions": HAMMING_KNOCKOUTS["no tensor-core instructions"],
+    "no reduction or epilogue": HAMMING_KNOCKOUTS["no reduction or store"],
+}
+
+
+def fused(gen) -> None:
+    from repro_torch.kernels import fused_decode
+
+    libs = _knockouts("fused_decode.cu", "b1", FUSED_KNOCKOUTS,
+                      {"fused_bnn_matmul_b1_bf16": fused_decode._B1_ARGTYPES})
+    for rows in (8, 128, 1024):
+        for name_ in ("w1/w3", "qkv", "w2"):
+            m, n = cs.SHAPES[name_]
+            x, _, wp, alpha, beta = cs._case(gen, rows, m, n, False)
+            want = fused_decode.fused_bnn_matmul_plain(x, wp, alpha, beta, m=m, n=n)
+            sets = [(wp,)] + [(wp.clone(),) for _ in range(cs._copies(wp.numel() * 4) - 1)]
+            shipped = mma_plan.fused_plan(rows, m, n, 2)
+            kt = -(-m // mma_plan.FUSED_FEATURES)
+            plans = {f"{wg} warpgroup{'s' if wg > 1 else ''}": mma_plan.fused_plan(rows, m, n, 2, wg=wg)
+                     for wg in mma_plan.FUSED_WGS}
+            if rows >= 128:  # every other ring depth (fewer stages: more CTAs per SM)
+                plans.update({
+                    f"{s} stages": dataclasses.replace(shipped, stages=s)
+                    for s in range(2, min(mma_plan.HAM_MAX_STAGES, max(2, -(-kt // shipped.split))) + 1)
+                    if s != shipped.stages
+                    and mma_plan.fused_smem_bytes(shipped.row_tile, shipped.wg, 2, s) <= mma_plan.MAX_SMEM})
+            if rows >= 1024:  # a 64-row tile (one CTA per SM), a split of 2
+                plans["row tile 64, 5 stages"] = dataclasses.replace(
+                    shipped, row_tile=64, stages=5, grid=(1, shipped.grid[1], -(-rows // 64)))
+                plans["split 2"] = dataclasses.replace(shipped, split=2, grid=(2, *shipped.grid[1:]))
+            line = []
+
+            def run(w_, lib, plan):
+                o = torch.empty((rows, n), device="cuda")
+                rc = lib.fused_bnn_matmul_b1_bf16(
+                    x.data_ptr(), x.stride(0), w_.data_ptr(), w_.stride(0), alpha.data_ptr(),
+                    beta.data_ptr(), o.data_ptr(), rows, n, m, *plan.args,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"{plan.describe()}: error {rc}")
+                return o
+
+            for name, lib in libs.items():
+                if name == "as built":
+                    for label, plan in plans.items():
+                        if not torch.equal(run(wp, lib, plan), want):
+                            raise AssertionError(f"the unmodified copy != the plain version "
+                                                 f"({plan.describe()})")
+                        ms = cs._graph_ms(lambda w_: run(w_, lib, plan), sets, ITERS)
+                        line.append(f"{label} (row tile {plan.row_tile}, split {plan.split}, "
+                                    f"{plan.ctas} CTAs, {plan.stages} stages) {ms:.4f}")
+                    continue
+                line.append(f"{name} {cs._graph_ms(lambda w_: run(w_, lib, shipped), sets, ITERS):.4f}")
+            print(f"[fused] {name_} rows {rows} (shipped: {shipped.describe()}): " + ", ".join(line),
+                  flush=True)
+
+
+SECTIONS = {"b1": b1, "flash": flash, "hamming": hamming, "fused": fused}
 
 
 def main(argv: list[str]) -> int:
