@@ -2,10 +2,11 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py [--mma-only | --flash-only | --hamming-only | --fused-only |
-                           --kernels-only]
+                           --kernels-only | --telemetry-only]
 
 Each ``--*-only`` argument stops after those kernels' checks and timings
-(``--kernels-only``: every kernel's) and prints no result line. Needs one
+(``--kernels-only``: every kernel's; ``--telemetry-only``: the build and
+the telemetry phase alone) and prints no result line. Needs one
 CUDA card (device 0), the CUDA toolkit's ``nvcc`` and ``nvidia-smi``;
 exits non-zero without them. Phases, each announced on its own
 ``[phase]`` line:
@@ -19,7 +20,12 @@ exits non-zero without them. Phases, each announced on its own
    (bit-exact, ``torch.equal``; each kernel's variant, ``b1`` or ``popc``,
    and plan printed, two launches equal), the fused kernel also at an
    edge shape (partial last word and k stage, n % 128 != 0) in bf16 and
-   fp32 and on signed zeros, NaN and subnormals, flash attention on
+   fp32, and -- with the ragged and block-padded shapes (``popc``), the
+   Hamming kernel's words packed from them and bitlinear's ragged
+   (``wmma``) and k-edge (``sm90``) shapes in bf16 and fp32 -- on signed
+   zeros, NaN, subnormals of both signs and -2^-126, which must
+   binarize as ``x > -2^-126`` (the JAX reference's ``x >= 0`` with
+   subnormals read as zero), flash attention on
    prefill, continuation, ragged, D = 128 and non-causal cases in bf16
    (variant ``sm90``) and fp32 (``fma``), within a stated tolerance, two
    launches bit-identical, bitlinear and the WDM MMM at the projection shapes, a
@@ -42,7 +48,14 @@ exits non-zero without them. Phases, each announced on its own
    batched == alone, every flash launch of the ``sm90`` variant and every
    fused launch of ``b1`` -- after
    a check that the port's per-row ops give a row the same bits whatever
-   the row count.
+   the row count;
+7. telemetry: the request path (through the serve CLI's ``--trace-out``
+   / ``--metrics-out``) and the fleet (inside ``obs.session()``) again
+   with the port's telemetry on: tokens == the untraced runs above, one
+   ``decode_tick`` span per tick and one ``prefill`` span per prefill,
+   counters == the serving stats, a Chrome trace and metrics snapshot
+   that parse (written under ``chiprun_out/telemetry``); prints the span
+   medians and the traced and untraced tok/s.
 
 Then one ``{"kernels": [...]}`` JSON line, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -53,6 +66,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -264,40 +279,71 @@ def _check_fused(label: str, x, wp, alpha, beta, m: int, n: int, want_variant: s
 # one word) and n % 128 != 0
 FUSED_EDGE = (8, 2056, 264)
 
+# signed zeros, NaN of both signs, bf16 subnormals of both signs (2^-133
+# is bf16's least) and the least normal magnitude, each with the bit it
+# binarizes to: x > -2^-126 (bnn.nonneg), which is x >= 0 with subnormals
+# read as zero, as the JAX reference reads them under XLA
+SPECIAL_BITS = ((0.0, 1), (-0.0, 1), (float("nan"), 0), (-float("nan"), 0),
+                (2.0**-133, 1), (-(2.0**-133), 1), (3 * 2.0**-133, 1), (-3 * 2.0**-133, 1),
+                (-(2.0**-126), 0))
+SPECIAL_STRIDE = 11
+
+
+def with_specials(x):
+    """``x`` with SPECIAL_BITS' values at every SPECIAL_STRIDE-th feature
+    (offset by kind) and -0.0 and NaN as its last two features, and the
+    ±1 signs its features must binarize to (x's own sign elsewhere).
+    Fails unless ``bnn.nonneg`` gives those signs."""
+    import torch
+
+    from repro_torch.core import bnn
+
+    x = x.clone()
+    signs = torch.where(x >= 0, 1.0, -1.0).to(x.dtype)  # x holds no special value yet
+    for j, (v, bit) in enumerate(SPECIAL_BITS):
+        x[:, j::SPECIAL_STRIDE] = v
+        signs[:, j::SPECIAL_STRIDE] = 1.0 if bit else -1.0
+    for j, (v, bit) in ((-1, (-0.0, 1)), (-2, (float("nan"), 0))):
+        x[:, j] = v
+        signs[:, j] = 1.0 if bit else -1.0
+    if not torch.equal(torch.where(bnn.nonneg(x), 1.0, -1.0).to(x.dtype), signs):
+        raise AssertionError("bnn.nonneg does not give the special values' bits")
+    return x, signs
+
 
 def check_fused_edges(gen) -> float:
-    """The fused kernel at FUSED_EDGE with bf16 and fp32 x, and with bf16 x
-    holding +0.0, -0.0, NaN and subnormals of both signs (with a finite
-    beta passed in: mean|x| is NaN there): the b1 variant, two launches
-    ``torch.equal``, ``torch.equal`` to the plain version, whose ``x >=
-    0`` gives -0.0 bit 1, NaN bit 0 and a subnormal its sign. Returns the
-    largest |diff| (0.0)."""
+    """The fused kernel at FUSED_EDGE with bf16 and fp32 x, and with x
+    holding SPECIAL_BITS (with a finite beta passed in: mean|x| is NaN
+    there) in bf16 and fp32: the b1 variant, two launches
+    ``torch.equal``, ``torch.equal`` to the plain version, and on the
+    special values ``torch.equal`` to its own launch on the signs those
+    values must binarize to (-0.0 and subnormals +1, NaN and -2^-126 -1).
+    Returns the largest |diff| (0.0)."""
     import torch
+
+    from repro_torch.kernels import fused_decode
 
     rows, m, n = FUSED_EDGE
     worst = 0.0
     for label, dtype, special in (("bf16", torch.bfloat16, False), ("fp32", torch.float32, False),
-                                  ("bf16 signed zeros, NaN, subnormals", torch.bfloat16, True)):
+                                  ("bf16 specials", torch.bfloat16, True),
+                                  ("fp32 specials", torch.float32, True)):
         x, _, wp, alpha, beta = _case(gen, rows, m, n, False)
         x = x.to(dtype)
         if special:
-            tiny = torch.tensor(2.0**-133, dtype=torch.bfloat16).item()  # bf16's least subnormal
-            for j, v in enumerate((0.0, -0.0, float("nan"), tiny, -tiny, 3 * tiny, -3 * tiny,
-                                   -float("nan"))):
-                x[:, j::9] = v
-            x[:, -1] = -0.0  # the last, partial word
-            x[:, -2] = float("nan")
+            x, signs = with_specials(x)
             beta = torch.rand((rows,), generator=gen, device="cuda") + 0.5
-            counts = {"+0": int((x == 0).logical_and(~x.signbit()).sum()),
-                      "-0": int((x == 0).logical_and(x.signbit()).sum()),
-                      "nan": int(x.isnan().sum()),
-                      "subnormal": int(((x != 0) & (x.abs() < 2.0**-126)).sum())}
-            if min(counts.values()) == 0:
-                raise AssertionError(f"special-value case lacks a kind: {counts}")
         plan, err = _check_fused(f"edge {label}", x, wp, alpha, beta, m, n, "b1")
         worst = max(worst, err)
+        if special:
+            got = fused_decode.fused_bnn_matmul_kernel(x, wp, alpha, beta, m=m, n=n)
+            want = fused_decode.fused_bnn_matmul_kernel(signs, wp, alpha, beta, m=m, n=n)
+            if not torch.equal(got, want):
+                raise AssertionError(f"fused kernel at edge {label}: the special values do not "
+                                     f"binarize as x > -2^-126")
         print(f"[kernels] fused_bnn_matmul edge m={m} n={n} B={rows} {label}: == plain, two "
-              f"launches equal; {plan.describe()}", flush=True)
+              f"launches equal{'; specials binarize as x > -2^-126' if special else ''}; "
+              f"{plan.describe()}", flush=True)
     return worst
 
 
@@ -310,6 +356,7 @@ def check_kernels(which: tuple[str, ...] = ("fused_bnn_matmul", "hamming_matmul"
     wrapper's host work included), the plain version eagerly."""
     import torch
 
+    from repro_torch.core import bnn
     from repro_torch.kernels import fused_decode, mma_plan, ops, xnor_matmul
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -326,8 +373,14 @@ def check_kernels(which: tuple[str, ...] = ("fused_bnn_matmul", "hamming_matmul"
         worst["fused_bnn_matmul"] = check_fused_edges(gen)
     for label, b, m, n, prepad in cases:
         x, w_signs, wp, alpha, beta = _case(gen, b, m, n, prepad)
+        if prepad or label.startswith("ragged"):
+            # the popc variant's cases (and the Hamming kernel's words
+            # packed from them) on SPECIAL_BITS, with a finite beta
+            x, _ = with_specials(x)
+            beta = torch.rand((b,), generator=gen, device="cuda") + 0.5
+            label += " specials"
         kw = -(-m // 32)
-        a = ops.pack_bits(x >= 0)
+        a = ops.pack_bits(bnn.nonneg(x))
         plan_text = ""
         if "fused_bnn_matmul" in which:
             # the projection shapes take b1; the ragged and block-padded
@@ -336,7 +389,7 @@ def check_kernels(which: tuple[str, ...] = ("fused_bnn_matmul", "hamming_matmul"
                                       "popc" if m in (100, 300) else "b1")
             worst["fused_bnn_matmul"] = max(worst["fused_bnn_matmul"], err)
             plan_text = f"; fused {fplan.describe()}"
-        dot = (x >= 0).float() * 2 - 1
+        dot = bnn.nonneg(x).float() * 2 - 1
         if "hamming_matmul" in which:
             plan = mma_plan.choose_hamming(a, wp, torch.empty((b, n), dtype=torch.int32,
                                                               device="cuda"))
@@ -620,6 +673,22 @@ def check_mma(gen) -> dict:
             if plans[kname].variant != want_variant or used[want_variant] != want_used:
                 raise AssertionError(f"{kname} at {name} rows={rows}: plan {plans[kname].variant}, "
                                      f"launches by variant {used}; expected {want_variant}")
+        specials = ""
+        if name in ("ragged", "k-edge"):
+            # bitlinear's binarize (the wmma variant's, and the sm90
+            # variant's bf16 sign trick and fp32 comparison) on
+            # SPECIAL_BITS: == plain, and == its own launch on the signs
+            for dtype in (torch.bfloat16, torch.float32):
+                xs, signs = with_specials(x.to(dtype))
+                plan = mma_plan.choose(xs, w, out, alpha)
+                got = bl.bitlinear_kernel(xs, w, alpha)
+                if plan.variant != want_variant or not torch.equal(
+                        got, bl.bitlinear_plain(xs, w, alpha)) or not torch.equal(
+                        got, bl.bitlinear_kernel(signs, w, alpha)):
+                    raise AssertionError(f"bitlinear ({plan.variant}) at {name} rows={rows} "
+                                         f"{dtype}: the special values do not binarize as "
+                                         f"x > -2^-126")
+            specials = "; bitlinear on the special values (bf16, fp32) == plain == its signs"
         clusters = {
             "bitlinear": bl.max_active_clusters(plans["bitlinear"], x.dtype),
             "wdm_mmm": wm.max_active_clusters(plans["wdm_mmm"]),
@@ -627,7 +696,7 @@ def check_mma(gen) -> dict:
         print(f"[kernels] {name} rows={rows} (m={m}, n={n}): bitlinear == plain, wdm_mmm == "
               f"plain (±1); real-valued wdm_mmm max |diff| {real_err.max().item():.3g} within "
               f"m * 2^-24 * sum|terms|; two launches bit-identical (both kernels, real-valued "
-              f"MMM too)", flush=True)
+              f"MMM too){specials}", flush=True)
         for kname in ("bitlinear", "wdm_mmm"):
             print(f"[kernels]   {_plan_line(kname, plans[kname], clusters[kname])}", flush=True)
         if name in ("ragged", "k-edge"):
@@ -727,6 +796,10 @@ def _reset_counts() -> None:
 # each kernel's launches by variant in the run that counts its launches
 # (filled by the phases)
 BY_VARIANT: dict[str, dict[str, int]] = {}
+# the untraced runs of the traces the telemetry phase traces again:
+# {"requests" | "fleet": {"tokens": {rid: tokens}, "tok_s": ...}} (filled
+# by the serve phases)
+UNTRACED: dict[str, dict] = {}
 
 
 def _counts() -> dict:
@@ -914,6 +987,8 @@ def serve_phase(device: str = "cuda", smoke: bool = False) -> dict:
                              or req_variants != {"popc": 0, "b1": n_req["fused_bnn_matmul"]}):
         raise AssertionError(f"request path launched {n_req}, fused by variant {req_variants}")
     toks = sum(len(s.generated) for s in req["states"])
+    UNTRACED["requests"] = {"tokens": {s.rid: tuple(s.generated) for s in req["states"]},
+                            "tok_s": toks / req["wall_s"]}
     print(f"[serve] request path: {REQUESTS} requests (prompts {PROMPT // 2}-{PROMPT}, gen "
           f"{GEN}) into {BATCH} slots in {req['wall_s'] * 1e3:.1f} ms ({toks / req['wall_s']:.1f} "
           f"tok/s), ticks={req['stats'].ticks}, prefills={req['stats'].prefills}; "
@@ -1020,22 +1095,36 @@ def fleet_requests(cfg) -> list:
     return reqs
 
 
-def _timed_prefills(serving, log: list) -> None:
-    """Wrap a serving engine's admission prefill to record (grafted
-    tokens, ms) per admission, fenced by device synchronization."""
+def build_fleet(cfg, params, device: str):
+    """The 2-replica prefix-routed fleet of the shared-prefix trace."""
+    from repro_torch import compiler
+    from repro_torch.fleet import FleetEngine
+
+    return FleetEngine.build(cfg, params, compiler.HardwareTarget(engine="packed"),
+                             n_replicas=2, max_batch=BATCH,
+                             max_len=PREFIX_LEN + SUFFIX[1] + GEN, routing="prefix",
+                             block_size=16, device=device)
+
+
+def drive_fleet(fleet, reqs, device: str) -> tuple[list, float]:
+    """Serve the shared-prefix trace in two waves (one request per prefix,
+    then one arrival per fleet tick, so later arrivals find the prefix
+    library filled); returns the states and the wall seconds, the
+    clock ending in a device synchronization."""
+    import torch
+
     from repro_torch.device import synchronize
 
-    inner = serving.prefill_into
-
-    def prefill_into(slot, st):
-        graft = st.request.prefix
-        synchronize(serving.device)
-        t0 = time.perf_counter()
-        inner(slot, st)
-        synchronize(serving.device)
-        log.append((graft.length if graft is not None else 0, (time.perf_counter() - t0) * 1e3))
-
-    serving.prefill_into = prefill_into
+    synchronize(torch.device(device))
+    t0 = time.perf_counter()
+    states = [fleet.submit(r) for r in reqs[:FLEET_PREFIXES]]  # wave 1: one per prefix
+    fleet.step()
+    for r in reqs[FLEET_PREFIXES:]:  # wave 2: one arrival per fleet tick
+        states.append(fleet.submit(r))
+        fleet.step()
+    fleet.drain()
+    synchronize(torch.device(device))
+    return states, time.perf_counter() - t0
 
 
 def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
@@ -1059,7 +1148,6 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
     from repro_torch import compiler
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.device import synchronize
-    from repro_torch.fleet import FleetEngine
     from repro_torch.launch import serve
     from repro_torch.models import layers as layers_lib
     from repro_torch.models import lm
@@ -1181,23 +1269,9 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
     # (c) the fleet: two replicas on one card, prefix routing, two waves
     reqs = fleet_requests(cfg)
     max_len = PREFIX_LEN + SUFFIX[1] + GEN
-    fleet = FleetEngine.build(cfg, params(), compiler.HardwareTarget(engine="packed"),
-                              n_replicas=2, max_batch=BATCH, max_len=max_len,
-                              routing="prefix", block_size=16, device=device)
-    log: list = []
-    for rep in fleet.replicas.values():
-        _timed_prefills(rep.serving, log)
+    fleet = build_fleet(cfg, params(), device)
     _reset_counts()
-    synchronize(torch.device(device))
-    t0 = time.perf_counter()
-    states = [fleet.submit(r) for r in reqs[:FLEET_PREFIXES]]  # wave 1: one per prefix
-    fleet.step()
-    for r in reqs[FLEET_PREFIXES:]:  # wave 2: one arrival per fleet tick
-        states.append(fleet.submit(r))
-        fleet.step()
-    fleet.drain()
-    synchronize(torch.device(device))
-    wall = time.perf_counter() - t0
+    states, wall = drive_fleet(fleet, reqs, device)
     n_fleet = _flash_count()
     fused = _counts()["fused_bnn_matmul"]
     st = fleet.stats()
@@ -1215,6 +1289,8 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
                              f"({fleet_fused})")
     BY_VARIANT["flash_attention"] = fleet_variants
     toks = sum(len(s.generated) for s in states)
+    UNTRACED["fleet"] = {"tokens": {s.request.rid: tuple(s.generated) for s in states},
+                         "tok_s": toks / wall}
     del fleet
 
     # (d) one engine of 8 slots, and each request alone, for both paths
@@ -1237,18 +1313,234 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
                 raise AssertionError(f"{impl}: request {r.rid} in 8 slots != alone")
         alone[impl] = len(reqs)
         del model, se
-    grafted = [ms for g, ms in log if g > 0]
-    full_adm = [ms for g, ms in log if g == 0]
     print(f"[serve-pallas] fleet 2 replicas x {BATCH} slots, routing=prefix block=16: "
           f"{FLEET_REQUESTS} requests in {wall * 1e3:.1f} ms ({toks / wall:.1f} tok/s); "
           f"prefix hits {st.prefix_hits}, grafted {st.grafted_tokens} tokens, prefilled "
-          f"{st.prefill_tokens}; prefill per admission: full {np.mean(full_adm):.2f} ms "
-          f"({len(full_adm)}), grafted {np.mean(grafted):.2f} ms ({len(grafted)}); flash "
+          f"{st.prefill_tokens}; flash "
           f"launches {n_fleet} for {layers} layers x {prefills} prefills, by variant "
           f"{fleet_variants}; fused launches {fused}, by variant {fleet_fused}; tokens == single "
           f"engine; single engine == each request alone for all {alone['pallas']} (pallas) "
           f"and {alone['jnp']} (jnp)", flush=True)
     return n_fleet
+
+
+# ---------------------------------------------------------------------------
+# phase 7: telemetry
+# ---------------------------------------------------------------------------
+
+TELEMETRY_OUT = ROOT / "chiprun_out" / "telemetry"
+_PROM_SAMPLE = re.compile(r'^[a-z_]+(\{([a-z_]+="[^"]*",?)+\})? -?[0-9.e+inf]+$')
+
+
+def _median_ms(spans) -> float:
+    return statistics.median(s.duration_s * 1e3 for s in spans) if spans else float("nan")
+
+
+def _counter(tel, name: str) -> float:
+    inst = tel.metrics.get(name)
+    return inst.value if inst is not None else 0.0
+
+
+def _check_exports(out: Path, what: str) -> None:
+    """``out``'s Chrome trace must be JSON with ``traceEvents`` and every
+    line of its metrics snapshot a Prometheus comment or sample."""
+    trace, metrics = out / "trace.json", out / "metrics.txt"
+    if not json.loads(trace.read_text())["traceEvents"]:
+        raise AssertionError(f"{what}: the Chrome trace has no events")
+    bad = [line for line in metrics.read_text().splitlines()
+           if not (line.startswith(("# HELP ", "# TYPE ")) or _PROM_SAMPLE.match(line))]
+    if bad:
+        raise AssertionError(f"{what}: metrics lines that do not parse: {bad[:3]}")
+
+
+def _check_serving_telemetry(tel, stats: dict, what: str) -> None:
+    """Span counts and counters against the serving stats: one
+    ``decode_tick`` span per tick, one ``prefill`` span per prefill with
+    the grafted tokens summed, and the tick, token, group, pad-lane and
+    prefill counters equal to the stats' totals."""
+    ticks, prefills = tel.tracer.spans("decode_tick"), tel.tracer.spans("prefill")
+    got = {
+        "decode_tick spans": len(ticks),
+        "prefill spans": len(prefills),
+        "grafted in prefill spans": sum(s.attrs["grafted"] for s in prefills),
+        "repro_decode_ticks_total": _counter(tel, "repro_decode_ticks_total"),
+        "repro_decoded_tokens_total": _counter(tel, "repro_decoded_tokens_total"),
+        "repro_mmm_groups_total": _counter(tel, "repro_mmm_groups_total"),
+        "repro_pad_lanes_total": _counter(tel, "repro_pad_lanes_total"),
+        "repro_prefills_total": _counter(tel, "repro_prefills_total"),
+        "tick latency observations": tel.metrics.histogram("repro_tick_latency_seconds").total,
+    }
+    want = {
+        "decode_tick spans": stats["ticks"], "prefill spans": stats["prefills"],
+        "grafted in prefill spans": stats["grafted"],
+        "repro_decode_ticks_total": stats["ticks"], "repro_decoded_tokens_total": stats["decoded"],
+        "repro_mmm_groups_total": stats["mmm_groups"], "repro_pad_lanes_total": stats["pad_lanes"],
+        "repro_prefills_total": stats["prefills"], "tick latency observations": stats["ticks"],
+    }
+    if got != want:
+        raise AssertionError(f"{what}: telemetry {got} != stats {want}")
+
+
+def _span_shares(tel, wall_s: float) -> str:
+    """The share of a traced run's wall time inside prefill and
+    decode_tick spans (the rest: scheduling, routing, token emission)."""
+    pre = sum(s.duration_s for s in tel.tracer.spans("prefill"))
+    tick = sum(s.duration_s for s in tel.tracer.spans("decode_tick"))
+    return (f"prefill spans {pre * 1e3:.1f} ms ({100 * pre / wall_s:.1f}%), decode_tick spans "
+            f"{tick * 1e3:.1f} ms ({100 * tick / wall_s:.1f}%), outside both "
+            f"{100 * (1 - (pre + tick) / wall_s):.1f}% of {wall_s * 1e3:.1f} ms")
+
+
+def telemetry_phase(device: str = "cuda", smoke: bool = False, out: Path = TELEMETRY_OUT) -> dict:
+    """The port's own telemetry on the two request traces, each run once
+    more with a session on: (a) the request path through the serve CLI's
+    ``--trace-out`` / ``--metrics-out`` (16 requests, jnp attention, 8
+    slots); (b) the 2-replica prefix-routed fleet (``attn_impl="pallas"``)
+    inside ``obs.session()``. Each traced run must give the tokens of
+    the untraced run of the same trace (the serve phases' runs, or its
+    own when run alone), one span per tick and per prefill, counters
+    equal to the stats, a Chrome trace and metrics snapshot that parse,
+    and its fused launches all ``b1`` (the fleet's flash launches all
+    ``sm90``). Prints the span medians (compile.program, prefill full and
+    grafted, decode_tick), the spans' share of each run's wall time and
+    the traced and untraced tok/s. Returns those numbers."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    base = get_smoke_config(ARCH) if smoke else get_config(ARCH)
+    layers = base.n_layers
+    lock = ["--arch", ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+            "--gen", str(GEN), "--seed", str(SEED), "--device", device, "--engine", "packed"]
+    lock += ["--smoke"] if smoke else []
+    req_args = lock + ["--requests", str(REQUESTS)]
+    result = {}
+
+    # (a) the request path, traced through the CLI's flags
+    if "requests" not in UNTRACED:  # run alone: warm up, then the untraced run
+        _release(serve.run(lock + ["--gen", "2"]))
+        plain = serve.run(req_args)
+        UNTRACED["requests"] = {
+            "tokens": {s.rid: tuple(s.generated) for s in plain["states"]},
+            "tok_s": sum(len(s.generated) for s in plain["states"]) / plain["wall_s"]}
+        _release(plain)
+    (out / "requests").mkdir(parents=True, exist_ok=True)
+    _reset_counts()
+    traced = serve.run(req_args + ["--trace-out", str(out / "requests" / "trace.json"),
+                                   "--metrics-out", str(out / "requests" / "metrics.txt")])
+    n_fused, fused = _counts()["fused_bnn_matmul"], _fused_variants()
+    tel = traced["telemetry"]
+    if obs.enabled() or tel is None:
+        raise AssertionError("the serve CLI left its telemetry session open or made none")
+    _check_exports(out / "requests", "request path")
+    tokens = {s.rid: tuple(s.generated) for s in traced["states"]}
+    if tokens != UNTRACED["requests"]["tokens"]:
+        bad = sorted(r for r in tokens if tokens[r] != UNTRACED["requests"]["tokens"].get(r))
+        raise AssertionError(f"request path: traced tokens differ from untraced for {bad}")
+    st = traced["stats"]
+    _check_serving_telemetry(tel, {"ticks": st.ticks, "prefills": st.prefills,
+                                   "grafted": st.grafted_tokens, "decoded": st.decoded,
+                                   "mmm_groups": st.mmm_groups, "pad_lanes": st.pad_lanes},
+                             "request path")
+    sched = {"repro_requests_submitted_total": _counter(tel, "repro_requests_submitted_total"),
+             "ttft observations": tel.metrics.histogram("repro_ttft_ticks").total}
+    if sched != {"repro_requests_submitted_total": REQUESTS, "ttft observations": REQUESTS}:
+        raise AssertionError(f"request path: scheduler telemetry {sched}")
+    if device == "cuda" and (n_fused == 0 or fused != {"popc": 0, "b1": n_fused}):
+        raise AssertionError(f"traced request path launched fused {n_fused} ({fused})")
+    toks = sum(len(s.generated) for s in traced["states"])
+    req = {
+        "compile.program ms": _median_ms(tel.tracer.spans("compile.program")),
+        "prefill ms": _median_ms(tel.tracer.spans("prefill")),
+        "decode_tick ms": _median_ms(tel.tracer.spans("decode_tick")),
+        "traced tok/s": toks / traced["wall_s"],
+        "untraced tok/s": UNTRACED["requests"]["tok_s"],
+    }
+    print(f"[telemetry] request path, {REQUESTS} requests into {BATCH} slots: traced tokens == "
+          f"untraced; {len(tel.tracer.spans('decode_tick'))} decode_tick spans == ticks, "
+          f"{len(tel.tracer.spans('prefill'))} prefill spans == prefills, counters == stats; "
+          f"medians: compile.program {req['compile.program ms']:.2f} ms, prefill "
+          f"{req['prefill ms']:.2f} ms, decode_tick {req['decode_tick ms']:.2f} ms; "
+          f"{_span_shares(tel, traced['wall_s'])}; {req['traced tok/s']:.1f} tok/s traced, "
+          f"{req['untraced tok/s']:.1f} untraced; fused launches {fused}", flush=True)
+    result["requests"] = req
+    _release(traced)
+
+    # (b) the fleet, traced inside a session from compile() on
+    cfg = dataclasses.replace(base, attn_impl="pallas")
+    reqs = fleet_requests(cfg)
+
+    def params():
+        return lm.init_params(torch.Generator(device=device).manual_seed(SEED), cfg,
+                              device=device)
+
+    if "fleet" not in UNTRACED:
+        fleet = build_fleet(cfg, params(), device)
+        states, wall = drive_fleet(fleet, reqs, device)
+        UNTRACED["fleet"] = {"tokens": {s.request.rid: tuple(s.generated) for s in states},
+                             "tok_s": sum(len(s.generated) for s in states) / wall}
+        del fleet, states
+    with obs.session() as tel:
+        fleet = build_fleet(cfg, params(), device)
+        _reset_counts()
+        states, wall = drive_fleet(fleet, reqs, device)
+        n_flash, flash = _flash_count(), _flash_variants()
+        n_fused, fused = _counts()["fused_bnn_matmul"], _fused_variants()
+    (out / "fleet").mkdir(parents=True, exist_ok=True)
+    tel.write(trace_out=str(out / "fleet" / "trace.json"),
+              jsonl_out=str(out / "fleet" / "trace.jsonl"),
+              metrics_out=str(out / "fleet" / "metrics.txt"))
+    _check_exports(out / "fleet", "fleet")
+    tokens = {s.request.rid: tuple(s.generated) for s in states}
+    if tokens != UNTRACED["fleet"]["tokens"]:
+        bad = sorted(r for r in tokens if tokens[r] != UNTRACED["fleet"]["tokens"].get(r))
+        raise AssertionError(f"fleet: traced tokens differ from untraced for {bad}")
+    fs = fleet.stats()
+    _check_serving_telemetry(tel, {
+        "ticks": fs.ticks, "prefills": sum(r.prefills for r in fs.replicas),
+        "grafted": fs.grafted_tokens, "decoded": fs.decoded,
+        "mmm_groups": sum(r.mmm_groups for r in fs.replicas),
+        "pad_lanes": sum(r.pad_lanes for r in fs.replicas)}, "fleet")
+    routing = {"repro_fleet_routed_total": _counter(tel, "repro_fleet_routed_total"),
+               "repro_fleet_prefix_hits_total": _counter(tel, "repro_fleet_prefix_hits_total")}
+    if routing != {"repro_fleet_routed_total": FLEET_REQUESTS,
+                   "repro_fleet_prefix_hits_total": fs.prefix_hits} or fs.grafted_tokens <= 0:
+        raise AssertionError(f"fleet: routing telemetry {routing}, stats hits {fs.prefix_hits}, "
+                             f"grafted {fs.grafted_tokens}")
+    prefills = sum(r.prefills for r in fs.replicas)
+    if device == "cuda" and (n_flash != layers * prefills or flash != {"fma": 0, "sm90": n_flash}
+                             or n_fused == 0 or fused != {"popc": 0, "b1": n_fused}):
+        raise AssertionError(f"traced fleet launched flash {n_flash} ({flash}) for {prefills} "
+                             f"prefills, fused {n_fused} ({fused})")
+    pre = tel.tracer.spans("prefill")
+    toks = sum(len(s.generated) for s in states)
+    flt = {
+        "compile.program ms": _median_ms(tel.tracer.spans("compile.program")),
+        "prefill full ms": _median_ms([s for s in pre if s.attrs["grafted"] == 0]),
+        "prefill grafted ms": _median_ms([s for s in pre if s.attrs["grafted"] > 0]),
+        "decode_tick ms": _median_ms(tel.tracer.spans("decode_tick")),
+        "traced tok/s": toks / wall,
+        "untraced tok/s": UNTRACED["fleet"]["tok_s"],
+    }
+    n_grafted = sum(1 for s in pre if s.attrs["grafted"] > 0)
+    print(f"[telemetry] fleet, 2 replicas x {BATCH} slots, flash: traced tokens == untraced; "
+          f"{len(tel.tracer.spans('decode_tick'))} decode_tick spans == ticks, {len(pre)} prefill "
+          f"spans == prefills ({n_grafted} grafted, {fs.grafted_tokens} tokens == FleetStats), "
+          f"counters == stats; medians: compile.program {flt['compile.program ms']:.2f} ms "
+          f"(2 replicas), prefill full {flt['prefill full ms']:.2f} ms ({len(pre) - n_grafted}) "
+          f"vs grafted {flt['prefill grafted ms']:.2f} ms ({n_grafted}), decode_tick "
+          f"{flt['decode_tick ms']:.2f} ms; {_span_shares(tel, wall)}; {flt['traced tok/s']:.1f} "
+          f"tok/s traced, {flt['untraced tok/s']:.1f} untraced; flash launches {flash}, fused "
+          f"{fused}", flush=True)
+    result["fleet"] = flt
+    del fleet
+    _release({})
+    return result
 
 
 def kernel_summary(checked: dict, launches: dict) -> list[dict]:
@@ -1329,9 +1621,12 @@ ONLY = {  # an argument that stops after some kernels' checks and times (no resu
 }
 
 
+TELEMETRY_ONLY = "--telemetry-only"  # the telemetry phase alone (no result line)
+
+
 def main(argv: list[str]) -> int:
-    if argv and (len(argv) > 1 or argv[0] not in ONLY):
-        print(f"usage: chip_smoke.py [{' | '.join(ONLY)}]", file=sys.stderr)
+    if argv and (len(argv) > 1 or argv[0] not in (*ONLY, TELEMETRY_ONLY)):
+        print(f"usage: chip_smoke.py [{' | '.join((*ONLY, TELEMETRY_ONLY))}]", file=sys.stderr)
         return 2
     phase("device")
     card = check_device()
@@ -1340,6 +1635,11 @@ def main(argv: list[str]) -> int:
 
     phase("build")
     build_kernels()
+    if argv == [TELEMETRY_ONLY]:
+        phase("telemetry")
+        telemetry_phase()
+        print(card, flush=True)
+        return 0
     phase("kernels")
     if argv:  # some kernels alone; no result line
         only = ONLY[argv[0]]
@@ -1365,6 +1665,8 @@ def main(argv: list[str]) -> int:
     phase("serve pallas")
     row_count_check()
     launches["flash_attention"] = serve_pallas_phase()
+    phase("telemetry")
+    telemetry_phase()
     summary = kernel_summary(checked, launches) + launch_summary(flash, mma, launches)
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

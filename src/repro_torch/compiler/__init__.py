@@ -2,8 +2,10 @@
 
 from repro_torch.compiler.cli import (
     add_fleet_args,
+    add_obs_args,
     add_scheduler_args,
     add_target_args,
+    obs_from_args,
     scheduler_from_args,
     target_from_args,
 )
@@ -16,9 +18,11 @@ __all__ = [
     "HardwareTarget",
     "TargetError",
     "add_fleet_args",
+    "add_obs_args",
     "add_scheduler_args",
     "add_target_args",
     "compile",
+    "obs_from_args",
     "resolve_engine",
     "scheduler_from_args",
     "target_from_args",

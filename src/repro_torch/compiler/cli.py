@@ -1,11 +1,14 @@
-"""Shared argparse surface for hardware targets, the request scheduler
-and the fleet (counterpart of ``repro/compiler/cli.py``, serving flags).
+"""Shared argparse surface for hardware targets, the request scheduler,
+the fleet and telemetry (counterpart of ``repro/compiler/cli.py``,
+serving and telemetry flags).
 
     ap = argparse.ArgumentParser()
     add_target_args(ap)
     add_scheduler_args(ap)
     add_fleet_args(ap)
+    add_obs_args(ap)
     args = ap.parse_args()
+    tel = obs_from_args(args)      # before compile(): its stage spans
     compiled = compile(cfg, params, target_from_args(args))
     se = compiled.serve(scheduler=scheduler_from_args(args))
 """
@@ -134,6 +137,42 @@ def add_fleet_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
         "at more index churn)",
     )
     return ap
+
+
+def add_obs_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """Install the shared telemetry flags: either flag turns the
+    :mod:`repro_torch.obs` session on for the whole run."""
+    ap.add_argument(
+        "--trace-out",
+        default=None,
+        metavar="PATH",
+        help="write a Chrome-trace (chrome://tracing / Perfetto) JSON of "
+        "compile-stage and per-tick spans to PATH (enables telemetry)",
+    )
+    ap.add_argument(
+        "--metrics-out",
+        default=None,
+        metavar="PATH",
+        help="write a Prometheus-style text snapshot (TTFT, tick latency, "
+        "queue depth, cache counters) to PATH (enables telemetry)",
+    )
+    return ap
+
+
+def obs_from_args(args: argparse.Namespace):
+    """Start a telemetry session when any obs flag was passed; returns
+    the :class:`repro_torch.obs.Telemetry` or ``None`` (telemetry stays
+    off).
+
+    Call BEFORE ``compile()`` so the pipeline-stage spans are captured;
+    export at the end with ``tel.write(trace_out=args.trace_out,
+    metrics_out=args.metrics_out)``.
+    """
+    if getattr(args, "trace_out", None) or getattr(args, "metrics_out", None):
+        from repro_torch import obs
+
+        return obs.start()
+    return None
 
 
 def target_from_args(args: argparse.Namespace) -> HardwareTarget:

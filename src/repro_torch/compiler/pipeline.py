@@ -8,11 +8,17 @@
 3. **Program**: the one-time crossbar write (``lm.program_weights``), so
    decode streams only activations.
 
-The map stage, ``price()`` and ``describe()`` arrive with the
-paper-simulator slice. The returned :class:`CompiledModel` is what every
-consumer drives: ``prefill()`` / ``prefill_continue()`` /
-``decode_step()`` for batch loops,
-``serve()`` for a continuous-batching ``ServingEngine``.
+With a telemetry session active (:mod:`repro_torch.obs`) each stage
+records a span on the ``compile`` track, named as the reference's:
+``compile.validate``, ``compile.map``, ``compile.resolve`` and
+``compile.program`` (ending after the device's programming work) under
+the root ``compile``. The map stage itself, ``price()`` and
+``describe()`` arrive with the paper-simulator slice; until then
+``compile.map`` records no attributes, as the reference's does for a
+target without a mapping plan. The returned :class:`CompiledModel` is
+what every consumer drives: ``prefill()`` / ``prefill_continue()`` /
+``decode_step()`` for batch loops, ``serve()`` for a
+continuous-batching ``ServingEngine``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import time
 
 import torch
 
+from repro_torch import obs
 from repro_torch.compiler.target import HardwareTarget, TargetError
 from repro_torch.core import engine as engine_lib
 from repro_torch.device import resolve_device, synchronize
@@ -43,21 +50,43 @@ def compile(cfg, params, target: HardwareTarget, *, device=None) -> "CompiledMod
     ``params`` is a :class:`repro_torch.models.lm.LM`, or ``None`` for a
     model that only reports its configuration."""
     dev = resolve_device(device)
-    target = target.validate()
-    require_servable(cfg)
-    base = resolve_engine(target)
-    if base is not None:
-        # a hardware backend executes the binarized projections
-        cfg = dataclasses.replace(cfg, quant="bnn", bnn_engine=target.engine)
+    with obs.span("compile", track="compile",
+                  engine=target.engine, model=getattr(cfg, "name", "?")) as root:
+        cm = _compile_staged(cfg, params, target, dev)
+        root.set(programmed=cm.programmed, program_s=cm.program_s)
+        return cm
+
+
+def _compile_staged(cfg, params, target: HardwareTarget, dev) -> "CompiledModel":
+    with obs.span("compile.validate", track="compile"):
+        target = target.validate()
+        require_servable(cfg)
+
+    # the map stage arrives with the paper-simulator slice: its span is
+    # recorded without attributes, as the reference's is without a plan
+    with obs.span("compile.map", track="compile"):
+        pass
+
+    with obs.span("compile.resolve", track="compile") as res_span:
+        base = resolve_engine(target)
+        if base is not None:
+            # a hardware backend executes the binarized projections
+            cfg = dataclasses.replace(cfg, quant="bnn", bnn_engine=target.engine)
+        res_span.set(backend=base.name if base is not None else "none")
+
     programmed, program_s = 0, 0.0
     if params is not None:
         params = params.to(dev)
         if base is not None and target.prepare_weights:
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                params, programmed = lm_lib.program_weights(params, cfg, base)
-            synchronize(dev)
-            program_s = time.perf_counter() - t0
+            with obs.span("compile.program", track="compile") as prog_span:
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    params, programmed = lm_lib.program_weights(params, cfg, base)
+                # the span's fence, and what makes program_s device time
+                # with telemetry off too
+                synchronize(dev)
+                program_s = time.perf_counter() - t0
+                prog_span.set(programmed=programmed, program_s=program_s)
     return CompiledModel(
         cfg=cfg, params=params, target=target, engine=base,
         programmed=programmed, program_s=program_s, device=dev,

@@ -21,15 +21,33 @@ def signs_to_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.div(x + 1, 2, rounding_mode="floor").to(x.dtype)
 
 
-def binarize_ste(x: torch.Tensor) -> torch.Tensor:
-    """Sign-binarize: ``x >= 0`` -> +1, else -1, in ``x``'s dtype.
+# The binarize threshold: -2^-126, the least normal float32 (and
+# bfloat16) magnitude, negated. ``x > NEG_MIN_NORMAL`` is ``x >= 0`` on
+# every value but a negative subnormal, which it reads as zero (bit 1),
+# as XLA does: on the CPU and the TPU it compares subnormals as zero, so
+# the reference's ``x >= 0`` gives a negative subnormal +1. The
+# threshold is a normal number, so the comparison gives the same bit
+# whether or not the hardware flushes subnormals.
+NEG_MIN_NORMAL = -(2.0**-126)
 
-    Zero and -0.0 map to +1 and NaN to -1, as ``jnp.where(x >= 0, ...)``
-    gives. The serving slice needs no gradient, so the straight-through
-    estimator of the reference is the identity of the forward here.
+
+def nonneg(x: torch.Tensor) -> torch.Tensor:
+    """The binarize bit of every element: ``x > -2^-126`` (``x >= 0``
+    with subnormals read as zero: -0.0 and a negative subnormal give
+    True, NaN False)."""
+    return x > NEG_MIN_NORMAL
+
+
+def binarize_ste(x: torch.Tensor) -> torch.Tensor:
+    """Sign-binarize: +1 where :func:`nonneg`, else -1, in ``x``'s dtype.
+
+    Zero, -0.0 and subnormals of either sign map to +1 and NaN to -1, as
+    the reference's ``jnp.where(x >= 0, ...)`` gives under XLA. The
+    serving slice needs no gradient, so the straight-through estimator
+    of the reference is the identity of the forward here.
     """
     one = torch.ones((), dtype=x.dtype, device=x.device)
-    return torch.where(x >= 0, one, -one)
+    return torch.where(nonneg(x), one, -one)
 
 
 def binary_matmul_signs(a_signs: torch.Tensor, w_signs: torch.Tensor) -> torch.Tensor:

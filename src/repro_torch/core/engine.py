@@ -37,6 +37,7 @@ from typing import Any, Callable, Protocol, runtime_checkable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import bnn
 from repro_torch.core.crossbar import EPCM_TILE, OPCM_TILE, CrossbarSpec
 
@@ -71,12 +72,20 @@ class PreparedWeights:
 
 
 class LRUCache:
-    """Small bounded LRU with hit/miss/eviction counters (host-side)."""
+    """Small bounded LRU with hit/miss/eviction counters (host-side).
 
-    def __init__(self, maxsize: int = 32):
+    A ``name`` makes the counters *live*: every hit/miss/eviction is
+    mirrored into the active telemetry session's metrics registry
+    (``repro_cache_events_total{cache=<name>,kind=...}``) — one ``None``
+    check per event when telemetry is off. The ``stats`` snapshot stays
+    the source of truth either way.
+    """
+
+    def __init__(self, maxsize: int = 32, name: str | None = None):
         if maxsize < 1:
             raise ValueError(f"cache maxsize must be >= 1, got {maxsize}")
         self.maxsize = int(maxsize)
+        self.name = name
         self._store: OrderedDict[Any, Any] = OrderedDict()
         self.hits = 0
         self.misses = 0
@@ -87,9 +96,13 @@ class LRUCache:
             value = self._store[key]
         except KeyError:
             self.misses += 1
+            if self.name is not None:
+                obs.cache_event(self.name, "miss")
             return default
         self._store.move_to_end(key)
         self.hits += 1
+        if self.name is not None:
+            obs.cache_event(self.name, "hit")
         return value
 
     def put(self, key, value) -> None:
@@ -98,6 +111,8 @@ class LRUCache:
         while len(self._store) > self.maxsize:
             self._store.popitem(last=False)
             self.evictions += 1
+            if self.name is not None:
+                obs.cache_event(self.name, "eviction")
 
     def __len__(self) -> int:
         return len(self._store)
@@ -125,7 +140,7 @@ class WeightCache:
     """
 
     def __init__(self, maxsize: int = 32):
-        self._lru = LRUCache(maxsize)
+        self._lru = LRUCache(maxsize, name="weight_cache")
 
     def get(self, w) -> PreparedWeights | None:
         entry = self._lru.get(id(w))

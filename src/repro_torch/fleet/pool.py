@@ -1,5 +1,6 @@
-"""``FleetEngine`` (counterpart of ``repro/fleet/pool.py``, without its
-telemetry calls): N replicas of one compiled target behind the
+"""``FleetEngine`` (counterpart of ``repro/fleet/pool.py``; its routing,
+failover and degrade events and replica counters go through
+:mod:`repro_torch.obs`): N replicas of one compiled target behind the
 prefix-affinity router, with the same ``submit``/``step``/``drain``/
 ``stream`` client loop as a single
 :class:`~repro_torch.serving.ServingEngine`.
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch import obs
 from repro_torch.fleet.replica import Replica
 from repro_torch.fleet.router import DEFAULT_BLOCK, FleetRouter, RoutingConfigError
 from repro_torch.serving.engine import ServingStats
@@ -210,6 +212,13 @@ class FleetEngine:
 
     def _on_replica_degrade(self, rid: int, reason: str) -> None:
         self.router.forget_replica(rid)
+        obs.event(
+            "fleet.degrade", track="fleet", replica=rid, reason=reason,
+        )
+        obs.gauge_set(
+            "repro_fleet_replicas_healthy", len(self._healthy()),
+            "replicas accepting work now",
+        )
 
     # -- client API ----------------------------------------------------------
 
@@ -234,6 +243,16 @@ class FleetEngine:
                     length=decision.graft_length, rows=decision.entry.rows
                 ),
             )
+        obs.event(
+            "fleet.route", track="fleet", rid=request.rid,
+            replica=decision.replica, policy=decision.policy,
+            matched_tokens=decision.matched_tokens,
+            graft_length=decision.graft_length,
+        )
+        obs.count(
+            "repro_fleet_routed_total", 1, "requests routed",
+            policy=decision.policy, replica=decision.replica,
+        )
         st = self.replicas[decision.replica].submit(routed)
         return self._track(request, st, decision.replica)
 
@@ -323,6 +342,14 @@ class FleetEngine:
         self, fst: FleetRequestState, st: RequestState, rid: int,
         salvaged: bool,
     ) -> None:
+        obs.event(
+            "fleet.failover", track="fleet", rid=fst.request.rid,
+            source=fst.replica, target=rid, salvaged=salvaged,
+        )
+        obs.count(
+            "repro_fleet_failovers_total", 1,
+            "requests re-admitted off a degraded replica",
+        )
         fst._rebind(st, rid)
         self._counts["failovers"] += 1
         if salvaged:

@@ -1,6 +1,6 @@
 """KV-prefix-affinity request router (counterpart of
-``repro/fleet/router.py``, without its telemetry calls, which arrive
-with the telemetry slice): token-block hash chains, a two-tier
+``repro/fleet/router.py``; prefix hits are counted through
+:mod:`repro_torch.obs`): token-block hash chains, a two-tier
 fleet-global / replica-local prefix index, and the three routing
 policies (``prefix``, ``least-loaded``, ``round-robin``).
 
@@ -37,6 +37,8 @@ import hashlib
 from typing import Any
 
 import numpy as np
+
+from repro_torch import obs
 
 ROUTING_POLICIES = ("prefix", "least-loaded", "round-robin")
 
@@ -313,6 +315,10 @@ class FleetRouter:
             )
         self.prefix_hits += 1
         self.hit_tokens += graft_len
+        obs.count(
+            "repro_fleet_prefix_hits_total", 1,
+            "routing decisions that found a usable shared prefix",
+        )
         return RouteDecision(
             replica=rid, policy=self.policy, matched_tokens=best_len,
             graft_length=graft_len, entry=entry,

@@ -6,8 +6,9 @@ Replaces the Pallas TPU kernel ``repro/kernels/bitlinear.py``
 
     out[r, c] = (sum_k sign(x[r, k]) * w[k, c]) * alpha[c]      (fp32)
 
-with ``sign(x) = +1`` where ``x >= 0`` (so -0.0 gives +1 and NaN -1, as
-``jnp.where(x >= 0, ...)`` does), bf16 weights (±1 on the serving path)
+with ``sign(x) = +1`` where ``x > -2^-126`` (``bnn.nonneg``: -0.0 and
+subnormals give +1 and NaN -1, as the reference's ``jnp.where(x >= 0,
+...)`` does under XLA), bf16 weights (±1 on the serving path)
 and no activation scale. The wrapper :func:`bitlinear_kernel` launches
 ``csrc/bitlinear.cu`` for CUDA tensors and runs :func:`bitlinear_plain`
 for CPU tensors; any other device raises. ``ops.bitlinear`` is the
@@ -28,6 +29,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.bnn import nonneg
 from repro_torch.kernels import _build, mma_plan
 
 # launches of the CUDA kernel since the last reset (the plain version
@@ -42,7 +44,7 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 def bitlinear_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch ops: (B, m) float x (m, n) bf16
     x alpha (n,) -> (B, n) fp32."""
-    xs = torch.where(x >= 0, 1.0, -1.0).to(torch.float32)
+    xs = torch.where(nonneg(x), 1.0, -1.0).to(torch.float32)
     return (xs @ w.to(torch.float32)) * alpha.reshape(1, -1)
 
 

@@ -6,8 +6,9 @@
 //
 //   out[r, c] = (sum_k sign(x[r, k]) * w[k, c]) * alpha[c]      (fp32)
 //
-// with sign(x) = +1 where x >= 0 as read (so -0.0 -> +1, NaN -> -1), x in
-// fp32 or bf16, w in bf16 (±1 on the serving path), alpha applied once
+// with sign(x) = +1 where x > -2^-126 (so -0.0 and subnormals -> +1, NaN ->
+// -1, as the reference's x >= 0 reads them under XLA), x in fp32 or bf16,
+// w in bf16 (±1 on the serving path), alpha applied once
 // after the whole sum. There is no activation scale.
 //
 // What bounds it on an H100: the weight bytes (m * n * 2) at 8 and at 128

@@ -6,14 +6,15 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/fused_decode.py
 // (_fused_kernel / fused_bnn_matmul_kernel).
 //
-//   out[b, c] = (m - 2 * sum_j popc(pack(x[b] >= 0)_j ^ w[j, c])) * (alpha[c] * beta[b])
+//   out[b, c] = (m - 2 * sum_j popc(pack(x[b] > -2^-126)_j ^ w[j, c])) * (alpha[c] * beta[b])
 //
 // Variant "b1" (x's row stride a multiple of 16 bytes, the weight row
 // stride a multiple of 4 words, bases 16-byte aligned): the binary
 // tensor-core tile loop of sm90_b1.cuh with its RawRows activation stage
 // -- each k stage's rows x 256 features of x arrive by TMA in x's own
 // dtype beside the weight boxes, and the consumer threads binarize them by
-// comparison (v >= 0: -0.0 -> 1, NaN -> 0), mask features >= m by index
+// comparison (v > -2^-126: -0.0 and subnormals -> 1, NaN -> 0, as the
+// reference's x >= 0 reads them under XLA), mask features >= m by index
 // and pack them into the word tile the b1 fragments read -- and its
 // BitLinearOut epilogue: float(m - 2 ham) * (alpha[c] * beta[b]), alpha *
 // beta first as the reference does, after the rank-ordered cluster
@@ -61,9 +62,10 @@ constexpr int kWarps = kCols / 32;
 constexpr int kWordTile = 128;  // packed words per shared-memory stage
 constexpr int kUnroll = 8;      // (row, word) pairs a warp loads before voting
 
-__device__ __forceinline__ bool nonneg(float v) { return v >= 0.0f; }
+// the binarize bit: v > -2^-126 (bnn.nonneg)
+__device__ __forceinline__ bool nonneg(float v) { return v > b1::kNegMinNormal; }
 __device__ __forceinline__ bool nonneg(__nv_bfloat16 v) {
-  return __bfloat162float(v) >= 0.0f;
+  return __bfloat162float(v) > b1::kNegMinNormal;
 }
 
 template <typename T>

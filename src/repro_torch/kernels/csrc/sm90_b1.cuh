@@ -33,11 +33,14 @@
 //     (rows x 8 words) tile, one byte (8 features, one 16-byte load of
 //     bf16, two of fp32) per thread and task, bit i of word j = feature
 //     32j + i, then meet at a named barrier before reading fragments. The
-//     test is a comparison, v >= 0 (not the sign bit): -0.0 gives 1 and
-//     NaN 0, as ops.pack_bits(x >= 0) does. bf16 pairs are compared by one
-//     bf16x2 instruction (__hge2_mask; bf16 comparisons keep subnormals),
-//     fp32 values one by one (nvcc's default -ftz=false keeps subnormals).
-//     TMA zero-fills features past m, and 0.0 >= 0 would be bit 1, which
+//     test is a comparison, v > -2^-126 (not the sign bit): -0.0 and
+//     subnormals of either sign give 1 and NaN 0, as
+//     ops.pack_bits(bnn.nonneg(x)) does -- x >= 0 with subnormals read as
+//     zero, as XLA reads them. The threshold is a normal number, so the
+//     bit is the same whether or not a comparison flushes subnormals.
+//     bf16 pairs are compared by one bf16x2 instruction (__hgt2_mask),
+//     fp32 values one by one. TMA zero-fills features past m, and 0.0
+//     would be bit 1, which
 //     popc(a) would count and popc(a & w) would not: features >= m are
 //     masked by index when packing. The tile of stage s is rewritten only
 //     after every consumer has passed the named barrier of a later stage,
@@ -92,6 +95,9 @@ constexpr int kConsumerThreads = 128;           // one warpgroup
 constexpr int kMaxSplit = 8;
 constexpr int kMaxStages = 8;
 constexpr int kMaxSmem = 232448;
+// the binarize threshold: bit 1 where x > -2^-126, the least normal
+// magnitude negated (bnn.NEG_MIN_NORMAL)
+constexpr float kNegMinNormal = -0x1p-126f;
 
 // int32 partial-tile row pitch of a CTA with `wg` consumer warpgroups
 __host__ __device__ constexpr int pitch(int wg) { return wg * kBN + 4; }
@@ -145,19 +151,20 @@ struct RawRows {
   static constexpr int kTileRow = kBKW * 4;
   static constexpr int kWordsPerCoord = 32;  // the inner coordinate is a feature index
 
-  // bits of the 8 features at src (bit e: feature e >= 0)
+  // bits of the 8 features at src (bit e: feature e > -2^-126)
   static __device__ __forceinline__ uint32_t bits8(const uint8_t* src) {
     uint32_t b = 0;
     if constexpr (sizeof(T) == 2) {
       // one bf16x2 comparison per feature pair (0xFFFF in each half whose
-      // feature is >= 0), then bits 0, 2, 4, 6 from the low halves and 16,
+      // feature is > -2^-126), then bits 0, 2, 4, 6 from the low halves and 16,
       // 18, 20, 22 from the high ones, the latter shifted down to 1, 3, 5, 7
       const uint4 v = *reinterpret_cast<const uint4*>(src);
-      const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
-      const uint32_t m0 = __hge2_mask(*reinterpret_cast<const __nv_bfloat162*>(&v.x), zero);
-      const uint32_t m1 = __hge2_mask(*reinterpret_cast<const __nv_bfloat162*>(&v.y), zero);
-      const uint32_t m2 = __hge2_mask(*reinterpret_cast<const __nv_bfloat162*>(&v.z), zero);
-      const uint32_t m3 = __hge2_mask(*reinterpret_cast<const __nv_bfloat162*>(&v.w), zero);
+      // -2^-126 is exact in bf16 (0x8080)
+      const __nv_bfloat162 lo = __float2bfloat162_rn(kNegMinNormal);
+      const uint32_t m0 = __hgt2_mask(*reinterpret_cast<const __nv_bfloat162*>(&v.x), lo);
+      const uint32_t m1 = __hgt2_mask(*reinterpret_cast<const __nv_bfloat162*>(&v.y), lo);
+      const uint32_t m2 = __hgt2_mask(*reinterpret_cast<const __nv_bfloat162*>(&v.z), lo);
+      const uint32_t m3 = __hgt2_mask(*reinterpret_cast<const __nv_bfloat162*>(&v.w), lo);
       const uint32_t y = (m0 & 0x00010001u) | (m1 & 0x00040004u) | (m2 & 0x00100010u) |
                          (m3 & 0x00400040u);
       b = (y | (y >> 15)) & 0xFFu;
@@ -166,7 +173,7 @@ struct RawRows {
       const float4 hi = *reinterpret_cast<const float4*>(src + 16);
       const float f[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i) b |= static_cast<uint32_t>(f[i] >= 0.f) << i;
+      for (int i = 0; i < 8; ++i) b |= static_cast<uint32_t>(f[i] > kNegMinNormal) << i;
     }
     return b;
   }

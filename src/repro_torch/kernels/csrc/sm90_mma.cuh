@@ -213,20 +213,25 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
+// the binarize threshold: sign(x) = +1 where x > -2^-126, the least
+// normal magnitude negated (bnn.NEG_MIN_NORMAL)
+constexpr float kNegMinNormal = -0x1p-126f;
+
 // sign of two bf16 at once, as ±1 bf16: -1 where the sign bit is set on a
-// nonzero value or the value is NaN, else +1 (so -0.0 -> +1). No lane
-// carries into the other: |x| + 0x7F and |x| + 0x7FFF stay below 2^16.
+// normal or infinite value (|x| >= 2^-126, bits 0x0080) or the value is
+// NaN, else +1 (so -0.0 and subnormals -> +1). No lane carries into the
+// other: |x| + 0x7F and |x| + 0x7F80 stay below 2^16.
 __device__ __forceinline__ uint32_t sign_bf16x2(uint32_t b) {
   const uint32_t mag = b & 0x7FFF7FFFu;
-  const uint32_t nan = (mag + 0x007F007Fu) & 0x80008000u;      // |x| > inf
-  const uint32_t nonzero = (mag + 0x7FFF7FFFu) & 0x80008000u;  // |x| > 0
-  return 0x3F803F80u | nan | (b & nonzero);
+  const uint32_t nan = (mag + 0x007F007Fu) & 0x80008000u;     // |x| > inf
+  const uint32_t normal = (mag + 0x7F807F80u) & 0x80008000u;  // |x| >= 2^-126
+  return 0x3F803F80u | nan | (b & normal);
 }
 
 // Rewrite one activation stage as ±1 bf16 in wgmma's 128-byte-swizzled
 // k-major layout: row r at r * 128 bytes, its 16-byte chunk c (features
-// 8c..8c+7) at chunk c ^ (r % 8). sign(x) = +1 where x >= 0 as read
-// (-0.0 -> +1, NaN -> -1); 0 past m and past rows (masks only on an edge
+// 8c..8c+7) at chunk c ^ (r % 8). sign(x) = +1 where x > -2^-126 (-0.0
+// and subnormals -> +1, NaN -> -1); 0 past m and past rows (masks only on an edge
 // tile). bf16 x arrives in that layout and is rewritten in place (raw ==
 // dst); fp32 x arrives unswizzled (N x kBK, row-major) and goes to dst.
 template <typename XT, int N>
@@ -250,8 +255,8 @@ __device__ __forceinline__ void binarize_stage(const uint8_t* raw, uint8_t* dst,
       load8(reinterpret_cast<const XT*>(raw) + r * kBK + c * 8, v);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        w[i] = (v[2 * i] >= 0.f ? 0x3F80u : 0xBF80u) |
-               ((v[2 * i + 1] >= 0.f ? 0x3F80u : 0xBF80u) << 16);
+        w[i] = (v[2 * i] > kNegMinNormal ? 0x3F80u : 0xBF80u) |
+               ((v[2 * i + 1] > kNegMinNormal ? 0x3F80u : 0xBF80u) << 16);
     }
     if (edge) {
 #pragma unroll
@@ -569,7 +574,7 @@ __global__ void __launch_bounds__(kThreads) kernel(const XT* __restrict__ x,
       if (row < rows && col < m) {
         const XT xv = x[static_cast<int64_t>(row) * m + col];
         if constexpr (kSign)
-          v = __float2bfloat16(to_f32(xv) >= 0.f ? 1.f : -1.f);
+          v = __float2bfloat16(to_f32(xv) > kNegMinNormal ? 1.f : -1.f);
         else
           v = xv;
       }

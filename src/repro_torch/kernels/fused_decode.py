@@ -4,7 +4,7 @@ kernel, plain version, launch counts.
 Replaces the Pallas TPU kernel ``repro/kernels/fused_decode.py``
 (``_fused_kernel`` / ``fused_bnn_matmul_kernel``)::
 
-    out[b, c] = (m - 2 * sum_j popcount(pack(x[b] >= 0)_j XOR w[j, c]))
+    out[b, c] = (m - 2 * sum_j popcount(pack(x[b] > -2^-126)_j XOR w[j, c]))
                 * (alpha[c] * beta[b])
 
 with ``alpha * beta`` multiplied first, as the reference does, so the
@@ -22,16 +22,17 @@ plan:
   a multiple of 4 words, 16-byte-aligned bases: the binary tensor-core
   tile loop of ``csrc/sm90_b1.cuh`` (shared with the Hamming matmul) over
   raw activations. Each k stage's 256 features of x arrive by TMA in x's
-  dtype and are binarized (``x >= 0``) and packed in the kernel; the
-  epilogue applies Eq. 1 and ``alpha * beta`` after a cluster split-K.
+  dtype and are binarized (``x > -2^-126``, ``bnn.nonneg``) and packed
+  in the kernel; the epilogue applies Eq. 1 and ``alpha * beta`` after a
+  cluster split-K.
   What bounds it on an H100: the bytes (weight words and x at decode,
   the fp32 output at the lockstep prefill's 1024 rows);
 * ``popc`` -- any strides: one thread per column on the 32-bit popcount
   pipe, packing 32 features per warp step with ``__ballot_sync``.
 
 Both read the activations in the dtype they arrive in (bf16 on the
-serving path: ``x >= 0`` gives the same bit as on its fp32 cast, so no
-cast pass runs). See the source for both designs.
+serving path: ``x > -2^-126`` gives the same bit as on its fp32 cast, so
+no cast pass runs). See the source for both designs.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.bnn import nonneg
 from repro_torch.kernels import _build, mma_plan
 from repro_torch.kernels.xnor_matmul import hamming_matmul_plain
 
@@ -65,7 +67,7 @@ def fused_bnn_matmul_plain(
     from repro_torch.kernels.ops import pack_bits  # ops imports this module
 
     kw = -(-m // 32)
-    words = pack_bits(x[:, :m] >= 0)
+    words = pack_bits(nonneg(x[:, :m]))
     ham = hamming_matmul_plain(words, w_packed[:kw, :n])
     dot = (m - 2 * ham).to(torch.float32)  # exact: |dot| <= m < 2^24
     return dot * (alpha.reshape(1, n) * beta.reshape(-1, 1))

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from repro_torch.core.bnn import nonneg
+
 
 def wdm_mmm_ref(groups: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """WDM MMM oracle: (G, K, m) x (m, n) -> (G, K, n), fp32."""
@@ -20,8 +22,9 @@ def wdm_mmm_ref(groups: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def bitlinear_ref(x: torch.Tensor, w_signs: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """Fused binarize -> matmul -> rescale oracle:
-    ``(sign(x) @ w_signs) * alpha`` with sign(0) := +1, fp32 result."""
-    xs = torch.where(x >= 0, 1.0, -1.0).to(torch.float32)
+    ``(sign(x) @ w_signs) * alpha`` with sign := +1 where ``bnn.nonneg``
+    (zero, -0.0 and subnormals), fp32 result."""
+    xs = torch.where(nonneg(x), 1.0, -1.0).to(torch.float32)
     return (xs @ w_signs.to(torch.float32)) * alpha.to(torch.float32)[None, :]
 
 

@@ -18,11 +18,19 @@ or, with ``--requests N``, drive the request scheduler.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --engine packed --device cpu --requests 12 --replicas 2 --routing prefix
 
+    # traced: compile-stage, prefill and decode-tick spans as a Chrome
+    # trace, and the serving metrics as a Prometheus-style snapshot:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+        --smoke --engine packed --device cpu --requests 12 \\
+        --trace-out trace.json --metrics-out metrics.txt
+
 Weights are random (``init_params`` from a ``torch.Generator`` seeded by
 ``--seed`` on the serving device); prompts come from a numpy generator
 seeded by ``--seed``, and the request trace's prompt lengths from
 ``--request-seed`` (default ``--seed``). :func:`run` returns the
-generations and timings for programs that drive the CLI in-process.
+generations and timings for programs that drive the CLI in-process, and
+the telemetry session (``None`` unless ``--trace-out`` or
+``--metrics-out`` was given), already stopped and written out.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
     compiler_lib.add_target_args(ap)
     compiler_lib.add_scheduler_args(ap)
     compiler_lib.add_fleet_args(ap)
+    compiler_lib.add_obs_args(ap)
     return ap
 
 
@@ -172,11 +181,12 @@ def serve_fleet(cfg, params, target, args, device) -> dict:
 
 def run(argv: list[str] | None = None) -> dict:
     """Parse ``argv``, build and compile the model, serve, and return the
-    results (the CLI prints them)."""
+    results (the CLI prints them). With ``--trace-out`` / ``--metrics-out``
+    a telemetry session covers compile and serving; it is stopped and
+    its artifacts written before this returns."""
     from repro_torch import compiler as compiler_lib
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch import obs
     from repro_torch.device import resolve_device
-    from repro_torch.models import lm as lm_lib
 
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -191,8 +201,27 @@ def run(argv: list[str] | None = None) -> dict:
     if args.replicas > 1 and not args.requests:
         ap.error("--replicas > 1 serves the request path; pass --requests N")
     dev = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    # live before compile() so the pipeline-stage spans are captured
+    tel = compiler_lib.obs_from_args(args)
+    try:
+        result = _serve(args, target, dev)
+    finally:
+        if tel is not None:
+            obs.stop()
+    if tel is not None:
+        tel.write(trace_out=args.trace_out, metrics_out=args.metrics_out)
+    result["telemetry"] = tel
+    return result
 
+
+def _serve(args, target, dev) -> dict:
+    """The body of :func:`run`: seeded weights, compile (or a fleet of
+    compiled replicas), then the lockstep batch or the request trace."""
+    from repro_torch import compiler as compiler_lib
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import lm as lm_lib
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm_lib.init_params(gen, cfg, device=dev)
     if args.replicas > 1:
@@ -254,6 +283,10 @@ def main(argv: list[str] | None = None) -> int:
               f"{res['prefill_s'] * 1e3:.1f} ms; decode {args.gen - 1} steps "
               f"{res['decode_s'] * 1e3:.1f} ms ({res['decode_tok_s']:.1f} tok/s)")
         print(f"[serve] generated[0,:8] = {res['generated'][0, :8].tolist()}")
+    if args.trace_out:
+        print(f"[obs] wrote Chrome trace (chrome://tracing / Perfetto) -> {args.trace_out}")
+    if args.metrics_out:
+        print(f"[obs] wrote Prometheus-style metrics snapshot -> {args.metrics_out}")
     return 0
 
 

@@ -21,8 +21,15 @@ rows out; restoring them into any free slot resumes greedy decode
 bit-identically.
 
 The invariant, as in the reference: any interleaving of submissions,
-any group size, any engine and any preemption pattern produce the same
-generations as running each request alone.
+any group size, any engine, any preemption pattern and telemetry on or
+off produce the same generations as running each request alone.
+
+With a telemetry session active (:mod:`repro_torch.obs`), each prefill
+records a ``prefill`` span and each tick a ``decode_tick`` span on the
+``serve`` track, both fenced on the caches (so they end after the device
+work), plus the reference's latency histograms and counters; with
+telemetry off a tick pays one ``None`` check and no device
+synchronization beyond its own.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.serving.scheduler import (
     Request,
     RequestScheduler,
@@ -126,6 +134,7 @@ class ServingEngine:
         self.device = compiled.device
         self.max_batch = max_batch
         self.max_len = max_len
+        self.engine_name = compiled.target.engine
         self.group_k = compiled.group_size_for(max_batch)
         self.planner = BatchPlanner(self.group_k)
         self._exec = compiled.executor(max_batch)
@@ -224,21 +233,29 @@ class ServingEngine:
         plen = st.request.prompt_len
         prompt = torch.as_tensor(np.asarray(st.request.prompt, np.int64))[None, :]
         graft = st.request.prefix
-        if graft is not None and self.supports_prefix_graft and 0 < graft.length < plen:
-            pre_rows = {
-                name: {key: r[:, None, : graft.length].to(self.device) for key, r in kv.items()}
-                for name, kv in graft.rows.items()
-            }
-            logits, pre = self.compiled.prefill_continue(prompt[:, graft.length:], pre_rows)
-            self._counts["grafted_tokens"] += graft.length
-            self._counts["prefill_tokens"] += plen - graft.length
-        else:
-            logits, pre = self.compiled.prefill(prompt)
-            self._counts["prefill_tokens"] += plen
-        for name, kv in pre.items():
-            for key, src in kv.items():
-                self.caches[name][key][:, slot, :plen] = src[:, 0]
-        st.emit(int(torch.argmax(logits[0])))
+        use_graft = graft is not None and self.supports_prefix_graft and 0 < graft.length < plen
+        with obs.span(
+            "prefill", track="serve", engine=self.engine_name,
+            slot=slot, rid=st.request.rid, prompt_len=plen,
+            grafted=graft.length if use_graft else 0,
+        ) as sp:
+            if use_graft:
+                pre_rows = {
+                    name: {key: r[:, None, : graft.length].to(self.device)
+                           for key, r in kv.items()}
+                    for name, kv in graft.rows.items()
+                }
+                logits, pre = self.compiled.prefill_continue(prompt[:, graft.length:], pre_rows)
+                self._counts["grafted_tokens"] += graft.length
+                self._counts["prefill_tokens"] += plen - graft.length
+            else:
+                logits, pre = self.compiled.prefill(prompt)
+                self._counts["prefill_tokens"] += plen
+            for name, kv in pre.items():
+                for key, src in kv.items():
+                    self.caches[name][key][:, slot, :plen] = src[:, 0]
+            st.emit(int(torch.argmax(logits[0])))
+            sp.fence(self.caches)
         self.pos[slot] = plen
         self.tok[slot] = st.generated[-1]
         self._counts["prefills"] += 1
@@ -248,6 +265,16 @@ class ServingEngine:
             # grafted admissions too
             self.prefill_observer(
                 st, {name: {key: c[:, 0] for key, c in kv.items()} for name, kv in pre.items()}
+            )
+        if obs.enabled():
+            obs.observe(
+                "repro_prefill_latency_seconds", sp.duration_s,
+                "prompt prefill wall time (graft fenced)",
+                engine=self.engine_name,
+            )
+            obs.count(
+                "repro_prefills_total", 1, "prompt prefills run",
+                engine=self.engine_name,
             )
 
     def slot_exhausted(self, slot: int) -> bool:
@@ -284,10 +311,73 @@ class ServingEngine:
 
     def decode_tick(self, running: dict[int, RequestState]) -> None:
         """One K-grouped decode over the running slots: plan, gather ->
-        decode -> scatter, then emit each slot's token."""
+        decode -> scatter, then emit each slot's token.
+
+        With telemetry on (:mod:`repro_torch.obs`), each tick records a
+        ``decode_tick`` span fenced on the caches after the scatter
+        (engine, K, active/group/pad lanes, cache hit/miss deltas) plus
+        the tick-latency histogram and lane counters; with telemetry off
+        the tick pays one ``None`` check and no extra synchronization.
+        """
         plan = self.planner.plan(list(running))
         if plan is None:
             return
+        if not obs.enabled():
+            self._run_tick(plan, running)
+            return
+        before = self._cache_totals()
+        with obs.span(
+            "decode_tick", track="serve", engine=self.engine_name,
+            k=plan.k, n_active=plan.n_active, n_groups=plan.n_groups,
+            n_pad=plan.n_pad,
+        ) as sp:
+            self._run_tick(plan, running)
+            sp.fence(self.caches)
+            after = self._cache_totals()
+            sp.set(
+                cache_hits=after[0] - before[0],
+                cache_misses=after[1] - before[1],
+            )
+        obs.observe(
+            "repro_tick_latency_seconds", sp.duration_s,
+            "K-grouped decode tick wall time (cache scatter fenced)",
+            engine=self.engine_name, k=plan.k,
+        )
+        obs.count(
+            "repro_decode_ticks_total", 1, "gathered decode launches",
+            engine=self.engine_name,
+        )
+        obs.count(
+            "repro_decoded_tokens_total", plan.n_active,
+            "real slot-tokens decoded", engine=self.engine_name,
+        )
+        if self._exec is not None:
+            obs.count(
+                "repro_mmm_groups_total", plan.n_groups,
+                "K-groups issued to a registry backend",
+                engine=self.engine_name,
+            )
+        if plan.n_pad:
+            obs.count(
+                "repro_pad_lanes_total", plan.n_pad,
+                "idle wavelengths from ragged tails",
+                engine=self.engine_name,
+            )
+
+    def _cache_totals(self) -> tuple[int, int]:
+        """(hits, misses) summed over the backend's caches — the span's
+        per-tick delta source (only read with telemetry on)."""
+        if self._exec is None:
+            return (0, 0)
+        stats = self._exec.cache_stats().values()
+        return (
+            sum(s.get("hits", 0) for s in stats),
+            sum(s.get("misses", 0) for s in stats),
+        )
+
+    def _run_tick(self, plan: GroupPlan, running: dict[int, RequestState]) -> None:
+        """The tick body: gather -> decode -> scatter, counters, token
+        emission."""
         idx = plan.gather_indices()
         if int(self.pos[idx].max()) >= self.max_len:
             raise RuntimeError(

@@ -1,7 +1,7 @@
 """Production request scheduler: admission control, KV-budget queues,
-SLOs and preemption in front of the slot-pool serving engine (a copy of
-``repro/serving/scheduler.py`` without its telemetry calls, which arrive
-with the telemetry slice).
+SLOs and preemption in front of the slot-pool serving engine (the port's
+own copy of ``repro/serving/scheduler.py``, telemetry calls included,
+through :mod:`repro_torch.obs`).
 
 The paper's resident-weight premise means independent requests stream
 through the programmed crossbar with zero data-movement overhead — the
@@ -65,6 +65,7 @@ from typing import Any, Callable
 
 import numpy as np
 
+from repro_torch import obs
 
 POLICIES = ("fifo", "deadline")
 ADMISSION_MODES = ("whole", "partial")
@@ -360,12 +361,26 @@ class RequestScheduler:
         )
         self._seq += 1
         self._counts["submitted"] += 1
+        obs.event(
+            "request.submit", track="sched", rid=request.rid,
+            prompt_len=request.prompt_len,
+            max_new_tokens=request.max_new_tokens, tick=self.tick_count,
+        )
+        obs.count("repro_requests_submitted_total", 1, "client submissions")
         reason = self._rejection_reason(request)
         if reason is not None:
             st.status = RequestStatus.REJECTED
             st.reject_reason = reason
             st.finish_tick = self.tick_count
             self._counts["rejected"] += 1
+            obs.event(
+                "request.reject", track="sched", rid=request.rid,
+                reason=reason, tick=self.tick_count,
+            )
+            obs.count(
+                "repro_requests_terminal_total", 1,
+                "requests reaching a terminal status", status="rejected",
+            )
             return st
         self.waiting.append(st)
         self._max_queue_depth = max(self._max_queue_depth, len(self.waiting))
@@ -410,6 +425,23 @@ class RequestScheduler:
         self._admit()
         if self.config.admission == "partial":
             self._reconcile_budget()
+        if obs.enabled():
+            obs.gauge_set(
+                "repro_queue_depth", len(self.waiting),
+                "requests waiting after this tick's admissions",
+            )
+            obs.gauge_set(
+                "repro_running_slots", len(self.running), "slots held now"
+            )
+            obs.gauge_set(
+                "repro_kv_committed_tokens", self.kv_committed(),
+                "KV tokens held by running requests",
+            )
+            obs.observe(
+                "repro_queue_depth_ticks", len(self.waiting),
+                "waiting-queue depth sampled per tick",
+                buckets=obs.TICK_BUCKETS,
+            )
         # a 1-token request is satisfied by its prefill alone — collect
         # it before the decode so it neither burns a lane nor overshoots
         out.extend(self._collect_finished())
@@ -425,6 +457,11 @@ class RequestScheduler:
                 st.first_token_tick = self.tick_count
                 self._ttft[0] += 1
                 self._ttft[1] += self.tick_count - st.submit_tick
+                obs.observe(
+                    "repro_ttft_ticks", self.tick_count - st.submit_tick,
+                    "ticks from submit to first output token",
+                    buckets=obs.TICK_BUCKETS,
+                )
         out.extend(self._collect_finished())
         self.tick_count += 1
         return out
@@ -571,6 +608,10 @@ class RequestScheduler:
         if n:
             self._counts["restarted"] += n
             self._max_queue_depth = max(self._max_queue_depth, len(self.waiting))
+            obs.event(
+                "request.restart", track="sched", n=n, reason=reason,
+                clean_before=clean_before, tick=self.tick_count,
+            )
         return n
 
     def _reset(self, st: RequestState) -> None:
@@ -640,6 +681,11 @@ class RequestScheduler:
         if status is RequestStatus.FINISHED:
             self._latency[0] += 1
             self._latency[1] += latency
+        obs.observe(
+            "repro_request_latency_ticks", latency,
+            "ticks from submit to a terminal status (end-to-end latency)",
+            buckets=obs.TICK_BUCKETS, status=status.value,
+        )
         key = {
             RequestStatus.FINISHED: "finished",
             RequestStatus.EXPIRED: "expired",
@@ -648,6 +694,19 @@ class RequestScheduler:
         if status is RequestStatus.FAILED:
             st.fail_reason = reason
         self._counts[key] += 1
+        event = {
+            "finished": "request.finish",
+            "expired": "request.expire",
+            "failed": "request.fail",
+        }[key]
+        obs.event(
+            event, track="sched", rid=st.rid, tick=self.tick_count,
+            n_generated=len(st.generated),
+        )
+        obs.count(
+            "repro_requests_terminal_total", 1,
+            "requests reaching a terminal status", status=status.value,
+        )
         return st
 
     def _admit(self) -> None:
@@ -675,11 +734,25 @@ class RequestScheduler:
                 st.admitted_tick = self.tick_count
                 self._wait_ticks[0] += 1
                 self._wait_ticks[1] += self.tick_count - st.submit_tick
+                obs.observe(
+                    "repro_admission_wait_ticks",
+                    self.tick_count - st.submit_tick,
+                    "ticks from submit to first admission",
+                    buckets=obs.TICK_BUCKETS,
+                )
             if st.snapshot is not None:
                 self.pool.restore_slot(slot, st.snapshot)
                 st.snapshot = None
                 self._counts["resumed"] += 1
+                obs.event(
+                    "request.resume", track="sched", rid=st.rid,
+                    slot=slot, tick=self.tick_count,
+                )
             else:
+                obs.event(
+                    "request.admit", track="sched", rid=st.rid,
+                    slot=slot, committed=need, tick=self.tick_count,
+                )
                 self.pool.prefill_into(slot, st)
             self.running[slot] = st
 
@@ -722,6 +795,11 @@ class RequestScheduler:
         st.preemptions += 1
         st.committed = 0
         self._counts["preempted"] += 1
+        obs.event(
+            "request.preempt", track="sched", rid=st.rid,
+            slot=slot, tick=self.tick_count,
+        )
+        obs.count("repro_preemptions_total", 1, "slots evicted back to waiting")
         self.waiting.append(st)
         self._max_queue_depth = max(self._max_queue_depth, len(self.waiting))
 

@@ -210,3 +210,53 @@ def test_fused_only_runs_the_device_phase_first(capsys):
         cs.main(["--fused-only"])
     assert e.value.code != 0
     assert "usage" not in capsys.readouterr().err
+
+
+def test_special_bits_equal_the_reference():
+    """The bits chip_smoke holds the kernels to on signed zeros, NaN,
+    subnormals and -2^-126 are the JAX package's ``x >= 0`` under XLA
+    (subnormals read as zero), in bf16 and fp32; ``with_specials`` places
+    every kind and its sign."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    cs = _chip_smoke()
+    for dtype in (jnp.bfloat16, jnp.float32):
+        values = jnp.asarray([v for v, _ in cs.SPECIAL_BITS], jnp.float32).astype(dtype)
+        assert np.asarray(values >= 0).tolist() == [bool(b) for _, b in cs.SPECIAL_BITS]
+    x = torch.randn((3, 4 * cs.SPECIAL_STRIDE)).to(torch.bfloat16)
+    xs, signs = cs.with_specials(x)
+    assert int(xs.isnan().sum()) == 3 * 9 and int((signs == 1).sum() + (signs == -1).sum()) == xs.numel()
+    assert torch.equal(signs[:, 8], torch.full((3,), -1.0, dtype=torch.bfloat16))  # -2^-126
+    assert torch.equal(signs[:, 5], torch.ones(3, dtype=torch.bfloat16))  # -2^-133
+
+
+def test_telemetry_phase_rehearses_on_cpu(tmp_path, capsys):
+    """The telemetry phase at smoke size: the request path and the fleet
+    traced, tokens == untraced, spans and counters == stats, and the
+    Chrome traces and metrics snapshots written and parsed."""
+    import json
+
+    res = _chip_smoke().telemetry_phase(device="cpu", smoke=True, out=tmp_path)
+    out = capsys.readouterr().out
+    assert "request path, 16 requests into 8 slots: traced tokens == untraced" in out
+    assert "fleet, 2 replicas x 8 slots, flash: traced tokens == untraced" in out
+    assert "(12 grafted, 3072 tokens == FleetStats)" in out
+    assert set(res) == {"requests", "fleet"}
+    assert res["fleet"]["prefill grafted ms"] > 0 and res["requests"]["decode_tick ms"] > 0
+    for run in ("requests", "fleet"):
+        assert json.loads((tmp_path / run / "trace.json").read_text())["traceEvents"]
+        assert "repro_decode_ticks_total" in (tmp_path / run / "metrics.txt").read_text()
+
+
+def test_telemetry_only_runs_the_device_phase_first(capsys):
+    """``--telemetry-only`` is a known argument: without a card it gets as
+    far as the device check (a SystemExit), not the usage error."""
+    cs = _chip_smoke()
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        cs.main(["--telemetry-only"])
+    assert e.value.code != 0
+    assert "usage" not in capsys.readouterr().err
+    assert cs.main(["--telemetry-only", "--fused-only"]) == 2

@@ -60,7 +60,8 @@ def test_importing_the_serve_driver_loads_no_jax():
     code = (
         "import sys; import repro_torch.launch.serve, repro_torch.convert, "
         "repro_torch.compiler, repro_torch.serving, repro_torch.fleet, "
-        "repro_torch.kernels.ops, repro_torch.kernels.ref, repro_torch.kernels.flash_attention; "
+        "repro_torch.kernels.ops, repro_torch.kernels.ref, repro_torch.kernels.flash_attention, "
+        "repro_torch.obs, repro_torch.obs.trace, repro_torch.obs.metrics; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -147,7 +148,7 @@ def test_later_slices_are_named():
 
 NEW_MODULES = ("fleet/pool.py", "fleet/replica.py", "fleet/router.py", "kernels/ref.py",
                "kernels/flash_attention.py", "kernels/bitlinear.py", "kernels/wdm_mmm.py",
-               "kernels/mma_plan.py")
+               "kernels/mma_plan.py", "obs/__init__.py", "obs/trace.py", "obs/metrics.py")
 
 
 def test_import_scan_covers_the_new_modules():

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro.kernels import fused_decode as jax_fused
+from repro_torch.core import bnn
 from repro_torch.kernels import _build, fused_decode, mma_plan, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import xnor_matmul
@@ -363,8 +364,9 @@ def _b1_fused_emulated(x: torch.Tensor, wp: torch.Tensor, alpha, beta, m: int, n
     """The fused b1 variant's arithmetic in torch ops, step for step: per
     256-feature k stage the x box as TMA lands it (0 past m), each byte of
     8 features binarized as ``RawRows::bits8`` does (bf16: a 0xFFFF mask
-    per feature >= 0 for each pair, bits gathered by the kernel's masks and
-    shift; fp32: one comparison each), features >= m masked by index, the
+    per feature > -2^-126 for each pair, bits gathered by the kernel's
+    masks and shift; fp32: one comparison each), features >= m masked by
+    index, the
     bytes little-endian into 8 words a stage; the weight words 0 past kw;
     each of the split's ranks sums popc(a) + popc(w) - 2 popc(a & w) over
     its own stages; then float(m - 2 ham) * (alpha * beta)."""
@@ -375,20 +377,20 @@ def _b1_fused_emulated(x: torch.Tensor, wp: torch.Tensor, alpha, beta, m: int, n
     box[:, :m] = x[:, :m]
     nbytes = kt * 32
     if x.dtype == torch.bfloat16:
-        ge = (box.float() >= 0).to(torch.int64)
-        pair = ge[:, 0::2] * 0xFFFF | ge[:, 1::2] * 0xFFFF0000  # __hge2_mask per word
+        gt = (box.float() > -(2.0**-126)).to(torch.int64)
+        pair = gt[:, 0::2] * 0xFFFF | gt[:, 1::2] * 0xFFFF0000  # __hgt2_mask per word
         m0, m1, m2, m3 = pair.reshape(rows, nbytes, 4).unbind(-1)
         y = (m0 & 0x00010001) | (m1 & 0x00040004) | (m2 & 0x00100010) | (m3 & 0x00400040)
         byte = (y | (y >> 15)) & 0xFF
     else:
-        bits = (box >= 0).to(torch.int64).reshape(rows, nbytes, 8)
+        bits = (box > -(2.0**-126)).to(torch.int64).reshape(rows, nbytes, 8)
         byte = (bits << torch.arange(8)).sum(-1)
     f = 8 * torch.arange(nbytes)
     keep = torch.where(f >= m, 0, torch.where(f + 8 > m, (1 << (m - f).clamp(0, 8)) - 1, 0xFF))
     byte = byte & keep
     words = (byte.reshape(rows, kt * 8, 4) << torch.tensor([0, 8, 16, 24])).sum(-1)
     words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
-    assert torch.equal(words[:, :kw], ops.pack_bits(x[:, :m] >= 0))
+    assert torch.equal(words[:, :kw], ops.pack_bits(bnn.nonneg(x[:, :m])))
     w_ext = torch.zeros((kt * 8, n), dtype=torch.int32)
     w_ext[:kw] = wp[:kw, :n]
     pc = xnor_matmul.popcount32
@@ -408,11 +410,9 @@ def test_fused_b1_arithmetic_equals_plain_and_jax(rows, m, n, dtype):
     """The fused b1 arithmetic (``_b1_fused_emulated``) on signed zeros,
     NaN and m % 32 != 0, in 1-, 2-, 3- and kt-way splits, equals
     ``fused_bnn_matmul_plain`` and the JAX ``fused_bnn_matmul_kernel``
-    (interpret mode) bit for bit, given the same finite beta; with bf16
-    subnormals of both signs added it still equals the plain version (the
-    JAX side is left out there: XLA on the CPU reads subnormals as zero in
-    comparisons, so a negative subnormal binarizes to +1 in the reference
-    and to -1 in the port -- ROADMAP.md, queue 3)."""
+    (interpret mode) bit for bit, given the same finite beta, and so with
+    bf16 subnormals of both signs added: the port binarizes by ``x >
+    -2^-126``, which reads a subnormal as zero as XLA's ``x >= 0`` does."""
     rng = np.random.default_rng(rows * 1000 + m + n)
     x = np.array(jnp.asarray(rng.normal(size=(rows, m)), jnp.bfloat16).astype(jnp.float32))
     for j, v in enumerate((0.0, -0.0, np.nan)):
@@ -423,10 +423,13 @@ def test_fused_b1_arithmetic_equals_plain_and_jax(rows, m, n, dtype):
     alpha = torch.from_numpy(rng.uniform(0.5, 2.0, size=(n,)).astype(np.float32))
     beta = torch.from_numpy(rng.uniform(0.5, 2.0, size=(rows,)).astype(np.float32))
     kw = wp.shape[0]
-    jax_out = jax_fused.fused_bnn_matmul_kernel(
-        jnp.asarray(np.pad(x, ((0, 0), (0, kw * 32 - m)), constant_values=-1.0)),
-        jnp.asarray(wp.numpy()), jnp.asarray(alpha.numpy()[None]),
-        jnp.asarray(beta.numpy()[:, None]), m=m, bm=rows, bn=n, bkw=kw, interpret=True)
+
+    def jax_out(xs):
+        return np.asarray(jax_fused.fused_bnn_matmul_kernel(
+            jnp.asarray(np.pad(xs, ((0, 0), (0, kw * 32 - m)), constant_values=-1.0)),
+            jnp.asarray(wp.numpy()), jnp.asarray(alpha.numpy()[None]),
+            jnp.asarray(beta.numpy()[:, None]), m=m, bm=rows, bn=n, bkw=kw, interpret=True))
+
     tiny = float(2.0**-133)  # bf16's least subnormal
     x_sub = x.copy()
     for j, v in enumerate((tiny, -tiny, 3 * tiny, -3 * tiny)):
@@ -435,8 +438,7 @@ def test_fused_b1_arithmetic_equals_plain_and_jax(rows, m, n, dtype):
     for name, xs in (("edge", x), ("edge + subnormals", x_sub)):
         xt = torch.from_numpy(xs).to(dtype)
         want = fused_decode.fused_bnn_matmul_plain(xt, wp, alpha, beta, m=m, n=n)
-        if name == "edge":
-            np.testing.assert_array_equal(want.numpy(), np.asarray(jax_out))
+        np.testing.assert_array_equal(want.numpy(), jax_out(xs), err_msg=name)
         for split in sorted({1, 2, 3, kt}):
             got = _b1_fused_emulated(xt, wp, alpha, beta, m, n, split)
             assert torch.equal(got, want), f"{name}, split {split}"
