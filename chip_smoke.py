@@ -2,11 +2,12 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py [--mma-only | --flash-only | --hamming-only | --fused-only |
-                           --kernels-only | --telemetry-only]
+                           --kernels-only | --telemetry-only | --simulators-only]
 
 Each ``--*-only`` argument stops after those kernels' checks and timings
-(``--kernels-only``: every kernel's; ``--telemetry-only``: the build and
-the telemetry phase alone) and prints no result line. Needs one
+(``--kernels-only``: every kernel's; ``--telemetry-only`` and
+``--simulators-only``: the build and that phase alone) and prints no
+result line. Needs one
 CUDA card (device 0), the CUDA toolkit's ``nvcc`` and ``nvidia-smi``;
 exits non-zero without them. Phases, each announced on its own
 ``[phase]`` line:
@@ -49,7 +50,16 @@ exits non-zero without them. Phases, each announced on its own
    fused launch of ``b1`` -- after
    a check that the port's per-row ops give a row the same bits whatever
    the row count;
-7. telemetry: the request path (through the serve CLI's ``--trace-out``
+7. simulators: the paper's crossbar engines (``tacitmap``, ``wdm``,
+   ``tiled`` on a tacitmap-policy plan of oPCM tiles, ``custbinarymap``)
+   serving the same lockstep batch at full width: tokens == packed's,
+   prefill logits == the reference engine's; ``wdm`` over flash, and
+   with 8 requests in 8 slots == each alone (traced, with the
+   measured-vs-modeled crosscheck); ``price()`` / ``describe()`` printed
+   as the cost model's figures; per engine prefill ms, tok/s, device
+   launches and ms per tick and peak memory on a ``{"simulators": ...}``
+   JSON line;
+8. telemetry: the request path (through the serve CLI's ``--trace-out``
    / ``--metrics-out``) and the fleet (inside ``obs.session()``) again
    with the port's telemetry on: tokens == the untraced runs above, one
    ``decode_tick`` span per tick and one ``prefill`` span per prefill,
@@ -796,6 +806,10 @@ def _reset_counts() -> None:
 # each kernel's launches by variant in the run that counts its launches
 # (filled by the phases)
 BY_VARIANT: dict[str, dict[str, int]] = {}
+# the lockstep batch's packed tokens and reference-engine prefill logits
+# per attention path, {"jnp" | "pallas": {"tokens", "logits"}} (filled by
+# the serve phases; the simulators phase holds every engine to them)
+BASELINE: dict[str, dict] = {}
 # the untraced runs of the traces the telemetry phase traces again:
 # {"requests" | "fleet": {"tokens": {rid: tokens}, "tok_s": ...}} (filled
 # by the serve phases)
@@ -972,6 +986,7 @@ def serve_phase(device: str = "cuda", smoke: bool = False) -> dict:
         raise AssertionError(f"packed generations differ from reference in {bad} tokens")
     if not torch.equal(ref["prefill_logits"], logits):
         raise AssertionError("packed prefill logits differ from the reference engine's")
+    BASELINE["jnp"] = {"tokens": gen_packed, "logits": ref["prefill_logits"]}
     print(f"[serve] reference lockstep: prefill {ref['prefill_s'] * 1e3:.2f} ms, decode "
           f"{ref['decode_tok_s']:.1f} tok/s; packed == reference: all {gen_packed.size} "
           f"tokens and the prefill logits bit for bit", flush=True)
@@ -1184,6 +1199,7 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
         raise AssertionError(f"pallas: packed generations differ from reference in {bad} tokens")
     if not torch.equal(ref["prefill_logits"], lock["prefill_logits"]):
         raise AssertionError("pallas: packed prefill logits differ from the reference engine's")
+    BASELINE["pallas"] = {"tokens": lock["generated"], "logits": ref["prefill_logits"]}
     logits = lock["prefill_logits"]
     if not torch.isfinite(logits[:, : cfg.vocab_size]).all():
         raise AssertionError("pallas prefill logits not finite")
@@ -1325,7 +1341,238 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: telemetry
+# phase 7: the crossbar simulators
+# ---------------------------------------------------------------------------
+
+# the paper's engines at tinyllama-1.1b full width: (engine, target fields)
+SIMULATORS = (
+    ("tacitmap", {}),                                       # ePCM tiles
+    ("wdm", {}),                                            # oPCM, K = 16 clamped to 8
+    ("tiled", {"mapping_policy": "tacitmap", "spec": "oPCM"}),
+    ("custbinarymap", {}),                                  # ePCM 2T2R rows
+)
+# the wdm engine, 8 slots vs each request alone: the first SIM_REQUESTS
+# requests of the serve phase's trace, SIM_GEN tokens each
+SIM_REQUESTS, SIM_GEN = 8, 8
+
+
+def _baseline(cfg, impl: str, device: str) -> dict:
+    """The packed lockstep tokens and the reference engine's prefill
+    logits on ``impl`` attention: the serve phases' (kept in BASELINE),
+    or computed here when this phase runs alone."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    if impl not in BASELINE:
+        cfg = dataclasses.replace(cfg, attn_impl=impl)
+        tokens = serve.prompts(cfg, BATCH, PROMPT, SEED)
+        runs = {}
+        for engine in ("packed", "reference"):
+            params = lm.init_params(torch.Generator(device=device).manual_seed(SEED), cfg,
+                                    device=device)
+            model = compiler.compile(dataclasses.replace(cfg, quant="bnn"), params,
+                                     compiler.HardwareTarget(engine=engine), device=device)
+            runs[engine] = serve.lockstep(model, tokens, GEN)
+            del model, params
+        BASELINE[impl] = {"tokens": runs["packed"]["generated"],
+                          "logits": runs["reference"]["prefill_logits"]}
+    return BASELINE[impl]
+
+
+def _tick_launches(compiled, tokens) -> tuple[float, float]:
+    """(device launches, device ms) per decode tick: two lockstep ticks
+    under ``torch.profiler`` after an unprofiled prefill."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.device import synchronize
+
+    ticks = 2
+    logits, pre = compiled.prefill(tokens)
+    caches = compiled.graft_prefill_caches(
+        compiled.init_cache(tokens.shape[0], tokens.shape[1] + ticks), pre)
+    tok = torch.argmax(logits, dim=-1)
+    synchronize(compiled.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(ticks):
+            logits, caches = compiled.decode_step(tok, tokens.shape[1] + i, caches)
+            tok = torch.argmax(logits, dim=-1)
+        synchronize(compiled.device)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in events) / ticks,
+            sum(getattr(e, "self_device_time_total", 0) for e in events) / 1e3 / ticks)
+
+
+SIMULATORS_OUT = ROOT / "chiprun_out" / "simulators"
+
+
+def simulators_phase(device: str = "cuda", smoke: bool = False,
+                     out_dir: Path = SIMULATORS_OUT) -> dict:
+    """The paper's crossbar simulators at tinyllama-1.1b full width and
+    depth through ``compile()``: ``tacitmap`` (ePCM), ``wdm`` (oPCM, K =
+    16 clamped to the 8 slots), ``tiled`` (a plan compiled under the
+    tacitmap policy on oPCM tiles) and ``custbinarymap`` (ePCM). Each
+    serves the lockstep batch of the serve phase (8 prompts of 128, 31
+    decode ticks, jnp attention): its tokens must equal the packed
+    engine's and its prefill logits the reference engine's, bit for bit.
+    Then ``wdm`` once more over the flash kernel (``attn_impl="pallas"``:
+    tokens == packed's over flash, one flash launch per layer, all
+    ``sm90``), ``wdm`` with 8 requests in 8 slots (traced: the
+    measured-vs-modeled crosscheck printed) == each request alone, and
+    ``price()`` / ``describe()`` of the compiled model, the cost model's
+    figures for an ePCM/oPCM crossbar, printed as modeled (the full
+    ``describe()`` table in ``out_dir/describe.txt``). Prints one
+    ``{"simulators": ...}`` JSON line: per engine prefill ms, decode
+    tok/s, device launches and ms per tick, peak device memory. One
+    engine's model is programmed at a time and released. Returns that
+    line's object."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler, obs
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.crossbar import OPCM_TILE
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import Request
+
+    t_phase = time.perf_counter()
+    cfg = get_smoke_config(ARCH) if smoke else get_config(ARCH)
+    layers = cfg.n_layers
+    on_card = device == "cuda"
+    tokens = serve.prompts(cfg, BATCH, PROMPT, SEED)
+
+    def params(c):
+        return lm.init_params(torch.Generator(device=device).manual_seed(SEED), c, device=device)
+
+    def target(engine, kw):
+        kw = dict(kw)
+        if kw.pop("spec", None) == "oPCM":
+            kw["spec"] = OPCM_TILE
+        return compiler.HardwareTarget(engine=engine, **kw)
+
+    def check(engine, impl, run, want):
+        if not np.array_equal(run["generated"], want["tokens"]):
+            bad = int((run["generated"] != want["tokens"]).sum())
+            raise AssertionError(f"{engine} ({impl}): tokens differ from packed's in {bad}")
+        if not torch.equal(run["prefill_logits"], want["logits"]):
+            raise AssertionError(f"{engine} ({impl}): prefill logits != the reference engine's")
+
+    rows = []
+    want = _baseline(cfg, "jnp", device)
+    for engine, kw in SIMULATORS:
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        model = compiler.compile(cfg, params(cfg), target(engine, kw), device=device)
+        serve.lockstep(model, tokens, 2)  # warm-up: this engine's first shapes
+        _reset_counts()
+        run = serve.lockstep(model, tokens, GEN)
+        launched = {**_counts(), "flash_attention": _flash_count()}
+        _check_launches(device, launched, dict.fromkeys(launched, 0), f"{engine} lockstep")
+        check(engine, "jnp", run, want)
+        per_tick, tick_ms = _tick_launches(model, tokens) if on_card else (None, None)
+        row = {
+            "engine": engine,
+            "spec": model.spec.technology,
+            "k": model.group_size_for(BATCH),
+            "programmed": model.programmed,
+            "program_ms": model.program_s * 1e3,
+            "prefill_ms": run["prefill_s"] * 1e3,
+            "decode_tok_s": run["decode_tok_s"],
+            "launches_per_tick": per_tick,
+            "device_ms_per_tick": tick_ms,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+        }
+        rows.append(row)
+        device_line = (f"{per_tick:.0f} device launches and {tick_ms:.3f} device ms per tick, "
+                       f"peak {row['peak_mem_gib']:.2f} GiB" if on_card else
+                       "device launches, device time and peak memory not measured (CPU)")
+        print(f"[simulators] {engine} ({row['spec']}, K={row['k']}) lockstep {ARCH} batch="
+              f"{BATCH} prompt={PROMPT} gen={GEN}: prefill {row['prefill_ms']:.2f} ms, decode "
+              f"{row['decode_tok_s']:.1f} tok/s, {device_line}; tokens == packed, prefill "
+              f"logits == reference", flush=True)
+        if engine == "tiled":
+            # the cost model's figures for the plan's crossbar; the
+            # per-layer table goes to a file, its summary lines here
+            described = model.describe()
+            out_dir.mkdir(parents=True, exist_ok=True)
+            (out_dir / "describe.txt").write_text(described + "\n")
+            for line in described.splitlines():
+                if line.startswith(("[target]", "[mapping]", "[price]")):
+                    print(f"[simulators] modeled, not measured: {line}", flush=True)
+            print(f"[simulators] modeled, not measured: "
+                  f"{model.price(n_active=BATCH).summary()} (n_active={BATCH})", flush=True)
+        del model, run
+    _release({})
+
+    # wdm over the flash kernel
+    pcfg = dataclasses.replace(cfg, attn_impl="pallas")
+    want = _baseline(cfg, "pallas", device)
+    model = compiler.compile(pcfg, params(pcfg), target("wdm", {}), device=device)
+    _reset_counts()
+    run = serve.lockstep(model, tokens, GEN)
+    launched = {**_counts(), "flash_attention": _flash_count()}
+    _check_launches(device, {**launched, "flash by variant": _flash_variants()},
+                    {"fused_bnn_matmul": 0, "hamming_matmul": 0, "flash_attention": layers,
+                     "flash by variant": {"fma": 0, "sm90": layers}}, "wdm over flash")
+    check("wdm", "pallas", run, want)
+    rows.append({"engine": "wdm", "attn_impl": "pallas", "prefill_ms": run["prefill_s"] * 1e3,
+                 "decode_tok_s": run["decode_tok_s"], "launches": launched})
+    print(f"[simulators] wdm over flash: prefill {run['prefill_s'] * 1e3:.2f} ms, decode "
+          f"{run['decode_tok_s']:.1f} tok/s; tokens == packed over flash, prefill logits == "
+          f"reference; launches {launched}, flash by variant {_flash_variants()}", flush=True)
+    del model, run
+    _release({})
+
+    # wdm: 8 requests in 8 slots (traced) == each alone; the crosscheck
+    model = compiler.compile(cfg, params(cfg), target("wdm", {}), device=device)
+    rng = np.random.default_rng(REQUEST_SEED)
+    trace = serve.prompts(cfg, SIM_REQUESTS, PROMPT, SEED)
+    reqs = [Request(rid=i, prompt=trace[i, : int(rng.integers(PROMPT // 2, PROMPT + 1))]
+                    .astype(np.int32), max_new_tokens=SIM_GEN) for i in range(SIM_REQUESTS)]
+    max_len = PROMPT + SIM_GEN
+    with obs.session() as tel:
+        se = model.serve(max_batch=BATCH, max_len=max_len)
+        states = [se.submit(r) for r in reqs]
+        se.drain()
+        checks = obs.crosscheck_serving(se)
+    if se.group_k != BATCH or not all(len(st.generated) == SIM_GEN for st in states):
+        raise AssertionError(f"wdm requests: K={se.group_k}, generated "
+                             f"{[len(st.generated) for st in states]}")
+    for r, st in zip(reqs, states):
+        one = model.serve(max_batch=1, max_len=max_len)
+        alone = one.submit(r)
+        one.drain()
+        if tuple(alone.generated) != tuple(st.generated):
+            raise AssertionError(f"wdm: request {r.rid} in {BATCH} slots != alone")
+    if not checks or not all(c.finite for c in checks):
+        raise AssertionError(f"wdm crosscheck rows {checks}")
+    print(f"[simulators] wdm requests: {SIM_REQUESTS} requests in {BATCH} slots (K="
+          f"{se.group_k}) == each alone, {SIM_GEN} tokens each; measured-vs-modeled "
+          f"decode-tick pricing (modeled: the cost model's oPCM crossbar; measured: this "
+          f"device):", flush=True)
+    print(obs.format_report(checks), flush=True)
+    del model, se
+    _release({})
+
+    seconds = time.perf_counter() - t_phase
+    out = {"simulators": rows, "seconds": seconds}
+    print(json.dumps(out), flush=True)
+    print(f"[simulators] phase {seconds:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: telemetry
 # ---------------------------------------------------------------------------
 
 TELEMETRY_OUT = ROOT / "chiprun_out" / "telemetry"
@@ -1622,11 +1869,13 @@ ONLY = {  # an argument that stops after some kernels' checks and times (no resu
 
 
 TELEMETRY_ONLY = "--telemetry-only"  # the telemetry phase alone (no result line)
+SIMULATORS_ONLY = "--simulators-only"  # the simulators phase alone (no result line)
+ALONE = {TELEMETRY_ONLY: "telemetry", SIMULATORS_ONLY: "simulators"}
 
 
 def main(argv: list[str]) -> int:
-    if argv and (len(argv) > 1 or argv[0] not in (*ONLY, TELEMETRY_ONLY)):
-        print(f"usage: chip_smoke.py [{' | '.join((*ONLY, TELEMETRY_ONLY))}]", file=sys.stderr)
+    if argv and (len(argv) > 1 or argv[0] not in (*ONLY, *ALONE)):
+        print(f"usage: chip_smoke.py [{' | '.join((*ONLY, *ALONE))}]", file=sys.stderr)
         return 2
     phase("device")
     card = check_device()
@@ -1635,9 +1884,9 @@ def main(argv: list[str]) -> int:
 
     phase("build")
     build_kernels()
-    if argv == [TELEMETRY_ONLY]:
-        phase("telemetry")
-        telemetry_phase()
+    if argv and argv[0] in ALONE:
+        phase(ALONE[argv[0]])
+        (telemetry_phase if argv[0] == TELEMETRY_ONLY else simulators_phase)()
         print(card, flush=True)
         return 0
     phase("kernels")
@@ -1665,6 +1914,8 @@ def main(argv: list[str]) -> int:
     phase("serve pallas")
     row_count_check()
     launches["flash_attention"] = serve_pallas_phase()
+    phase("simulators")
+    simulators_phase()
     phase("telemetry")
     telemetry_phase()
     summary = kernel_summary(checked, launches) + launch_summary(flash, mma, launches)

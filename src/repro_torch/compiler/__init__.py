@@ -9,14 +9,23 @@ from repro_torch.compiler.cli import (
     scheduler_from_args,
     target_from_args,
 )
-from repro_torch.compiler.pipeline import CompiledModel, compile, resolve_engine
-from repro_torch.compiler.target import GroupSizeError, HardwareTarget, TargetError
+from repro_torch.compiler.pipeline import CompiledModel, TargetPrice, compile, resolve_engine
+from repro_torch.compiler.target import (
+    GroupSizeError,
+    HardwareTarget,
+    PlanEngineMismatchError,
+    SpecMismatchError,
+    TargetError,
+)
 
 __all__ = [
     "CompiledModel",
     "GroupSizeError",
     "HardwareTarget",
+    "PlanEngineMismatchError",
+    "SpecMismatchError",
     "TargetError",
+    "TargetPrice",
     "add_fleet_args",
     "add_obs_args",
     "add_scheduler_args",

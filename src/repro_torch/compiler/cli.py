@@ -25,13 +25,13 @@ def add_target_args(
 ) -> argparse.ArgumentParser:
     """Install the hardware-target flags on a parser."""
     from repro_torch.core import engine as engine_lib
+    from repro_torch.mapping import POLICIES
 
     ap.add_argument(
         "--engine",
         default=default_engine,
-        # a typo fails here with the names listed; an engine of a later
-        # slice passes argparse and fails validation naming that slice
-        choices=sorted({*engine_lib.list_engines(), *engine_lib.PENDING_ENGINES}),
+        # a typo fails here with the registered names listed
+        choices=engine_lib.list_engines(),
         help="execution backend for binarized projections "
         "(registered in repro_torch.core.engine)",
     )
@@ -39,8 +39,31 @@ def add_target_args(
         "--group-size",
         type=int,
         default=0,
-        help="K-group width for batched decode (0 = auto from the engine's "
-        "preferred_group_size / batch)",
+        help="K-group width for batched decode (0 = auto from the mapping "
+        "plan / engine's preferred_group_size / batch)",
+    )
+    ap.add_argument(
+        "--mapping-policy",
+        default=None,
+        choices=POLICIES,
+        help="compile a layer->tile MappingPlan under this allocator policy "
+        "and execute per it (requires --engine tiled)",
+    )
+    ap.add_argument(
+        "--tile-budget",
+        type=int,
+        default=None,
+        metavar="N",
+        help="cap the physical tile pool the mapping plan provisions "
+        "(co-resident blocks serialize; requires --engine tiled)",
+    )
+    ap.add_argument(
+        "--spare-tiles",
+        type=int,
+        default=0,
+        metavar="N",
+        help="provision N extra physical tiles as fault-remap destinations "
+        "in the mapping plan (requires --engine tiled)",
     )
     ap.add_argument(
         "--raw-weights",
@@ -180,5 +203,8 @@ def target_from_args(args: argparse.Namespace) -> HardwareTarget:
     return HardwareTarget(
         engine=args.engine,
         group_size=args.group_size or None,
+        mapping_policy=args.mapping_policy,
+        tile_budget=args.tile_budget,
         prepare_weights=not args.raw_weights,
+        spare_tiles=args.spare_tiles,
     ).validate()

@@ -6,7 +6,9 @@ The paper's Eq. 1 (for equally-sized binary vectors)::
     In (*) W = 2 * Popcount(In' XNOR W') - VectorLength
 
 where ``In', W'`` are the {0,1} encodings of the ±1 vectors ``In, W``.
-Conventions: ``bits`` hold {0, 1}, ``signs`` hold {-1, +1}.
+Conventions: ``bits`` hold {0, 1}, ``signs`` hold {-1, +1}. The
+bit-level helpers work on any carrier dtype (no bitwise ops), so the
+crossbar simulators run them on float cell states.
 """
 
 from __future__ import annotations
@@ -19,6 +21,11 @@ def signs_to_bits(x: torch.Tensor) -> torch.Tensor:
     if x.dtype.is_floating_point:
         return (x + 1.0) * 0.5
     return torch.div(x + 1, 2, rounding_mode="floor").to(x.dtype)
+
+
+def bits_to_signs(b: torch.Tensor) -> torch.Tensor:
+    """Map {0,1} -> {-1,+1}."""
+    return 2 * b - 1
 
 
 # The binarize threshold: -2^-126, the least normal float32 (and
@@ -57,3 +64,66 @@ def binary_matmul_signs(a_signs: torch.Tensor, w_signs: torch.Tensor) -> torch.T
     ground truth every engine and kernel must reproduce.
     """
     return torch.matmul(a_signs, w_signs)
+
+
+# ---------------------------------------------------------------------------
+# Eq. 1: XNOR + Popcount
+# ---------------------------------------------------------------------------
+
+
+def xnor(a_bits: torch.Tensor, w_bits: torch.Tensor) -> torch.Tensor:
+    """Element-wise XNOR on {0,1} tensors (dtype-preserving, no bitwise
+    ops so it also works on float carriers)."""
+    return 1 - (a_bits + w_bits - 2 * a_bits * w_bits)
+
+
+def popcount(bits: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Population count (number of set bits) along ``dim``."""
+    return torch.sum(bits, dim=dim)
+
+
+def xnor_popcount(a_bits: torch.Tensor, w_bits: torch.Tensor) -> torch.Tensor:
+    """``popcount(xnor(a, w))`` along the last axis — the BNN MAC."""
+    return popcount(xnor(a_bits, w_bits))
+
+
+def binary_dot_eq1(a_bits: torch.Tensor, w_bits: torch.Tensor) -> torch.Tensor:
+    """Eq. 1: the ±1-domain dot product recovered from XNOR+popcount."""
+    m = a_bits.shape[-1]
+    return 2 * xnor_popcount(a_bits, w_bits) - m
+
+
+# ---------------------------------------------------------------------------
+# The TacitMap algebraic core: complement concatenation
+# ---------------------------------------------------------------------------
+
+
+def concat_complement_input(a_bits: torch.Tensor) -> torch.Tensor:
+    """TacitMap input prep: ``[a ; ā]`` along the last axis (length 2m)."""
+    return torch.cat([a_bits, 1 - a_bits], dim=-1)
+
+
+def stack_complement_weights(w_bits: torch.Tensor) -> torch.Tensor:
+    """TacitMap weight prep: ``[w ; w̄]`` stacked along the row axis.
+
+    ``w_bits``: (m, n) -> (2m, n): weight column then its complement
+    directly below it (Fig. 2-(b) of the paper).
+    """
+    return torch.cat([w_bits, 1 - w_bits], dim=0)
+
+
+def tacitmap_vmm(a_bits: torch.Tensor, w_bits: torch.Tensor) -> torch.Tensor:
+    """One-step XNOR+Popcount via a single VMM (the TacitMap identity).
+
+    ``a_bits``: (..., m) in {0,1}; ``w_bits``: (m, n) in {0,1}. Returns
+    popcount(XNOR) of shape (..., n), computed as ``[a ; ā] @ [w ; w̄]``
+    — exactly what the crossbar's analog MAC does.
+    """
+    return torch.matmul(concat_complement_input(a_bits), stack_complement_weights(w_bits))
+
+
+def tacitmap_binary_matmul(a_signs: torch.Tensor, w_signs: torch.Tensor) -> torch.Tensor:
+    """±1 binary matmul routed through the TacitMap VMM identity."""
+    m = a_signs.shape[-1]
+    pc = tacitmap_vmm(signs_to_bits(a_signs), signs_to_bits(w_signs))
+    return 2 * pc - m

@@ -8,24 +8,35 @@ binary matmuls::
     binary_mmm(groups, w)          # (G, K, m) x (m, n) -> (G, K, n)
 
 Two-phase program/execute contract: ``prepare(w_signs)`` runs the
-weight-side transforms once (bit-packing for ``packed``) and returns a
+weight-side transforms once (complement-stacked cell states for the
+crossbar simulators, bit-packing for ``packed``) and returns a
 :class:`PreparedWeights` artifact; ``binary_vmm``/``binary_mmm`` accept
 raw ±1 weights or that artifact, and the raw path delegates through
 ``prepare``, so prepared and raw execution are bit-identical by
 construction. ``prepare_cached`` memoizes programming on the identity
 of the weight tensor in a bounded :class:`WeightCache`.
 
-This slice registers the main-path backends:
+``binary_mmm`` is the batching contract: engines with
+``info.native_mmm`` (WDM) execute each K-group as one hardware step and
+report that K from ``preferred_group_size()``; every other backend
+reports 1 and serves ``binary_mmm`` as one flattened VMM.
 
-=============  ==========================================  ================
-name           models                                      prepared artifact
-=============  ==========================================  ================
-``reference``  Eq. 1 as a plain ±1 matmul (ground truth)   ±1 signs
-``packed``     bit-packed XNOR+popcount CUDA kernels       int32 words
-=============  ==========================================  ================
+====================  ==========================================  ==========  ====================
+name                  models                                      native MMM  prepared artifact
+====================  ==========================================  ==========  ====================
+``reference``         Eq. 1 as a plain ±1 matmul (ground truth)   no          ±1 signs
+``tacitmap``          tiled ePCM/oPCM crossbar simulator          no          complement cell states
+``wdm``               oPCM + K-wavelength WDM (EinsteinBarrier)   yes (K)     complement cell states
+``packed``            bit-packed XNOR+popcount CUDA kernels       no          int32 words
+``tiled``             mapping-plan placed tile execution          no          cell states + placement
+                                                                              indices
+``custbinarymap``     2T2R/PCSA row-serial baseline [15]          no          ±1 signs
+====================  ==========================================  ==========  ====================
 
-``tacitmap``, ``wdm``, ``tiled`` and ``custbinarymap`` arrive with later
-slices (:data:`PENDING_ENGINES`).
+The crossbar simulators (``tacitmap``, ``wdm``, ``tiled``,
+``custbinarymap``) are plain tensor products in fp32 on {0,1} cell
+states, as in the reference (which has no Pallas kernel for them): every
+sum is an integer below 2^24, so they are exact on the CPU and the card.
 """
 
 from __future__ import annotations
@@ -36,18 +47,11 @@ from collections import OrderedDict
 from typing import Any, Callable, Protocol, runtime_checkable
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import obs
-from repro_torch.core import bnn
-from repro_torch.core.crossbar import EPCM_TILE, OPCM_TILE, CrossbarSpec
-
-# engines of the reference that later slices of the port bring
-PENDING_ENGINES = {
-    "tacitmap": "the paper-simulator slice",
-    "wdm": "the paper-simulator slice",
-    "tiled": "the paper-simulator slice (mapping plans)",
-    "custbinarymap": "the paper-simulator slice",
-}
+from repro_torch.core import bnn, custbinarymap, tacitmap, wdm
+from repro_torch.core.crossbar import EPCM_TILE, OPCM_TILE, CrossbarSpec, adc_quantize
 
 
 # ---------------------------------------------------------------------------
@@ -59,9 +63,10 @@ PENDING_ENGINES = {
 class PreparedWeights:
     """Weights programmed into one engine's resident execution form.
 
-    ``data`` is the engine's tensor (±1 signs, or int32 words); ``m`` and
-    ``n`` are the logical weight dims; ``aux`` is hashable host-side
-    metadata (unused by this slice's engines).
+    ``data`` is the engine's tensor (±1 signs, cell states or int32
+    words); ``m`` and ``n`` are the logical weight dims; ``aux`` is
+    hashable host-side metadata (the ``tiled`` engine's placement
+    indices).
     """
 
     engine: str          # name of the backend that programmed this
@@ -200,7 +205,8 @@ class _EngineBase:
     """Shared plumbing: spec binding, the two-phase program/execute
     contract, MMM-via-VMM fallback, weight cache.
 
-    Subclasses implement ``_program`` (weight signs -> resident tensor)
+    Subclasses implement ``_program`` (weight signs -> resident tensor),
+    optionally ``_program_aux`` (hashable host-side placement metadata)
     and ``_vmm_prepared`` (execute against the artifact).
     """
 
@@ -221,6 +227,11 @@ class _EngineBase:
         """Engine-specific weight compilation; default: the ±1 signs."""
         return w_signs
 
+    def _program_aux(self, m: int, n: int):
+        """Hashable host-side placement metadata (``tiled`` overrides)."""
+        del m, n
+        return None
+
     def prepare(self, w_signs) -> PreparedWeights:
         """Program ±1 weights (m, n) into this engine's resident form.
         Idempotent on an artifact this engine programmed."""
@@ -228,7 +239,11 @@ class _EngineBase:
             return self._check_prepared(w_signs)
         m, n = w_signs.shape
         return PreparedWeights(
-            engine=self.name, m=int(m), n=int(n), data=self._program(w_signs)
+            engine=self.name,
+            m=int(m),
+            n=int(n),
+            data=self._program(w_signs),
+            aux=self._program_aux(int(m), int(n)),
         )
 
     def prepare_cached(self, w_signs, key=None) -> PreparedWeights:
@@ -300,6 +315,21 @@ class _EngineBase:
         return f"<Engine {self.name} spec={self.spec.technology}>"
 
 
+def _stacked_cells(w_signs: torch.Tensor) -> torch.Tensor:
+    """The crossbar simulators' programmed state: the complement-stacked
+    {0,1} cell matrix (2m, n) in fp32 — Fig. 2-(b), the mapping's PCM
+    write. Stored compact: the tile grid is a reshape of it (a view when
+    the tiles divide it), so an execute reads 2m x n cells, not the
+    padded grid."""
+    return bnn.stack_complement_weights(bnn.signs_to_bits(w_signs)).to(torch.float32)
+
+
+def _mapped_layer(pw: PreparedWeights, spec: CrossbarSpec) -> tacitmap.MappedLayer:
+    """Rehydrate a :class:`tacitmap.MappedLayer` around prepared cell
+    states (the tile grid is a pure function of (m, n, spec))."""
+    return tacitmap.layer_from_cells(pw.data, pw.m, pw.n, spec)
+
+
 class ReferenceEngine(_EngineBase):
     """Eq. 1 as a plain ±1 matmul — the ground truth every backend matches."""
 
@@ -311,6 +341,60 @@ class ReferenceEngine(_EngineBase):
 
     def _vmm_prepared(self, a_signs: torch.Tensor, pw: PreparedWeights) -> torch.Tensor:
         return bnn.binary_matmul_signs(a_signs, pw.data.to(a_signs.dtype))
+
+
+class TacitMapEngine(_EngineBase):
+    """The paper's mapping run through the full tiled-crossbar simulator."""
+
+    info = EngineInfo(
+        name="tacitmap",
+        description="tiled crossbar functional simulator (complement VMM)",
+        hardware="ePCM/oPCM crossbar tiles + ADC readout",
+    )
+
+    def _program(self, w_signs: torch.Tensor):
+        # the paper's programming step: write the complement cell states
+        return _stacked_cells(w_signs)
+
+    def _vmm_prepared(self, a_signs: torch.Tensor, pw: PreparedWeights) -> torch.Tensor:
+        pc = tacitmap.apply(_mapped_layer(pw, self.spec), bnn.signs_to_bits(a_signs))
+        return 2 * pc - pw.m
+
+    def steps_for(self, m: int, n: int, n_inputs: int) -> int:
+        return tacitmap.steps_for(m, n, n_inputs, self.spec)
+
+
+class WDMEngine(_EngineBase):
+    """EinsteinBarrier: oPCM crossbar + K-wavelength MMM steps."""
+
+    info = EngineInfo(
+        name="wdm",
+        description="oPCM + WDM: K input vectors per crossbar step (MMM)",
+        hardware="oPCM photonic crossbar, K-wavelength transmitter",
+        native_mmm=True,
+        default_spec="oPCM",
+    )
+
+    def _program(self, w_signs: torch.Tensor):
+        return _stacked_cells(w_signs)
+
+    def _vmm_prepared(self, a_signs: torch.Tensor, pw: PreparedWeights) -> torch.Tensor:
+        flat = a_signs.reshape(-1, pw.m)
+        pc = wdm.wdm_apply(_mapped_layer(pw, self.spec), bnn.signs_to_bits(flat))
+        return (2 * pc - pw.m).reshape(*a_signs.shape[:-1], -1)
+
+    def binary_mmm(self, groups: torch.Tensor, w) -> torch.Tensor:
+        pw = self._check_operands(groups, self.prepare(w))
+        pc = wdm.mmm(_mapped_layer(pw, self.spec), bnn.signs_to_bits(groups))
+        return 2 * pc - pw.m
+
+    def steps_for(self, m: int, n: int, n_inputs: int) -> int:
+        del m, n
+        return wdm.steps_for(n_inputs, self.spec.wdm_k)
+
+    def preferred_group_size(self) -> int:
+        """The wavelength count: K input vectors ride one crossbar step."""
+        return self.spec.wdm_k
 
 
 class PackedEngine(_EngineBase):
@@ -375,6 +459,212 @@ class PackedEngine(_EngineBase):
         # one kernel launch executes the whole (B, m, n) matmul
         del m, n, n_inputs
         return 1
+
+
+class TiledEngine(_EngineBase):
+    """Mapping-plan-driven tile execution.
+
+    Where ``tacitmap`` simulates the whole tiled array in one product,
+    this backend executes the *compiled placement*: the cell states are
+    cut into exactly the ``spec.rows x spec.cols`` blocks a
+    :class:`repro_torch.mapping.allocator.MappingPlan` placed, gathered
+    in the plan's block order into one (T, R, C) stack, the per-block
+    partial popcounts run as ONE batched product over the tile axis, and
+    digital partial-sum accumulation adds them back per output column
+    group (``index_add_``). Bit-exact vs ``reference`` for every
+    allocator policy — placement permutes tile order, never the math.
+
+    ``prepare`` programs the placement: the complement cell states are
+    compiled once, and the host-side placement indices (block order and
+    the row/column block of each placed tile) ride along as hashable aux
+    metadata. Ad-hoc placements and their index lists are memoized per
+    (m, n) in bounded LRUs (``adhoc_placements``, ``placement_indices``);
+    the index tensors an execute gathers with are built once per
+    (m, n, device), not on every call.
+
+    ``mesh_axis`` names the mesh axis the tile axis shards over in the
+    reference; the port has no distribution yet, so it is recorded and
+    the tile stack stays on one device.
+
+    Construction: ``get_engine("tiled", plan=plan)`` executes per a
+    compiled plan (and inherits its tile spec); without a plan, each
+    distinct (m, n) weight shape is placed on the fly under ``policy``.
+    """
+
+    info = EngineInfo(
+        name="tiled",
+        description="plan-driven tile execution (complement blocks, batched over tiles)",
+        hardware="ePCM/oPCM crossbar tile pool",
+    )
+
+    ADHOC_CACHE_SIZE = 32
+
+    def __init__(
+        self,
+        spec: CrossbarSpec | None = None,
+        *,
+        plan=None,
+        policy: str = "tacitmap",
+        mesh_axis: str = "model",
+    ):
+        if plan is not None and spec is None:
+            spec = plan.spec
+        super().__init__(spec)
+        if plan is not None and plan.spec != self.spec:
+            raise ValueError(
+                f"plan was compiled for {plan.spec.technology} "
+                f"{plan.spec.rows}x{plan.spec.cols} tiles but the engine is "
+                f"bound to {self.spec.technology} {self.spec.rows}x{self.spec.cols}"
+            )
+        self.plan = plan
+        self.policy = policy
+        self.mesh_axis = mesh_axis
+        self._adhoc_cache = LRUCache(self.ADHOC_CACHE_SIZE, name="adhoc_placements")
+        self._index_cache = LRUCache(self.ADHOC_CACHE_SIZE, name="placement_indices")
+        # (m, n, device) -> (aux, row ids, col ids): the execute's index
+        # tensors, on the device of the activations
+        self._device_indices = LRUCache(self.ADHOC_CACHE_SIZE)
+
+    def with_spec(self, spec: CrossbarSpec) -> "TiledEngine":
+        keep = self.plan if (self.plan is not None and self.plan.spec == spec) else None
+        return type(self)(spec, plan=keep, policy=self.policy, mesh_axis=self.mesh_axis)
+
+    def cache_stats(self) -> dict[str, dict[str, int]]:
+        return {
+            **super().cache_stats(),
+            "adhoc_placements": self._adhoc_cache.stats,
+            "placement_indices": self._index_cache.stats,
+        }
+
+    def _placement(self, m: int, n: int):
+        """The plan's LayerPlan for a (m, n) matrix, or an on-the-fly
+        single-layer placement under this engine's policy (cached)."""
+        if self.plan is not None:
+            lp = self.plan.layer_for(m, n)
+            if lp is not None:
+                return lp
+        lp = self._adhoc_cache.get((m, n))
+        if lp is None:
+            from repro_torch.mapping import allocator, ir  # lazy: mapping imports costmodel
+
+            lp = allocator.allocate(
+                ir.adhoc_layer(m, n), spec=self.spec, policy=self.policy
+            ).layers[0]
+            self._adhoc_cache.put((m, n), lp)
+        return lp
+
+    def _indices(self, m: int, n: int):
+        """Placement + host-side index lists for a (m, n) matrix,
+        memoized per shape: the block order and each placed block's
+        flat, row-block and column-block index."""
+        cached = self._index_cache.get((m, n))
+        if cached is None:
+            lp = self._placement(m, n)
+            order = lp.block_order()
+            ct = lp.grid.col_tiles
+            block_ids = tuple(rb * ct + cb for rb, cb in order)
+            row_ids = tuple(rb for rb, _ in order)
+            col_ids = tuple(cb for _, cb in order)
+            cached = (lp, block_ids, row_ids, col_ids)
+            self._index_cache.put((m, n), cached)
+        return cached
+
+    def _program(self, w_signs: torch.Tensor):
+        # programmed cell states (complement-stacked, compact); the
+        # placement-ordered (T, R, C) block stack is gathered at execute
+        # time, so a resident model holds 2m x n cells per projection
+        return _stacked_cells(w_signs)
+
+    def _program_aux(self, m: int, n: int):
+        lp, block_ids, row_ids, col_ids = self._indices(m, n)
+        return (
+            block_ids,
+            row_ids,
+            col_ids,
+            int(lp.grid.row_tiles),
+            int(lp.grid.col_tiles),
+            int(self.spec.rows),
+            int(self.spec.cols),
+        )
+
+    def _device_ids(self, pw: PreparedWeights, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """The artifact's row- and column-block ids as int64 tensors on
+        ``device``, built once per (m, n, device) placement."""
+        key = (pw.m, pw.n, str(device))
+        hit = self._device_indices.get(key)
+        if hit is None or (hit[0] is not pw.aux and hit[0] != pw.aux):
+            _, row_ids, col_ids = pw.aux[:3]
+            hit = (
+                pw.aux,
+                torch.tensor(row_ids, dtype=torch.int64, device=device),
+                torch.tensor(col_ids, dtype=torch.int64, device=device),
+            )
+            self._device_indices.put(key, hit)
+        return hit[1], hit[2]
+
+    def _vmm_prepared(self, a_signs: torch.Tensor, pw: PreparedWeights) -> torch.Tensor:
+        _, _, _, RT, CT, R, C = pw.aux
+        if (R, C) != (self.spec.rows, self.spec.cols):
+            raise ValueError(
+                f"prepared cells were placed on {R}x{C} blocks but the engine "
+                f"is bound to {self.spec.rows}x{self.spec.cols} tiles — re-run prepare()"
+            )
+        m, n = pw.m, pw.n
+        row_t, col_t = self._device_ids(pw, pw.data.device)
+        # the placement view: pad to the grid, gather blocks in the PLAN'S
+        # order (block (rb, cb) is flat block rb * CT + cb)
+        pad_r, pad_c = RT * R - 2 * m, CT * C - n
+        cells = F.pad(pw.data, (0, pad_c, 0, pad_r)) if pad_r or pad_c else pw.data
+        tiles = cells.reshape(RT, R, CT, C)[row_t, :, col_t, :]  # (T, R, C)
+
+        # inputs: complement drive, cut into the row blocks each tile sees
+        lead = a_signs.shape[:-1]
+        drive = bnn.concat_complement_input(bnn.signs_to_bits(a_signs.reshape(-1, m)))
+        drive = drive.to(torch.float32)
+        if pad_r:
+            drive = F.pad(drive, (0, pad_r))
+        drive_t = drive.reshape(-1, RT, R)[:, row_t, :].transpose(0, 1)  # (T, B, R)
+
+        # one crossbar activation per placed tile: analog MAC + that tile's ADC
+        partial = adc_quantize(torch.bmm(drive_t, tiles), self.spec, active_rows=R)
+        # digital partial-sum accumulation: row-block partials of each
+        # output column group add up, in whatever order the plan placed them
+        summed = partial.new_zeros((CT, *partial.shape[1:])).index_add_(0, col_t, partial)
+        pc = summed.transpose(0, 1).reshape(-1, CT * C)[:, :n]
+        return (2 * pc - m).reshape(*lead, n)
+
+    def steps_for(self, m: int, n: int, n_inputs: int) -> int:
+        """WDM-grouped stream x the plan's per-vector serialization (a
+        tile co-hosting j blocks of one layer fires j times)."""
+        lp = self._placement(m, n)
+        groups = math.ceil(n_inputs / max(1, self.spec.wdm_k))
+        return groups * lp.steps_per_vector
+
+    def preferred_group_size(self) -> int:
+        """The plan's WDM capacity (== spec.wdm_k for the bound tiles)."""
+        if self.plan is not None:
+            return self.plan.preferred_group_size()
+        return self.spec.wdm_k
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        planned = self.plan.model.name if self.plan is not None else f"adhoc/{self.policy}"
+        return f"<Engine tiled spec={self.spec.technology} plan={planned}>"
+
+
+class CustBinaryMapEngine(_EngineBase):
+    """The SotA baseline mapping [15]: one weight vector per step (PCSA)."""
+
+    info = EngineInfo(
+        name="custbinarymap",
+        description="2T2R row-serial baseline (PCSA readout, digital popcount)",
+        hardware="ePCM 2T2R arrays + precharge sense amplifiers",
+    )
+
+    def _vmm_prepared(self, a_signs: torch.Tensor, pw: PreparedWeights) -> torch.Tensor:
+        return custbinarymap.binary_matmul(a_signs, pw.data, self.spec)
+
+    def steps_for(self, m: int, n: int, n_inputs: int) -> int:
+        return custbinarymap.steps_for(m, n, n_inputs, self.spec)
 
 
 # ---------------------------------------------------------------------------
@@ -483,11 +773,6 @@ def get_engine(name: str, spec: CrossbarSpec | None = None, **kw) -> Engine:
     try:
         factory = _REGISTRY[name]
     except KeyError:
-        if name in PENDING_ENGINES:
-            raise NotImplementedError(
-                f"engine {name!r} is not ported yet; it arrives with "
-                f"{PENDING_ENGINES[name]}"
-            ) from None
         raise ValueError(
             f"unknown engine {name!r}; registered: {', '.join(list_engines())}"
         ) from None
@@ -506,16 +791,27 @@ def resolve(engine: "str | Engine", spec: CrossbarSpec | None = None) -> Engine:
     return engine
 
 
-def resolve_group_size(engine: Engine | None, requested: int | None, batch: int) -> int:
+def engine_info(name: str) -> EngineInfo:
+    """Capability metadata of a registered backend."""
+    return get_engine(name).info
+
+
+def resolve_group_size(
+    engine: Engine | None, requested: int | None, batch: int, plan=None
+) -> int:
     """The K-group sizing policy shared by the serving engine and CLIs.
 
-    Explicit request (> 0) wins; else an engine whose
-    ``preferred_group_size()`` exceeds 1 contributes it; else one group
-    spans the batch. Always clamped to [1, batch]. (Mapping plans, which
-    can also set K in the reference, arrive with a later slice.)
+    Explicit request (> 0) wins; else a compiled mapping plan contributes
+    its WDM capacity (``plan.preferred_group_size()``: the placed tile
+    technology, even when the executing backend has no native MMM); else
+    an engine whose ``preferred_group_size()`` exceeds 1 contributes it
+    (WDM's wavelength count, a plan-bound tiled engine's tile K); else
+    one group spans the batch. Always clamped to [1, batch].
     """
     if requested:
         k = requested
+    elif plan is not None and plan.preferred_group_size() > 1:
+        k = plan.preferred_group_size()
     elif engine is not None and engine.preferred_group_size() > 1:
         k = engine.preferred_group_size()
     else:
@@ -523,5 +819,12 @@ def resolve_group_size(engine: Engine | None, requested: int | None, batch: int)
     return max(1, min(int(k), batch))
 
 
-for _cls in (ReferenceEngine, PackedEngine):
+for _cls in (
+    ReferenceEngine,
+    TacitMapEngine,
+    WDMEngine,
+    PackedEngine,
+    TiledEngine,
+    CustBinaryMapEngine,
+):
     register_engine(_cls.info.name, _cls)

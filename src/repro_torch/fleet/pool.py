@@ -448,13 +448,14 @@ class FleetEngine:
         )
 
     def price(self, n_active: int = 16):
-        """Fleet pricing through the cost model: it arrives with the
-        paper-simulator slice (the port's ``CompiledModel`` has no
-        ``price()`` yet)."""
-        raise NotImplementedError(
-            "FleetEngine.price() needs CompiledModel.price() and "
-            "costmodel.fleet_price, which arrive with the paper-simulator slice"
-        )
+        """Fleet pricing: replicas x the single target's
+        :meth:`~repro_torch.compiler.CompiledModel.price` through the
+        cost model (every replica programs its own crossbars; they tick
+        in parallel). Modeled figures for the target's crossbar."""
+        from repro_torch.core import costmodel
+
+        base = next(iter(self.replicas.values())).compiled.price(n_active)
+        return costmodel.fleet_price(base, len(self.replicas), n_active=n_active)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (

@@ -10,6 +10,12 @@ or, with ``--requests N``, drive the request scheduler.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --engine packed --device cpu
 
+    # the crossbar simulators: a plan-placed tile pool, or EinsteinBarrier's WDM
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+        --smoke --device cpu --engine tiled --mapping-policy tacitmap
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+        --smoke --device cpu --engine wdm
+
     # the scheduler-fronted request path:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --device cpu --engine packed --requests 12 --sched-policy deadline
@@ -27,15 +33,22 @@ or, with ``--requests N``, drive the request scheduler.
 Weights are random (``init_params`` from a ``torch.Generator`` seeded by
 ``--seed`` on the serving device); prompts come from a numpy generator
 seeded by ``--seed``, and the request trace's prompt lengths from
-``--request-seed`` (default ``--seed``). :func:`run` returns the
-generations and timings for programs that drive the CLI in-process, and
-the telemetry session (``None`` unless ``--trace-out`` or
-``--metrics-out`` was given), already stopped and written out.
+``--request-seed`` (default ``--seed``). ``--engine tiled`` always
+executes per a compiled mapping plan (``--mapping-policy``, default the
+arch's policy) and prints its placement and the cost model's pricing
+(``CompiledModel.describe()``); a fleet prints ``FleetEngine.price()``.
+Those are the cost model's figures for an ePCM/oPCM crossbar, labelled
+as modeled. :func:`run` returns the generations and timings for
+programs that drive the CLI in-process, and the telemetry session
+(``None`` unless ``--trace-out`` or ``--metrics-out`` was given),
+already stopped and written out, with the measured-vs-modeled
+crosscheck of the request path's traced decode ticks.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -138,7 +151,8 @@ def serve_requests(compiled, args) -> dict:
     se.drain()
     synchronize(compiled.device)
     wall = time.perf_counter() - t0
-    return {"states": states, "stats": se.stats(), "wall_s": wall, "group_k": se.group_k}
+    return {"states": states, "stats": se.stats(), "wall_s": wall, "group_k": se.group_k,
+            "serving": se}
 
 
 def serve_fleet(cfg, params, target, args, device) -> dict:
@@ -208,8 +222,11 @@ def run(argv: list[str] | None = None) -> dict:
     finally:
         if tel is not None:
             obs.stop()
+    se = result.pop("serving", None)  # the request path's engine
     if tel is not None:
         tel.write(trace_out=args.trace_out, metrics_out=args.metrics_out)
+        if se is not None and tel.tracer.spans("decode_tick"):
+            result["crosscheck"] = obs.crosscheck_serving(se, tracer=tel.tracer)
     result["telemetry"] = tel
     return result
 
@@ -222,6 +239,10 @@ def _serve(args, target, dev) -> dict:
     from repro_torch.models import lm as lm_lib
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if target.engine == "tiled" and target.mapping_policy is None:
+        # `--engine tiled` executes per an explicit compiled plan; the
+        # policy falls back to the arch config's default
+        target = dataclasses.replace(target, mapping_policy=cfg.mapping_policy)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm_lib.init_params(gen, cfg, device=dev)
     if args.replicas > 1:
@@ -246,6 +267,10 @@ def main(argv: list[str] | None = None) -> int:
     print(f"[serve] arch={cfg.name} device={compiled.device} engine={compiled.target.engine} "
           f"quant={cfg.quant} programmed={compiled.programmed} "
           f"({compiled.program_s * 1e3:.1f} ms)")
+    if compiled.plan is not None and args.replicas == 1:
+        print("[serve] placement and the cost model's pricing (modeled for the target's "
+              "crossbar, not measured):")
+        print(compiled.describe())
     if args.replicas > 1:
         s = res["stats"]
         toks = sum(len(st.generated) for st in res["states"])
@@ -260,6 +285,8 @@ def main(argv: list[str] | None = None) -> int:
               f"healthy={s.healthy_replicas}/{s.n_replicas}")
         per = ", ".join(f"r{i}: {r.ticks}t/{r.decoded}d" for i, r in enumerate(s.replicas))
         print(f"[fleet] per-replica ticks/decoded: {per}")
+        print(f"[fleet] modeled for the target's crossbar: "
+              f"{res['fleet'].price(n_active=args.batch).summary()}")
         done = [st for st in res["states"] if st.done]
         if done:
             print(f"[fleet] rid={done[0].rid} replica={done[0].replica} "
@@ -283,6 +310,11 @@ def main(argv: list[str] | None = None) -> int:
               f"{res['prefill_s'] * 1e3:.1f} ms; decode {args.gen - 1} steps "
               f"{res['decode_s'] * 1e3:.1f} ms ({res['decode_tok_s']:.1f} tok/s)")
         print(f"[serve] generated[0,:8] = {res['generated'][0, :8].tolist()}")
+    if "crosscheck" in res:
+        from repro_torch import obs
+
+        print("[obs] measured-vs-modeled decode-tick pricing:")
+        print(obs.format_report(res["crosscheck"]))
     if args.trace_out:
         print(f"[obs] wrote Chrome trace (chrome://tracing / Perfetto) -> {args.trace_out}")
     if args.metrics_out:

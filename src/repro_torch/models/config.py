@@ -59,7 +59,9 @@ class ModelConfig:
     # name registered in repro_torch.core.engine ("reference" keeps the
     # plain ±1 matmul; "packed" routes through the XNOR+popcount kernels)
     bnn_engine: str = "reference"
-    # layer->tile placement policy of the "tiled" engine (a later slice)
+    # layer->tile placement policy of the "tiled" engine (see
+    # repro_torch.mapping.POLICIES): what it places a shape with when no
+    # compiled MappingPlan covers it
     mapping_policy: str = "tacitmap"
     # misc
     rope_theta: float = 10_000.0

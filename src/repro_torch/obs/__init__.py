@@ -3,17 +3,16 @@ counters (counterpart of ``repro/obs``; span, event, track, attribute
 and metric names are the reference's, so one dashboard reads both
 packages' traces and snapshots).
 
-Two pieces, threaded through every layer (compiler pipeline, serving
+Three pieces, threaded through every layer (compiler pipeline, serving
 engine, request scheduler, weight caches, fleet, launch driver):
 
-* :mod:`repro_torch.obs.trace`   — nestable wall-clock spans fenced by
-  ``torch.cuda.synchronize``, JSON-lines + Chrome-trace export.
-* :mod:`repro_torch.obs.metrics` — counters / gauges / bounded
+* :mod:`repro_torch.obs.trace`      — nestable wall-clock spans fenced
+  by ``torch.cuda.synchronize``, JSON-lines + Chrome-trace export.
+* :mod:`repro_torch.obs.metrics`    — counters / gauges / bounded
   histograms (TTFT, admission wait, tick latency, queue depth) rendered
   as a Prometheus-style text snapshot.
-
-The reference's third piece, the measured-vs-modeled crosscheck, needs
-the cost model and arrives with the paper-simulator slice.
+* :mod:`repro_torch.obs.crosscheck` — pairs traced decode ticks with
+  their ``costmodel`` prices: the measured/modeled ratio per engine x K.
 
 **Off by default, near-zero when off.** Instrumentation sites call the
 module-level helpers (:func:`span`, :func:`event`, :func:`observe`,
@@ -34,6 +33,7 @@ Usage::
     ...                                        # per-tick spans + metrics
     tel.tracer.export_chrome("trace.json")     # chrome://tracing
     print(tel.metrics.render())                # Prometheus snapshot
+    print(obs.format_report(obs.crosscheck_serving(se)))
     obs.stop()
 
 or scoped: ``with obs.session() as tel: ...``.
@@ -44,6 +44,13 @@ from __future__ import annotations
 import contextlib
 from typing import Callable
 
+from repro_torch.obs import crosscheck  # noqa: F401
+from repro_torch.obs.crosscheck import (  # noqa: F401
+    TickCheck,
+    crosscheck_serving,
+    crosscheck_ticks,
+    format_report,
+)
 from repro_torch.obs.metrics import (  # noqa: F401
     DEFAULT_BUCKETS,
     TICK_BUCKETS,
@@ -159,8 +166,8 @@ def observe(name: str, value: float, help: str = "",
 
 
 def cache_event(cache: str, kind: str, n: int = 1) -> None:
-    """Live cache counters (the weight cache hooks this on every
-    hit/miss/eviction; one None check when telemetry is off)."""
+    """Live cache counters (WeightCache / placement LRUs hook this on
+    every hit/miss/eviction; one None check when telemetry is off)."""
     if _ACTIVE is not None:
         _ACTIVE.metrics.counter(
             "repro_cache_events_total",

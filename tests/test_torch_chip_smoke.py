@@ -260,3 +260,38 @@ def test_telemetry_only_runs_the_device_phase_first(capsys):
     assert e.value.code != 0
     assert "usage" not in capsys.readouterr().err
     assert cs.main(["--telemetry-only", "--fused-only"]) == 2
+
+
+def test_simulators_phase_rehearses_on_cpu(tmp_path, capsys):
+    """The simulators phase at smoke size: every crossbar engine's tokens
+    == packed's and prefill logits == the reference engine's, wdm over
+    flash, 8 slots == alone with the crosscheck printed, the modeled
+    pricing labelled, and the JSON line."""
+    import json
+
+    res = _chip_smoke().simulators_phase(device="cpu", smoke=True, out_dir=tmp_path)
+    out = capsys.readouterr().out
+    engines = [r["engine"] for r in res["simulators"]]
+    assert engines == ["tacitmap", "wdm", "tiled", "custbinarymap", "wdm"]
+    for name in ("tacitmap", "wdm", "tiled", "custbinarymap"):
+        assert f"[simulators] {name} (" in out
+    assert out.count("tokens == packed, prefill logits == reference") == 4
+    assert "wdm over flash" in out and "8 requests in 8 slots (K=8) == each alone" in out
+    assert "measured_us  modeled_ns" in out
+    assert "[simulators] modeled, not measured: [price] tinyllama-smoke on EinsteinBarrier" in out
+    assert "slot0.ffn.w2" in (tmp_path / "describe.txt").read_text()
+    line = next(ln for ln in out.splitlines() if ln.startswith('{"simulators"'))
+    assert json.loads(line) == json.loads(json.dumps(res))
+
+
+def test_simulators_only_runs_the_device_phase_first(capsys):
+    """``--simulators-only`` is a known argument: without a card it gets
+    as far as the device check (a SystemExit), not the usage error."""
+    cs = _chip_smoke()
+    assert cs.ALONE["--simulators-only"] == "simulators"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        cs.main(["--simulators-only"])
+    assert e.value.code != 0
+    assert "usage" not in capsys.readouterr().err

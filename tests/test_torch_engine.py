@@ -115,13 +115,18 @@ def test_prepared_for_another_engine_is_rejected():
 
 
 def test_registry():
-    assert engine_lib.list_engines() == ["packed", "reference"]
-    with pytest.raises(NotImplementedError, match="paper-simulator slice"):
-        engine_lib.get_engine("wdm")
+    assert engine_lib.list_engines() == [
+        "custbinarymap", "packed", "reference", "tacitmap", "tiled", "wdm"]
+    wdm = engine_lib.get_engine("wdm")
+    assert wdm.info.native_mmm and wdm.preferred_group_size() == wdm.spec.wdm_k == 16
     with pytest.raises(ValueError, match="unknown engine"):
         engine_lib.get_engine("nope")
     assert engine_lib.resolve_group_size(engine_lib.get_engine("packed"), None, 6) == 6
     assert engine_lib.resolve_group_size(None, 4, 3) == 3
+    # K: an explicit request, else the engine's wavelengths, clamped to the batch
+    assert engine_lib.resolve_group_size(wdm, None, 6) == 6
+    assert engine_lib.resolve_group_size(wdm, None, 40) == 16
+    assert engine_lib.resolve_group_size(wdm, 3, 40) == 3
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen1.5-0.5b"])

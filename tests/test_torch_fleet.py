@@ -229,10 +229,17 @@ def test_routed_equals_solo(compiled, model, solo, policy, n_replicas, engine, i
 
 
 def test_fleet_price_waits_for_the_cost_model(compiled):
-    fleet = FleetEngine([Replica(0, compiled[("reference", "jnp")], max_batch=1,
-                                 max_len=MAX_LEN)])
-    with pytest.raises(NotImplementedError, match="paper-simulator slice"):
-        fleet.price()
+    """The fleet prices through the cost model: replicas x one target's
+    ``price()`` (tiles, programming and tick energy scale with the
+    replica count; the tick's latency does not)."""
+    cm = compiled[("reference", "jnp")]
+    fleet = FleetEngine([Replica(r, cm, max_batch=1, max_len=MAX_LEN) for r in range(2)])
+    price, base = fleet.price(n_active=4), cm.price(4)
+    assert price.base == base and price.n_replicas == 2 and price.n_active == 4
+    assert price.tiles_total == 2 * base.n_tiles
+    assert price.tick_energy_pj == 2 * base.tick_energy_pj
+    assert price.tick_latency_ns == base.tick_latency_ns
+    assert price.summary().startswith(f"[fleet] 2 x {base.plan_cost.model} on ")
 
 
 def test_stream_through_fleet(compiled, model, solo):

@@ -61,7 +61,9 @@ def test_importing_the_serve_driver_loads_no_jax():
         "import sys; import repro_torch.launch.serve, repro_torch.convert, "
         "repro_torch.compiler, repro_torch.serving, repro_torch.fleet, "
         "repro_torch.kernels.ops, repro_torch.kernels.ref, repro_torch.kernels.flash_attention, "
-        "repro_torch.obs, repro_torch.obs.trace, repro_torch.obs.metrics; "
+        "repro_torch.obs, repro_torch.obs.trace, repro_torch.obs.metrics, "
+        "repro_torch.obs.crosscheck, repro_torch.mapping, repro_torch.core.costmodel, "
+        "repro_torch.core.einsteinbarrier; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -137,8 +139,10 @@ def test_later_slices_are_named():
             continue
         with pytest.raises(NotImplementedError, match="slice"):
             get_config(arch)
-    with pytest.raises(compiler.TargetError, match="paper-simulator slice"):
-        compiler.HardwareTarget(engine="tacitmap").validate()
+    for engine in ("tacitmap", "wdm", "tiled", "custbinarymap"):
+        assert compiler.HardwareTarget(engine=engine).validate().engine == engine
+    with pytest.raises(compiler.PlanEngineMismatchError):
+        compiler.HardwareTarget(engine="wdm", mapping_policy="tacitmap").validate()
     with pytest.raises(compiler.TargetError, match="fused=False"):
         compiler.HardwareTarget(engine="reference", fused=False).validate()
     with pytest.raises(compiler.GroupSizeError):
@@ -148,7 +152,11 @@ def test_later_slices_are_named():
 
 NEW_MODULES = ("fleet/pool.py", "fleet/replica.py", "fleet/router.py", "kernels/ref.py",
                "kernels/flash_attention.py", "kernels/bitlinear.py", "kernels/wdm_mmm.py",
-               "kernels/mma_plan.py", "obs/__init__.py", "obs/trace.py", "obs/metrics.py")
+               "kernels/mma_plan.py", "obs/__init__.py", "obs/trace.py", "obs/metrics.py",
+               "obs/crosscheck.py", "core/tacitmap.py", "core/wdm.py", "core/custbinarymap.py",
+               "core/networks.py", "core/costmodel.py", "core/einsteinbarrier.py",
+               "mapping/__init__.py", "mapping/ir.py", "mapping/allocator.py",
+               "mapping/schedule.py", "mapping/report.py")
 
 
 def test_import_scan_covers_the_new_modules():
