@@ -2,12 +2,13 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py [--mma-only | --flash-only | --hamming-only | --fused-only |
-                           --kernels-only | --telemetry-only | --simulators-only]
+                           --kernels-only | --telemetry-only | --simulators-only |
+                           --faults-only]
 
 Each ``--*-only`` argument stops after those kernels' checks and timings
-(``--kernels-only``: every kernel's; ``--telemetry-only`` and
-``--simulators-only``: the build and that phase alone) and prints no
-result line. Needs one
+(``--kernels-only``: every kernel's; ``--telemetry-only``,
+``--simulators-only`` and ``--faults-only``: the build and that phase
+alone) and prints no result line. Needs one
 CUDA card (device 0), the CUDA toolkit's ``nvcc`` and ``nvidia-smi``;
 exits non-zero without them. Phases, each announced on its own
 ``[phase]`` line:
@@ -65,7 +66,15 @@ exits non-zero without them. Phases, each announced on its own
    ``decode_tick`` span per tick and one ``prefill`` span per prefill,
    counters == the serving stats, a Chrome trace and metrics snapshot
    that parse (written under ``chiprun_out/telemetry``); prints the span
-   medians and the traced and untraced tok/s.
+   medians and the traced and untraced tok/s;
+9. faults: the same model under fault injection and tolerance -- a null
+   ``FaultModel`` on ``packed`` == plain packed on the fused kernel;
+   stuck cells on ``packed`` == ``tacitmap`` under the same model, every
+   projection through the Hamming kernel; a tile failing mid-serve on
+   ``tiled`` remapped by the health monitor, every generation == alone;
+   then the paper's MLP and LeNet on 10 000 images, every engine ==
+   ``reference``, and the multi-level sweep's gates; a ``{"faults":
+   ...}`` JSON line.
 
 Then one ``{"kernels": [...]}`` JSON line, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -1790,6 +1799,347 @@ def telemetry_phase(device: str = "cuda", smoke: bool = False, out: Path = TELEM
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 9: faults
+# ---------------------------------------------------------------------------
+
+# phase (b)'s fault model: 1e-3 of the cells stuck, half SET, half RESET
+FAULT_RATES = {"seed": 0, "stuck_set_rate": 5e-4, "stuck_reset_rate": 5e-4}
+# phase (c): 8 requests (prompts PROMPT/2..PROMPT) of FAULT_GEN tokens in
+# BATCH slots, a resident tile failing before tick FAIL_TICK
+FAULT_REQUESTS, FAULT_GEN, FAIL_TICK, SPARES = 8, 16, 2, 3
+# phase (d): MNIST-test-set-sized batches of seeded random 28x28 images
+N_IMAGES = 10_000
+PAPER_ENGINES = ("packed", "tacitmap", "wdm", "custbinarymap")
+SWEEPS = 3  # scan_faults calls timed after the serve
+
+
+def _lockstep_logits(compiled, tokens, gen: int) -> dict:
+    """The lockstep batch of ``serve.lockstep``, keeping every step's
+    logits on the device: prefill, then ``gen - 1`` decode ticks."""
+    import torch
+
+    from repro_torch.device import synchronize
+
+    b, s = tokens.shape
+    logits, pre = compiled.prefill(tokens)
+    caches = compiled.graft_prefill_caches(compiled.init_cache(b, s + gen), pre)
+    steps = [logits]
+    tok = torch.argmax(logits, dim=-1)
+    out = [tok]
+    synchronize(compiled.device)
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, caches = compiled.decode_step(tok, s + i, caches)
+        tok = torch.argmax(logits, dim=-1)
+        out.append(tok)
+        steps.append(logits)
+    synchronize(compiled.device)
+    decode_s = time.perf_counter() - t0
+    return {"generated": torch.stack(out, dim=1).cpu().numpy(), "logits": steps,
+            "decode_tok_s": (gen - 1) * b / max(decode_s, 1e-9)}
+
+
+def _same_steps(got: dict, want: dict) -> bool:
+    import numpy as np
+    import torch
+
+    return np.array_equal(got["generated"], want["generated"]) and all(
+        torch.equal(g, w) for g, w in zip(got["logits"], want["logits"], strict=True))
+
+
+def _peak_gib(on_card: bool):
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+
+
+def _fresh_peak(on_card: bool) -> None:
+    import torch
+
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def faults_phase(device: str = "cuda", smoke: bool = False) -> dict:
+    """Fault injection and tolerance at tinyllama-1.1b full width and
+    depth (jnp attention, seeded weights), then the paper-level BNN and
+    the multi-level cells:
+
+    (a) null injection: ``packed`` wrapped in a ``FaultyEngine`` with a
+        null ``FaultModel`` gives plain packed's prefill logits, every
+        tick's logits and tokens bit for bit, on the fused kernel (110
+        ``b1`` launches per tick);
+    (b) live injection: ``FaultModel(seed=0, set=5e-4, reset=5e-4)`` on
+        ``packed`` changes the logits, equals ``tacitmap`` under the same
+        model bit for bit (both ePCM 256x256 tiles; integer sums), and
+        runs every projection through the Hamming kernel (154 launches
+        per tick, 0 fused); the executed consistency probe equals the
+        cheap one on a w1 artifact; peak device memory printed (the
+        deltas alone are 22 x 2 x 44.04M x 4 B = 7.75 GB);
+    (c) a mid-serve tile failure: ``tiled`` (tacitmap policy, 3 spare
+        tiles, null model) serving 8 requests in 8 slots; before tick 2 a
+        resident tile fails (``fail_tile``, ``refresh_faults``,
+        ``_rebind``); the health monitor detects, remaps once onto a
+        spare and restarts the in-flight requests; every generation equals
+        that request served alone on ``packed`` (tiled == packed at this
+        width, as the simulators phase shows); sweep and remap times
+        printed;
+    (d) the paper's MLP 784-500-250-10 and LeNet on 10 000 seeded 28x28
+        images: ``packed``, ``tacitmap``, ``wdm`` and ``custbinarymap``
+        bit-equal to ``reference``; the Hamming kernel's variant per
+        binary-layer shape printed;
+    (e) the multi-level sweep at the reference's defaults: exact at
+        sigma 0 but for the ADC's rounding, binary cells exact at sigma
+        <= 0.02, 4-bit cells above 5% error at sigma >= 0.05, and the
+        error rising with depth at sigma = 0.05 (the gates of the JAX
+        package's ``benchmarks/multilevel.py``).
+
+    ``device="cpu", smoke=True`` rehearses it at the smoke config's size
+    (launch counts are then not read). Returns the phase's numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler, obs
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import model as paper
+    from repro_torch.core import multilevel
+    from repro_torch.device import synchronize
+    from repro_torch.faults import FaultModel
+    from repro_torch.kernels import ops, xnor_matmul
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import Request
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    cfg = dataclasses.replace(get_smoke_config(ARCH) if smoke else get_config(ARCH), quant="bnn")
+    layers = cfg.n_layers
+    tokens = serve.prompts(cfg, BATCH, PROMPT, SEED)
+    out: dict = {}
+
+    def compiled(target):
+        params = lm.init_params(torch.Generator(device=device).manual_seed(SEED), cfg,
+                                device=device)
+        return compiler.compile(cfg, params, target, device=device)
+
+    def ham_variants() -> dict:
+        return dict(xnor_matmul.launches_by_variant)
+
+    # (a) null injection == plain packed, on the fused kernel
+    _fresh_peak(on_card)
+    plain = _lockstep_logits(compiled(compiler.HardwareTarget(engine="packed")), tokens, GEN)
+    model = compiled(compiler.HardwareTarget(engine="packed", fault_model=FaultModel()))
+    _reset_counts()
+    null = _lockstep_logits(model, tokens, GEN)
+    _check_launches(device, {**_counts(), "fused by variant": _fused_variants()},
+                    {"fused_bnn_matmul": layers * 5 * GEN, "hamming_matmul": 0,
+                     "fused by variant": {"popc": 0, "b1": layers * 5 * GEN}}, "null injection")
+    if not _same_steps(null, plain):
+        raise AssertionError("null fault model: logits or tokens differ from plain packed")
+    out["null"] = {"decode_tok_s": null["decode_tok_s"], "plain_tok_s": plain["decode_tok_s"]}
+    print(f"[faults] (a) null FaultModel on packed: prefill and {GEN - 1} ticks' logits and "
+          f"tokens == plain packed bit for bit; fused {layers * 5} launches per tick, all b1; "
+          f"{null['decode_tok_s']:.1f} tok/s (plain {plain['decode_tok_s']:.1f})", flush=True)
+    del model, null
+
+    # (b) live injection: packed == tacitmap under the same fault model
+    fm = FaultModel(**FAULT_RATES)
+    _fresh_peak(on_card)
+    model = compiled(compiler.HardwareTarget(engine="packed", fault_model=fm))
+    program_ms = model.program_s * 1e3
+    _reset_counts()
+    faulty = _lockstep_logits(model, tokens, GEN)
+    launched = {**_counts(), "hamming by variant": ham_variants()}
+    _check_launches(device, launched,
+                    {"fused_bnn_matmul": 0, "hamming_matmul": layers * 7 * GEN,
+                     "hamming by variant": {"popc": 0, "b1": layers * 7 * GEN}},
+                    "faulty packed lockstep")
+    if torch.equal(faulty["logits"][0], plain["logits"][0]):
+        raise AssertionError("stuck cells left the prefill logits unchanged")
+    w1 = model.params.blocks[0].ffn.w1.prepared
+    cheap = model.engine.consistency_probe(w1)
+    executed = model.engine.consistency_probe(w1, execute=True)
+    if not np.array_equal(cheap, executed) or cheap.max() == 0:
+        raise AssertionError(f"w1 probe: cheap max {cheap.max()} vs executed {executed.max()}")
+    delta_gb = sum(p.delta.numel() * 4 for _, p in lm.programmed_projections(model.params)) / 1e9
+    packed_peak = _peak_gib(on_card)
+    del model
+    _fresh_peak(on_card)
+    model = compiled(compiler.HardwareTarget(engine="tacitmap", fault_model=fm))
+    tacit = _lockstep_logits(model, tokens, GEN)
+    tacit_peak = _peak_gib(on_card)
+    del model
+    if not _same_steps(faulty, tacit):
+        raise AssertionError("faulty packed != faulty tacitmap (logits or tokens)")
+    flipped = int((faulty["generated"] != plain["generated"]).sum())
+    out["live"] = {"decode_tok_s": faulty["decode_tok_s"], "tacitmap_tok_s": tacit["decode_tok_s"],
+                   "program_ms": program_ms, "delta_gb": delta_gb,
+                   "peak_gib": packed_peak, "tacitmap_peak_gib": tacit_peak,
+                   "hamming_by_variant": launched["hamming by variant"],
+                   "tokens_changed": flipped, "probe_max": float(cheap.max())}
+    mem = (f"peak {packed_peak:.2f} GiB (tacitmap {tacit_peak:.2f})" if on_card
+           else "peak memory not measured (CPU)")
+    print(f"[faults] (b) {fm.describe().removeprefix('[faults] ')} on packed: prefill logits changed, {flipped} of "
+          f"{faulty['generated'].size} tokens differ from fault-free; == tacitmap under the same "
+          f"model, every step's logits and tokens bit for bit; Hamming {layers * 7} launches per "
+          f"tick by variant {launched['hamming by variant']}, fused 0; w1 probe executed == cheap "
+          f"(max {cheap.max():.0f}); deltas {delta_gb:.2f} GB, programmed in {program_ms:.1f} ms, "
+          f"{mem}; decode {faulty['decode_tok_s']:.1f} tok/s (plain packed "
+          f"{plain['decode_tok_s']:.1f}, faulty tacitmap {tacit['decode_tok_s']:.1f})", flush=True)
+    del faulty, tacit, plain
+    _release({})
+
+    # (c) a tile fails mid-serve; the health monitor remaps it away
+    rng = np.random.default_rng(REQUEST_SEED)
+    trace = serve.prompts(cfg, FAULT_REQUESTS, PROMPT, SEED)
+    reqs = [Request(rid=i, prompt=trace[i, : int(rng.integers(PROMPT // 2, PROMPT + 1))]
+                    .astype(np.int32), max_new_tokens=FAULT_GEN) for i in range(FAULT_REQUESTS)]
+    max_len = PROMPT + FAULT_GEN
+    _fresh_peak(on_card)
+    model = compiled(compiler.HardwareTarget(engine="tiled", mapping_policy="tacitmap",
+                                             spare_tiles=SPARES, fault_model=FaultModel()))
+    victim = min(t for pw in model._fault_artifacts()
+                 for *_, t in model.engine._placement_blocks(pw.m, pw.n))
+    with obs.session() as tel:
+        se = model.serve(max_batch=BATCH, max_len=max_len)
+        states = [se.submit(r) for r in reqs]
+        t0 = time.perf_counter()
+        ticks = 0
+        while not se.idle():
+            if ticks == FAIL_TICK:
+                model.engine.fail_tile(victim)
+                model.refresh_faults()
+                se._rebind()
+            se.step()
+            ticks += 1
+        synchronize(model.device)
+        wall_s = time.perf_counter() - t0
+    h = se.health
+    restarted = se.stats().scheduler.restarted
+    if h.remaps != 1 or h.degraded or victim not in h.quarantined or restarted < 1:
+        raise AssertionError(f"health: remaps={h.remaps} degraded={h.degraded} quarantined="
+                             f"{sorted(h.quarantined)} (victim {victim}) restarted={restarted}")
+    remap_ms = [s.duration_s * 1e3 for s in tel.tracer.spans("remap")]
+    events = [(r.name, r.attrs) for r in tel.tracer.records if r.name.startswith("fault.")]
+    sweep_ms = []
+    for _ in range(SWEEPS):
+        synchronize(model.device)
+        t0 = time.perf_counter()
+        clean = model.scan_faults()
+        sweep_ms.append((time.perf_counter() - t0) * 1e3)
+    if clean.tiles:
+        raise AssertionError(f"the sweep after the remap still flags tiles {sorted(clean.tiles)}")
+    tiled_peak = _peak_gib(on_card)
+    del model, se
+    _release({})
+    alone_model = compiled(compiler.HardwareTarget(engine="packed"))
+    for r, st in zip(reqs, states):
+        one = alone_model.serve(max_batch=1, max_len=max_len)
+        alone = one.submit(r)
+        one.drain()
+        if len(st.generated) != FAULT_GEN or tuple(alone.generated) != tuple(st.generated):
+            raise AssertionError(f"request {r.rid} through the tile failure != alone on packed")
+    del alone_model
+    toks = sum(len(st.generated) for st in states)
+    out["tolerance"] = {"victim": victim, "ticks": ticks, "restarted": restarted,
+                        "remap_ms": remap_ms, "sweep_ms": statistics.median(sweep_ms),
+                        "events": events,
+                        "wall_s": wall_s, "tok_s": toks / wall_s, "peak_gib": tiled_peak}
+    mem = f"peak {tiled_peak:.2f} GiB" if on_card else "peak memory not measured (CPU)"
+    print(f"[faults] (c) tiled (tacitmap plan, {SPARES} spares): tile {victim} failed before tick "
+          f"{FAIL_TICK}; remaps={h.remaps}, quarantined={sorted(h.quarantined)}, degraded="
+          f"{h.degraded}, restarted={restarted}; {FAULT_REQUESTS} requests in {BATCH} slots "
+          f"== each alone on packed, {ticks} ticks in {wall_s * 1e3:.1f} ms ({toks / wall_s:.1f} "
+          f"tok/s); remap span {', '.join(f'{x:.1f}' for x in remap_ms)} ms; scan_faults "
+          f"{statistics.median(sweep_ms):.2f} ms per sweep (median of {SWEEPS}); {mem}; "
+          f"events {events}", flush=True)
+
+    # (d) the paper's MLP and LeNet on every engine == reference
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    n_img = 64 if smoke else N_IMAGES
+    mlp_cfg, conv_cfg = paper.MLPConfig(), paper.ConvConfig()
+    mlp = paper.init_mlp(gen, mlp_cfg, device=device)
+    conv = paper.init_conv(gen, conv_cfg, device=device)
+    x_mlp = torch.randn((n_img, mlp_cfg.dims[0]), generator=gen, device=device)
+    x_img = torch.randn((n_img, conv_cfg.in_hw, conv_cfg.in_hw, conv_cfg.in_ch), generator=gen,
+                        device=device)
+    runs = {
+        "mlp": lambda e: paper.mlp_forward_infer(mlp, x_mlp, mlp_cfg, e),
+        "lenet": lambda e: paper.conv_forward(conv, x_img, conv_cfg, train=False, engine=e),
+    }
+    paper_out = {}
+    for net, run in runs.items():
+        want = run("reference")
+        if want.shape != (n_img, 10) or not torch.isfinite(want).all():
+            raise AssertionError(f"{net}: logits of shape {tuple(want.shape)} not finite")
+        times, variants = {}, {}
+        for engine in PAPER_ENGINES:
+            _reset_counts()
+            synchronize(torch.device(device))
+            t0 = time.perf_counter()
+            got = run(engine)
+            synchronize(torch.device(device))
+            times[engine] = (time.perf_counter() - t0) * 1e3
+            if not torch.equal(got, want):
+                raise AssertionError(f"{net} on {engine} != the reference engine")
+            if engine == "packed":
+                variants = ham_variants()
+        paper_out[net] = {"ms": times, "hamming_by_variant": variants}
+        print(f"[faults] (d) {net} on {n_img} images: {', '.join(PAPER_ENGINES)} == reference bit "
+              f"for bit; packed's Hamming launches by variant {variants}; ms "
+              f"{ {k: round(v, 2) for k, v in times.items()} }", flush=True)
+    # each binary-layer shape of the two nets, alone: its Hamming variant
+    shapes = {}
+    for m, n, rows in ((500, 250, n_img), (150, 16, n_img * 64), (256, 120, n_img),
+                       (120, 84, n_img)):
+        a = torch.ones((rows, m), device=device)
+        w = torch.ones((m, n), device=device)
+        _reset_counts()
+        ops.xnor_matmul(a, w)
+        shapes[f"{rows}x{m}x{n}"] = {k: v for k, v in ham_variants().items() if v}
+    paper_out["variant_by_shape"] = shapes
+    out["paper"] = paper_out
+    print(f"[faults] (d) Hamming variant per binary layer (rows x m x n): {shapes}", flush=True)
+    del mlp, conv, x_mlp, x_img
+
+    # (e) multi-level cells: the reference's sweep and gates, on this device
+    points = multilevel.sweep(device=device)
+    by = {(p.bits, p.sigma): p.error_rate for p in points}
+    ok = {
+        "binary exact at sigma <= 0.02": all(e == 0.0 for (b, s), e in by.items()
+                                             if b == 1 and s <= 0.02),
+        "4-bit above 5% at sigma >= 0.05": all(e > 0.05 for (b, s), e in by.items()
+                                               if b == 4 and s >= 0.05),
+        "error rises with depth at sigma = 0.05": by[(1, 0.05)] <= by[(2, 0.05)] <= by[(4, 0.05)],
+    }
+    g = torch.Generator(device=device).manual_seed(SEED)
+    for bits in (1, 2, 4):
+        levels = 2**bits - 1
+        a = torch.randint(0, levels + 1, (64, 64), generator=g, device=device)
+        w = torch.randint(0, levels + 1, (64, 32), generator=g, device=device)
+        exact = multilevel.multilevel_vmm_exact(a, w)
+        # the ADC's step, divided by as a 0-dim tensor as noisy_vmm does
+        lsb = torch.tensor(max(64 * levels * levels / multilevel.OPCM_TILE.adc_levels, 1.0),
+                           device=device)
+        noiseless = multilevel.noisy_vmm(a, w, bits, 0.0, g)
+        ok[f"{bits}-bit at sigma 0 == the ADC's rounding of the exact MAC"] = torch.equal(
+            noiseless, torch.round(exact / lsb) * lsb)
+    if not all(ok.values()):
+        raise AssertionError(f"multi-level gates: {ok}")
+    out["multilevel"] = {f"{b}b@{s}": e for (b, s), e in by.items()}
+    print(f"[faults] (e) multi-level sweep: {out['multilevel']}; gates {list(ok)} hold",
+          flush=True)
+
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"faults": out}), flush=True)
+    print(f"[faults] phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def kernel_summary(checked: dict, launches: dict) -> list[dict]:
     """One entry per kernel: the sums over one tinyllama-1.1b layer's
     launches in a decode tick of 8 slots."""
@@ -1868,9 +2218,9 @@ ONLY = {  # an argument that stops after some kernels' checks and times (no resu
 }
 
 
-TELEMETRY_ONLY = "--telemetry-only"  # the telemetry phase alone (no result line)
-SIMULATORS_ONLY = "--simulators-only"  # the simulators phase alone (no result line)
-ALONE = {TELEMETRY_ONLY: "telemetry", SIMULATORS_ONLY: "simulators"}
+# a phase alone, after the build (no result line)
+ALONE = {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
+         "--faults-only": "faults"}
 
 
 def main(argv: list[str]) -> int:
@@ -1885,8 +2235,10 @@ def main(argv: list[str]) -> int:
     phase("build")
     build_kernels()
     if argv and argv[0] in ALONE:
-        phase(ALONE[argv[0]])
-        (telemetry_phase if argv[0] == TELEMETRY_ONLY else simulators_phase)()
+        name = ALONE[argv[0]]
+        phase(name)
+        {"telemetry": telemetry_phase, "simulators": simulators_phase,
+         "faults": faults_phase}[name]()
         print(card, flush=True)
         return 0
     phase("kernels")
@@ -1918,6 +2270,8 @@ def main(argv: list[str]) -> int:
     simulators_phase()
     phase("telemetry")
     telemetry_phase()
+    phase("faults")
+    faults_phase()
     summary = kernel_summary(checked, launches) + launch_summary(flash, mma, launches)
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

@@ -9,7 +9,13 @@ from repro_torch.compiler.cli import (
     scheduler_from_args,
     target_from_args,
 )
-from repro_torch.compiler.pipeline import CompiledModel, TargetPrice, compile, resolve_engine
+from repro_torch.compiler.pipeline import (
+    CompiledModel,
+    RemapReport,
+    TargetPrice,
+    compile,
+    resolve_engine,
+)
 from repro_torch.compiler.target import (
     GroupSizeError,
     HardwareTarget,
@@ -23,6 +29,7 @@ __all__ = [
     "GroupSizeError",
     "HardwareTarget",
     "PlanEngineMismatchError",
+    "RemapReport",
     "SpecMismatchError",
     "TargetError",
     "TargetPrice",

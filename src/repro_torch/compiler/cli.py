@@ -71,6 +71,22 @@ def add_target_args(
         help="skip the one-time programming phase and re-run the weight-side "
         "transforms every call (baseline)",
     )
+    ap.add_argument(
+        "--fault-rate",
+        type=float,
+        default=None,
+        metavar="P",
+        help="inject deterministic stuck-cell faults: per-cell probability P "
+        "split evenly between stuck-SET and stuck-RESET (wraps the backend "
+        "in repro_torch.faults.FaultyEngine; requires a non-reference --engine)",
+    )
+    ap.add_argument(
+        "--fault-seed",
+        type=int,
+        default=0,
+        metavar="SEED",
+        help="root seed of the per-tile fault RNG streams (only with --fault-rate)",
+    )
     return ap
 
 
@@ -200,6 +216,15 @@ def obs_from_args(args: argparse.Namespace):
 
 def target_from_args(args: argparse.Namespace) -> HardwareTarget:
     """Build (and statically validate) a HardwareTarget from parsed flags."""
+    fault_model = None
+    if args.fault_rate is not None:
+        from repro_torch.faults import FaultModel
+
+        fault_model = FaultModel(
+            seed=args.fault_seed,
+            stuck_set_rate=args.fault_rate / 2.0,
+            stuck_reset_rate=args.fault_rate / 2.0,
+        )
     return HardwareTarget(
         engine=args.engine,
         group_size=args.group_size or None,
@@ -207,4 +232,5 @@ def target_from_args(args: argparse.Namespace) -> HardwareTarget:
         tile_budget=args.tile_budget,
         prepare_weights=not args.raw_weights,
         spare_tiles=args.spare_tiles,
+        fault_model=fault_model,
     ).validate()

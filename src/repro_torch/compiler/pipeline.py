@@ -26,7 +26,10 @@ continuous-batching ``ServingEngine``, ``price()`` for the cost model's
 plan + programming + per-tick readout report and ``describe()`` for
 the placement and pricing tables. ``price()`` and ``describe()`` are the
 cost model's figures for an ePCM/oPCM crossbar, not times of the device
-the model runs on.
+the model runs on. A target with a ``fault_model`` wraps the backend in
+a :class:`~repro_torch.faults.FaultyEngine`; the compiled model then
+sweeps (``scan_faults``), reprograms (``refresh_faults``) and re-places
+(``remap``) its artifacts.
 """
 
 from __future__ import annotations
@@ -66,7 +69,8 @@ def resolve_engine(target: HardwareTarget, cfg=None, plan=None):
 
     The ``tiled`` engine binds ``plan`` when given one, else places ad
     hoc under ``target.mapping_policy`` (falling back to the plan's, then
-    the config's policy)."""
+    the config's policy). A ``target.fault_model`` wraps the backend in a
+    :class:`~repro_torch.faults.FaultyEngine`."""
     if target.engine in ("", "reference"):
         return None
     kw: dict[str, Any] = {}
@@ -83,7 +87,12 @@ def resolve_engine(target: HardwareTarget, cfg=None, plan=None):
         kw = {"plan": plan, "policy": policy or "tacitmap"}
         if target.mesh_axis is not None:
             kw["mesh_axis"] = target.mesh_axis
-    return engine_lib.get_engine(target.engine, target.spec, **kw)
+    base = engine_lib.get_engine(target.engine, target.spec, **kw)
+    if target.fault_model is not None:
+        from repro_torch.faults.engine import FaultyEngine
+
+        base = FaultyEngine(base, target.fault_model)
+    return base
 
 
 def compile(cfg, params, target: HardwareTarget, *, plan=None, device=None) -> "CompiledModel":
@@ -217,6 +226,20 @@ def _resolve_stage(cfg, target: HardwareTarget, plan):
 
 
 @dataclasses.dataclass(frozen=True)
+class RemapReport:
+    """``CompiledModel.remap()``: what moved and what reprogramming cost.
+
+    ``cost`` is a ``costmodel.ProgrammingCost`` covering only the moved
+    blocks — incremental remapping's point is that untouched tiles keep
+    their cells."""
+
+    moves: tuple          # mapping.BlockMove per relocated block
+    cost: Any             # costmodel.ProgrammingCost of the reprogram
+    failed_tiles: frozenset[int]
+    spares_left: int
+
+
+@dataclasses.dataclass(frozen=True)
 class TargetPrice:
     """``CompiledModel.price()``: the cost model's three seams in one
     report — plan execution, one-time programming, per-tick readout.
@@ -287,10 +310,17 @@ class CompiledModel:
     def group_size_for(self, batch: int) -> int:
         """The K the BatchPlanner/executor uses for a ``batch``-slot pool
         (explicit target K > plan WDM capacity > engine capability > one
-        group spanning the pool; clamped to the pool)."""
-        return engine_lib.resolve_group_size(
+        group spanning the pool; clamped to the pool and, under fault
+        injection, to the surviving WDM lanes)."""
+        k = engine_lib.resolve_group_size(
             self.engine, self.target.group_size, batch, plan=self.plan
         )
+        cap_fn = getattr(self.engine, "effective_group_cap", None)
+        if callable(cap_fn):
+            cap = cap_fn()
+            if cap is not None:
+                k = max(1, min(k, cap))
+        return k
 
     def executor(self, batch: int):
         """The K-grouped execution adapter for a ``batch``-slot pool
@@ -360,6 +390,104 @@ class CompiledModel:
         from repro_torch.serving.engine import ServingEngine  # serving imports compiler
 
         return ServingEngine(self, max_batch=max_batch, max_len=max_len, scheduler=scheduler)
+
+    # -- fault tolerance ----------------------------------------------------
+
+    def _fault_engine(self):
+        from repro_torch.faults.engine import FaultyEngine
+
+        return self.engine if isinstance(self.engine, FaultyEngine) else None
+
+    def _fault_artifacts(self) -> list:
+        """Every resident PreparedWeights in the programmed model. The
+        port programs each block's projections apart, where the reference
+        stacks each projection over its repeats into one artifact: here
+        there are ``7 * n_layers`` (plus one [q|k|v] per layer on a fused
+        engine) against the reference's 7 (plus 1). Sweeps union tiles
+        over them, so their results are the reference's."""
+        if self.params is None:
+            return []
+        return [p.prepared for _, p in lm_lib.programmed_projections(self.params)]
+
+    def _refresh_artifacts(self):
+        """Re-derive every resident artifact under the wrapper's current
+        fault state / inner engine (the reprogramming step)."""
+        return lm_lib.map_prepared(self.params, self.engine.refresh)
+
+    def scan_faults(self):
+        """One consistency sweep over all resident artifacts: the
+        :class:`repro_torch.faults.FaultMap` of physical tiles holding
+        corrupted cells plus the dead WDM lanes. Empty (falsy) on a
+        non-fault-injecting target."""
+        from repro_torch.faults import FaultMap
+
+        eng = self._fault_engine()
+        if eng is None:
+            return FaultMap()
+        tiles = eng.locate(self._fault_artifacts())
+        if tiles:
+            obs.count(
+                "repro_faults_detected_total", len(tiles),
+                "faulty physical tiles flagged by consistency sweeps",
+            )
+        return FaultMap(tiles=tiles, lanes=eng.dead_lanes())
+
+    def refresh_faults(self) -> None:
+        """Reprogram all artifacts after the fault state changed
+        (``engine.fail_tile`` / ``engine.advance_drift``) so execution
+        observes the new state."""
+        if self._fault_engine() is None:
+            raise TargetError(
+                "refresh_faults() needs a fault-injecting target "
+                "(HardwareTarget(fault_model=...))"
+            )
+        if self.params is not None:
+            self.params = self._refresh_artifacts()
+        self._executors.clear()
+
+    def remap(self, fault_map) -> RemapReport:
+        """Move only the blocks resident on the fault map's tiles onto
+        clean spares, rebind the (re-placed) inner engine under the same
+        fault state, and reprogram the refreshed artifacts.
+
+        Raises :class:`repro_torch.mapping.SpareTilesExhaustedError` when
+        the clean-spare pool can't cover the displaced blocks, and
+        :class:`TargetError` when the target has no fault wrapper or no
+        plan to re-place."""
+        from repro_torch.mapping import remap_plan
+
+        eng = self._fault_engine()
+        if eng is None:
+            raise TargetError(
+                "remap() needs a fault-injecting target "
+                "(HardwareTarget(fault_model=...))"
+            )
+        if self.plan is None:
+            raise TargetError(
+                "remap() re-places an explicit MappingPlan — compile with "
+                "the 'tiled' engine and spare_tiles/mapping_policy set"
+            )
+        tiles = frozenset(getattr(fault_map, "tiles", fault_map))
+        with obs.span("remap", track="compile", tiles=sorted(tiles)) as sp:
+            new_plan, delta = remap_plan(self.plan, tiles, tile_ok=eng.tile_is_clean)
+            inner = resolve_engine(
+                dataclasses.replace(self.target, fault_model=None), self.cfg, new_plan
+            )
+            self.plan = new_plan
+            self._price_plan = new_plan
+            self.engine = eng.rebind(inner)
+            if self.params is not None:
+                self.params = self._refresh_artifacts()
+            # cached executors wrap the old engine — drop them
+            self._executors.clear()
+            sp.set(moves=len(delta.moves), spares_left=len(new_plan.spares))
+        obs.count("repro_remaps_total", 1, "fault-driven incremental remaps")
+        return RemapReport(
+            moves=delta.moves,
+            cost=delta.cost,
+            failed_tiles=tiles,
+            spares_left=len(new_plan.spares),
+        )
 
     # -- pricing / reporting ------------------------------------------------
 

@@ -5,9 +5,9 @@ pipeline in one frozen, eagerly validated artifact (counterpart of
 Validation is EAGER and errors are NAMED: an inconsistent target (a
 mapping policy on a non-tiled engine, a plan compiled for different
 tiles than the target binds, a K-group wider than the placed tiles' WDM
-capacity) fails at compile time with a :class:`TargetError` subclass,
-not as a silently dropped knob deep in serving. The reference's
-``fault_model`` field arrives with the faults slice.
+capacity, a fault model on the plain reference path) fails at compile
+time with a :class:`TargetError` subclass, not as a silently dropped
+knob deep in serving.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core.crossbar import CrossbarSpec
+from repro_torch.faults.model import FaultModel, FaultModelError
 
 
 class TargetError(ValueError):
@@ -63,6 +64,11 @@ class HardwareTarget:
     * ``spare_tiles`` — provision that many extra physical tiles in the
       compiled plan as fault-remap destinations. Implies a plan, so only
       meaningful with the ``tiled`` engine.
+    * ``fault_model`` — a :class:`repro_torch.faults.FaultModel`: wrap
+      the resolved backend in a :class:`repro_torch.faults.FaultyEngine`
+      that deterministically injects the model's stuck cells, drift,
+      dead lanes and tile failures. A null model is bit-identical to the
+      unwrapped engine.
     """
 
     engine: str = "reference"
@@ -74,6 +80,7 @@ class HardwareTarget:
     mesh_axis: str | None = None
     fused: bool = True
     spare_tiles: int = 0
+    fault_model: FaultModel | None = None
 
     def __post_init__(self):
         # normalize the CLI's "0 = auto" convention to None
@@ -129,6 +136,18 @@ class HardwareTarget:
             )
         if self.spare_tiles < 0:
             raise TargetError(f"spare_tiles must be >= 0, got {self.spare_tiles}")
+        if self.fault_model is not None:
+            try:
+                self.fault_model.validate()
+            except FaultModelError as e:
+                raise TargetError(f"invalid fault_model: {e}") from e
+            if self.engine == "reference":
+                raise TargetError(
+                    "fault_model requires a crossbar backend to wrap, but "
+                    "engine='reference' executes the plain ±1 matmul with no "
+                    "engine object — pick tacitmap/wdm/packed/tiled/"
+                    "custbinarymap to inject faults"
+                )
         if self.mesh_axis is not None and self.engine != "tiled":
             raise TargetError(
                 f"mesh_axis={self.mesh_axis!r} names the mesh axis the "
@@ -159,4 +178,6 @@ class HardwareTarget:
             parts.append(f"mesh_axis={self.mesh_axis}")
         if self.spare_tiles:
             parts.append(f"spares={self.spare_tiles}")
+        if self.fault_model is not None:
+            parts.append("faults=" + self.fault_model.describe().removeprefix("[faults] "))
         return "[target] " + " ".join(parts)

@@ -1,11 +1,15 @@
-"""Convert the reference package's parameter tree into the port's ``LM``.
+"""Convert the reference package's parameter trees into the port's.
 
-The input is the JAX parameter pytree with numpy leaves (for example
-``jax.tree.map(np.asarray, repro.models.lm.init_params(key, cfg))``):
-a nested dict whose block parameters are stacked over repeats, ``(R, m,
-n)`` per projection and ``(R, d)`` per norm. Both packages then compute
-on the same weights, which is how the parity tests hold the port
-against the reference.
+:func:`params_from_jax` takes the LM parameter pytree with numpy leaves
+(for example ``jax.tree.map(np.asarray,
+repro.models.lm.init_params(key, cfg))``): a nested dict whose block
+parameters are stacked over repeats, ``(R, m, n)`` per projection and
+``(R, d)`` per norm, and builds an ``LM``. :func:`params_dict` carries a
+flat parameter dict, such as the paper MLP's or LeNet's
+(``repro.core.model.init_mlp`` / ``init_conv``), into fp32 tensors for
+``repro_torch.core.model``. Both packages then compute on the same
+weights, which is how the parity tests hold the port against the
+reference.
 """
 
 from __future__ import annotations
@@ -52,3 +56,12 @@ def params_from_jax(tree: dict, *, device=None) -> LM:
             ))
     head = t(tree["head"]) if "head" in tree else None
     return LM(t(tree["embed"]), t(tree["final_norm"]), head, blocks)
+
+
+def params_dict(tree: dict, *, device=None) -> dict[str, torch.Tensor]:
+    """A flat dict of numpy leaves (the paper MLP/LeNet parameters) ->
+    the same keys as fp32 tensors on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return {
+        k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev) for k, v in tree.items()
+    }

@@ -36,8 +36,10 @@ class BitLinear(nn.Module):
     or -- once programmed by ``lm.program_weights`` -- the engine's
     resident ``words`` (the :class:`PreparedWeights` data) plus ``alpha``
     (the per-tensor ``mean|w|``, or one value per column for the fused
-    [q|k|v] artifact). ``b`` is the optional bias. All are buffers: the
-    serving slice computes no gradients.
+    [q|k|v] artifact). A fault-injecting engine's artifact carries
+    ``(data, delta)``: the inner engine's data goes to ``words`` and the
+    fault delta (or ``None``) to ``delta``. ``b`` is the optional bias.
+    All are buffers: the serving slice computes no gradients.
     """
 
     def __init__(
@@ -53,7 +55,11 @@ class BitLinear(nn.Module):
             raise ValueError("a BitLinear holds either latent w or prepared weights")
         self.register_buffer("w", w)
         self.register_buffer("b", b)
-        self.register_buffer("words", None if prepared is None else prepared.data)
+        data = None if prepared is None else prepared.data
+        self._with_delta = isinstance(data, tuple)
+        words, delta = data if self._with_delta else (data, None)
+        self.register_buffer("words", words)
+        self.register_buffer("delta", delta)
         self.register_buffer("alpha", alpha)
         self._meta = None if prepared is None else (prepared.engine, prepared.m, prepared.n, prepared.aux)
 
@@ -63,7 +69,8 @@ class BitLinear(nn.Module):
         if self._meta is None:
             return None
         engine, m, n, aux = self._meta
-        return PreparedWeights(engine=engine, m=m, n=n, data=self.words, aux=aux)
+        data = (self.words, self.delta) if self._with_delta else self.words
+        return PreparedWeights(engine=engine, m=m, n=n, data=data, aux=aux)
 
     def extra_repr(self) -> str:
         if self.w is not None:

@@ -164,6 +164,39 @@ def program_weights(model: LM, cfg: ModelConfig, engine) -> tuple[LM, int]:
     return LM(model.embed, model.final_norm, model.head, blocks), n
 
 
+def programmed_projections(model: LM):
+    """``(name, BitLinear)`` for every programmed projection, block by
+    block: attn q/k/v/o, the fused [q|k|v] when present, FFN w1/w3/w2
+    (``name`` is ``"<layer>.<part>.<proj>"``)."""
+    for layer, blk in enumerate(model.blocks):
+        for part, names in (("attn", (*BINARIZED_PROJECTIONS["attn"], "qkv")),
+                            ("ffn", BINARIZED_PROJECTIONS["ffn"])):
+            for name in names:
+                p = getattr(getattr(blk, part), name)
+                if p is not None and p.prepared is not None:
+                    yield f"{layer}.{part}.{name}", p
+
+
+def map_prepared(model: LM, fn) -> LM:
+    """A new ``LM`` whose programmed projections hold ``fn(artifact)``
+    in place of their artifact (biases and alphas kept; the input model
+    is not mutated). The fault-refresh step of ``CompiledModel``."""
+
+    def one(p: BitLinear | None) -> BitLinear | None:
+        if p is None or p.prepared is None:
+            return p
+        return BitLinear(b=p.b, prepared=fn(p.prepared), alpha=p.alpha)
+
+    blocks = []
+    for blk in model.blocks:
+        a, f = blk.attn, blk.ffn
+        attn = Attention(*(one(getattr(a, n)) for n in BINARIZED_PROJECTIONS["attn"]),
+                         qkv=one(a.qkv))
+        ffn_ = FFN(*(one(getattr(f, n)) for n in BINARIZED_PROJECTIONS["ffn"]))
+        blocks.append(Block(blk.norm1, attn, blk.norm2, ffn_))
+    return LM(model.embed, model.final_norm, model.head, blocks)
+
+
 # ---------------------------------------------------------------------------
 # Prefill / decode (serving)
 # ---------------------------------------------------------------------------

@@ -1,4 +1,6 @@
-"""Continuous-batching serving: the slot-pool engine and its scheduler."""
+"""Continuous-batching serving: the slot-pool engine and its scheduler.
+Fault-injecting targets get a
+:class:`~repro_torch.faults.monitor.HealthMonitor` automatically."""
 
 from repro_torch.serving.engine import BatchPlanner, GroupPlan, ServingEngine, ServingStats
 from repro_torch.serving.scheduler import (

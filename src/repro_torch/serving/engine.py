@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.faults import FaultyEngine, HealthMonitor
 from repro_torch.serving.scheduler import (
     Request,
     RequestScheduler,
@@ -152,18 +153,28 @@ class ServingEngine:
         )
         # fleet hooks: `prefill_observer(state, prompt_rows)` is called
         # after every prefill with the prompt's batch-squeezed cache rows
-        # (the router's prefix-library feed); `on_degrade(reason)` is for
-        # whatever degrades this engine (the health monitor arrives with
-        # the faults slice, so `health` is None and nothing degrades it
-        # but a direct `scheduler.degrade`)
+        # (the router's prefix-library feed); `on_degrade(reason)` fires
+        # when the health monitor degrades this engine
         self.prefill_observer = None
         self.on_degrade = None
-        self.health = None
         self.caches = compiled.init_cache(max_batch, max_len)
         self.pos = np.zeros((max_batch,), np.int64)        # next write position
         self.tok = np.zeros((max_batch,), np.int64)        # last emitted token
         self._free = set(range(max_batch))
         self.scheduler = RequestScheduler(self, scheduler)
+        # fault tolerance: a fault-injecting backend gets a health
+        # monitor (sampled consistency sweeps, quarantine + remap, K
+        # shrink on dead lanes, graceful degradation)
+        self.health = HealthMonitor(self) if isinstance(compiled.engine, FaultyEngine) else None
+
+    def _rebind(self) -> None:
+        """Resynchronize with the compiled model after it changed under
+        us (a fault remap re-placed the plan, dead lanes shrank K): a new
+        K, planner and executor. The prefill and decode entry points read
+        the compiled model's refreshed params on every call."""
+        self.group_k = self.compiled.group_size_for(self.max_batch)
+        self.planner = BatchPlanner(self.group_k)
+        self._exec = self.compiled.executor(self.max_batch)
 
     # -- client API (delegates to the request scheduler) ---------------------
 
@@ -182,6 +193,10 @@ class ServingEngine:
     def stream(self, request: Request):
         """Submit and iterate the request's tokens as they decode."""
         return self.scheduler.stream(request)
+
+    def idle(self) -> bool:
+        """True when nothing is queued or running."""
+        return self.scheduler.idle()
 
     def stats(self) -> ServingStats:
         backend = self._exec.cache_stats() if self._exec is not None else {}
@@ -318,12 +333,16 @@ class ServingEngine:
         (engine, K, active/group/pad lanes, cache hit/miss deltas) plus
         the tick-latency histogram and lane counters; with telemetry off
         the tick pays one ``None`` check and no extra synchronization.
+        A health monitor (fault-injecting targets) runs after the tick
+        on both paths.
         """
         plan = self.planner.plan(list(running))
         if plan is None:
             return
         if not obs.enabled():
             self._run_tick(plan, running)
+            if self.health is not None:
+                self.health.after_tick()
             return
         before = self._cache_totals()
         with obs.span(
@@ -363,6 +382,8 @@ class ServingEngine:
                 "idle wavelengths from ragged tails",
                 engine=self.engine_name,
             )
+        if self.health is not None:
+            self.health.after_tick()
 
     def _cache_totals(self) -> tuple[int, int]:
         """(hits, misses) summed over the backend's caches — the span's

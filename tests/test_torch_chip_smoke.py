@@ -295,3 +295,41 @@ def test_simulators_only_runs_the_device_phase_first(capsys):
         cs.main(["--simulators-only"])
     assert e.value.code != 0
     assert "usage" not in capsys.readouterr().err
+
+
+def test_faults_phase_rehearses_on_cpu(capsys):
+    """The faults phase at smoke size: null injection == plain packed,
+    faulty packed == faulty tacitmap with the logits changed, the probe
+    executed == cheap, one remap with every request == alone, the paper
+    MLP/LeNet on four engines == reference, the multi-level gates, and
+    the JSON line."""
+    import json
+
+    res = _chip_smoke().faults_phase(device="cpu", smoke=True)
+    out = capsys.readouterr().out
+    assert "(a) null FaultModel on packed: prefill and 31 ticks' logits and tokens == plain" in out
+    assert "== tacitmap under the same model, every step's logits and tokens bit for bit" in out
+    assert "w1 probe executed == cheap" in out
+    assert "remaps=1, quarantined=[0], degraded=False" in out
+    assert "8 requests in 8 slots == each alone on packed" in out
+    assert out.count("packed, tacitmap, wdm, custbinarymap == reference bit for bit") == 2
+    assert "(e) multi-level sweep" in out and "hold" in out
+    assert res["live"]["tokens_changed"] > 0 and res["tolerance"]["restarted"] >= 1
+    assert res["live"]["peak_gib"] is None  # a CPU run measures no device memory
+    line = next(ln for ln in out.splitlines() if ln.startswith('{"faults"'))
+    assert json.loads(line) == {"faults": json.loads(json.dumps(res))}
+
+
+def test_faults_only_runs_the_device_phase_first(capsys):
+    """``--faults-only`` is a known argument: without a card it gets as
+    far as the device check (a SystemExit), not the usage error."""
+    cs = _chip_smoke()
+    assert cs.ALONE == {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
+                        "--faults-only": "faults"}
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        cs.main(["--faults-only"])
+    assert e.value.code != 0
+    assert "usage" not in capsys.readouterr().err
+    assert cs.main(["--faults-only", "--telemetry-only"]) == 2

@@ -63,7 +63,8 @@ def test_importing_the_serve_driver_loads_no_jax():
         "repro_torch.kernels.ops, repro_torch.kernels.ref, repro_torch.kernels.flash_attention, "
         "repro_torch.obs, repro_torch.obs.trace, repro_torch.obs.metrics, "
         "repro_torch.obs.crosscheck, repro_torch.mapping, repro_torch.core.costmodel, "
-        "repro_torch.core.einsteinbarrier; "
+        "repro_torch.core.einsteinbarrier, repro_torch.faults, repro_torch.core.model, "
+        "repro_torch.core.multilevel; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -259,3 +260,32 @@ def test_fused_and_hamming_wrappers_raise_for_a_cuda_tensor_at_either_variant_sh
                 call()
     assert before == (fused_decode.launches, dict(fused_decode.launches_by_variant),
                       xnor_matmul.launches, dict(xnor_matmul.launches_by_variant))
+
+
+def test_faults_and_paper_entry_points_default_to_cuda():
+    """The faults slice's entry points: the paper BNN's initializers and
+    parameter conversion, the multi-level sweep, and a fault-injecting
+    target, all on ``cuda`` unless asked for the CPU."""
+    _needs_no_cuda()
+    from repro_torch.convert import params_dict
+    from repro_torch.core import model, multilevel
+    from repro_torch.faults import FaultModel
+
+    gen = torch.Generator()
+    with pytest.raises(CudaUnavailableError):
+        model.init_mlp(gen, model.MLPConfig())
+    with pytest.raises(CudaUnavailableError):
+        model.init_conv(gen, model.ConvConfig())
+    with pytest.raises(CudaUnavailableError):
+        params_dict({"w0": [[1.0]]})
+    with pytest.raises(CudaUnavailableError):
+        multilevel.level_error_rate(1, 0.0)
+    with pytest.raises(CudaUnavailableError):
+        multilevel.sweep()
+    cfg = get_smoke_config("tinyllama-1.1b")
+    params = lm.init_params(torch.Generator(), cfg, device="cpu")
+    target = compiler.HardwareTarget(engine="tacitmap", fault_model=FaultModel())
+    with pytest.raises(CudaUnavailableError):
+        compiler.compile(cfg, params, target)
+    assert model.init_mlp(gen, model.MLPConfig(), device="cpu")["w0"].device.type == "cpu"
+    assert compiler.compile(cfg, params, target, device="cpu").device.type == "cpu"
