@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py [--mma-only | --flash-only | --hamming-only | --fused-only |
                            --kernels-only | --telemetry-only | --simulators-only |
-                           --faults-only]
+                           --faults-only | --train-only]
 
 Each ``--*-only`` argument stops after those kernels' checks and timings
 (``--kernels-only``: every kernel's; ``--telemetry-only``,
-``--simulators-only`` and ``--faults-only``: the build and that phase
-alone) and prints no result line. Needs one
+``--simulators-only``, ``--faults-only`` and ``--train-only``: the build
+and that phase alone) and prints no result line. Needs one
 CUDA card (device 0), the CUDA toolkit's ``nvcc`` and ``nvidia-smi``;
 exits non-zero without them. Phases, each announced on its own
 ``[phase]`` line:
@@ -74,7 +74,16 @@ exits non-zero without them. Phases, each announced on its own
    ``tiled`` remapped by the health monitor, every generation == alone;
    then the paper's MLP and LeNet on 10 000 images, every engine ==
    ``reference``, and the multi-level sweep's gates; a ``{"faults":
-   ...}`` JSON line.
+   ...}`` JSON line;
+10. train: tinyllama-1.1b at full width trained 12 steps with ``quant=
+   "bnn"`` through ``repro_torch.train.train`` (async checkpoints, the
+   loss falls), resumed bit for bit after an injected fault and after a
+   SIGTERM, served from the trained weights on ``packed`` (110 fused
+   ``b1`` launches per tick) == ``reference``; then the paper MLP trained
+   300 steps and read out on four engines; a ``{"train": ...}`` JSON
+   line. The fused launches of its serve join row 1's count. The script
+   sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before CUDA starts, for the
+   deterministic cuBLAS the bitwise resume needs.
 
 Then one ``{"kernels": [...]}`` JSON line, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -85,6 +94,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1855,9 +1865,15 @@ def _peak_gib(on_card: bool):
 
 
 def _fresh_peak(on_card: bool) -> None:
+    """Free what earlier work left (tensors held only by reference cycles,
+    such as a serving engine and its health monitor, wait for the cyclic
+    collector) and start a new peak."""
+    import gc
+
     import torch
 
     if on_card:
+        gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
@@ -2140,6 +2156,283 @@ def faults_phase(device: str = "cuda", smoke: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: train tinyllama-1.1b at full width, then serve what it learned
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_LR, TRAIN_WARMUP = 12, 4, 3e-4, 2
+TRAIN_FAULT_STEP, TRAIN_PREEMPT_STEP = 6, 5
+TRAIN_TICKS = 16  # decode ticks served from the trained weights
+MLP_STEPS, MLP_BATCH, MLP_LR, MLP_EVAL = 300, 128, 1e-3, 512
+MLP_ENGINES = ("packed", "tacitmap", "wdm")  # each held to "reference"
+
+
+def _train_state(out) -> list:
+    """``(tree path, tensor)`` of a run's final parameters (the stacked
+    tree) and optimizer state."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import lm
+
+    return [(tree_lib.key(p), t) for p, t in tree_lib.leaves_with_paths(
+        (lm.param_tree(out["params"]), out["opt_state"]))]
+
+
+def _state_mismatches(out, want: dict) -> list[str]:
+    """The leaves of a run's final state that are not ``torch.equal`` to
+    ``want`` (host copies keyed by tree path)."""
+    import torch
+
+    got = _train_state(out)
+    if [k for k, _ in got] != list(want):
+        return ["<tree structure>"]
+    return [k for k, t in got if not torch.equal(t.cpu(), want[k])]
+
+
+def _train_mlp(device: str, gen, steps: int) -> tuple[dict, float, list[float]]:
+    """examples/train_bnn.py's run: the paper MLP trained with STE on the
+    synthetic image stand-in, AdamW without decay. Returns the params,
+    the wall seconds and the losses."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import model as paper
+    from repro_torch.data import bnn_image_batch
+    from repro_torch.device import synchronize
+    from repro_torch.optim import OptConfig, adamw_init, adamw_update
+
+    cfg = paper.MLPConfig()
+    params = {k: v.requires_grad_(True) for k, v in paper.init_mlp(gen, cfg, device=device).items()}
+    opt_cfg = OptConfig(weight_decay=0.0)
+    opt = adamw_init(params, opt_cfg)
+    losses = []
+    synchronize(torch.device(device))
+    t0 = time.perf_counter()
+    for i in range(steps):
+        x, y = bnn_image_batch(MLP_BATCH, shape=(28, 28, 1), step=i, device=device)
+        logits = paper.mlp_forward_train(params, x.reshape(MLP_BATCH, -1), cfg)
+        loss = -(F.one_hot(y, 10) * F.log_softmax(logits, dim=-1)).sum(dim=-1).mean()
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g  # the last g is unused
+                 for (k, p), g in zip(params.items(), grads)}
+        adamw_update(grads, params, opt, MLP_LR, opt_cfg)
+        losses.append(loss.detach())
+    synchronize(torch.device(device))
+    return params, time.perf_counter() - t0, [float(v) for v in losses]
+
+
+def train_phase(device: str = "cuda", smoke: bool = False) -> dict:
+    """Training on the card: tinyllama-1.1b at full width and depth,
+    ``quant="bnn"``, jnp attention, per-block remat, seeded weights, batch
+    8 x 128 tokens, peak lr 3e-4 after 2 warmup steps, ``OptConfig()``,
+    through ``repro_torch.train.train``:
+
+    (a) 12 steps, an async checkpoint every 4 (``keep=1``: a checkpoint of
+        the parameters and AdamW moments is 13.2 GB): every loss finite,
+        the mean of the last 3 below the mean of the first 3; the median
+        step ms, tokens/s, peak device GiB and the first async save's
+        host-blocking ms;
+    (b) resume == never-failed: the same run with a fault injected at
+        step 6 (one restart from the step-3 checkpoint; one restore's ms),
+        then a SIGTERM at step 5 (checkpoint and exit) and a resumed run;
+        each final parameter and optimizer-state tensor ``torch.equal`` to
+        (a)'s;
+    (c) train -> serve: (a)'s model compiled to ``packed`` and to
+        ``reference``, 8 seeded 128-token prompts served for 16 decode
+        ticks: tokens and prefill logits equal, 110 fused ``b1`` launches
+        per packed prefill or tick and none on reference; one more
+        optimizer step on the trained model moves neither compiled
+        model's prefill logits (compile() holds copies);
+    (d) the paper MLP 784-500-250-10 trained 300 steps at batch 128
+        (examples/train_bnn.py's setup) and read out on 512 held-out
+        images on ``reference``, ``packed``, ``tacitmap`` and ``wdm``:
+        logits equal, accuracy above 0.5.
+
+    ``device="cpu", smoke=True`` rehearses it at the smoke config's size,
+    training on 8 x 64 tokens and the MLP for 60 steps (launch counts and
+    device memory are then not read). Returns the phase's numbers;
+    ``fused_bnn_matmul`` is (c)'s packed launch count."""
+    import dataclasses
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import model as paper
+    from repro_torch.data import bnn_image_batch, lm_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainLoopConfig, make_train_step, train
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    cfg = dataclasses.replace(get_smoke_config(ARCH) if smoke else get_config(ARCH),
+                              quant="bnn", attn_impl="jnp", remat=True)
+    layers = cfg.n_layers
+    batch, seq = (BATCH, 64) if smoke else (BATCH, PROMPT)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    loop = TrainLoopConfig(total_steps=TRAIN_STEPS, batch_size=batch, seq_len=seq,
+                           peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                           checkpoint_every=TRAIN_EVERY, keep=1, seed=SEED,
+                           checkpoint_dir=os.path.join(root, "a"))
+    log = lambda line: print(line, flush=True)  # noqa: E731
+    res: dict = {}
+    held_out = lm_batch(cfg, batch, seq, seed=SEED, step=TRAIN_STEPS, device=device)
+    try:
+        # the initial model's loss on the batch of step 12, which (a) never sees
+        with torch.no_grad():
+            init = lm.init_params(torch.Generator(device=device).manual_seed(SEED), cfg,
+                                  device=device)
+            init_loss = float(lm.loss_fn(init, held_out, cfg))
+        del init
+        # (a) 12 steps with async checkpoints
+        _fresh_peak(on_card)
+        held = torch.cuda.memory_allocated() / 2**30 if on_card else None
+        a = train(cfg, loop, log=log, device=device)
+        peak = _peak_gib(on_card)
+        losses = a["losses"]
+        if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"losses {losses}")
+        if not statistics.mean(losses[-3:]) < statistics.mean(losses[:3]):
+            raise AssertionError(f"the loss did not fall: {losses}")
+        step_ms = statistics.median(a["step_s"]) * 1e3
+        res["a"] = {"losses": losses, "step_ms": [v * 1e3 for v in a["step_s"]],
+                    "median_step_ms": step_ms, "tok_s": batch * seq / step_ms * 1e3,
+                    "peak_gib": peak, "held_gib": held,
+                    "save_ms": [v * 1e3 for v in a["save_s"]]}
+        mem = (f"peak {peak:.2f} GiB ({held:.2f} GiB held when it began)" if on_card
+               else "peak memory not measured (CPU)")
+        print(f"[train] (a) {cfg.name} quant=bnn, {TRAIN_STEPS} steps of {batch} x {seq} "
+              f"tokens: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 3 "
+              f"{statistics.mean(losses[:3]):.4f}, last 3 {statistics.mean(losses[-3:]):.4f}); "
+              f"median step {step_ms:.1f} ms ({res['a']['tok_s']:.0f} tokens/s), steps "
+              f"{', '.join(f'{v * 1e3:.0f}' for v in a['step_s'])} ms; {mem}; async saves "
+              f"block the host {', '.join(f'{v * 1e3:.0f}' for v in a['save_s'])} ms (the "
+              f"first alone: each later one first waits for the previous write)", flush=True)
+        want = {k: t.detach().cpu().clone() for k, t in _train_state(a)}
+        model, opt_state = a["params"], a["opt_state"]
+        del a
+        shutil.rmtree(loop.checkpoint_dir, ignore_errors=True)
+
+        # (c) train -> serve on the kernels, and compile() holds copies
+        prompts = serve.prompts(cfg, BATCH, PROMPT, SEED)
+        cms = {e: compiler.compile(cfg, model, compiler.HardwareTarget(engine=e), device=device)
+               for e in ("packed", "reference")}
+        _reset_counts()
+        packed = _lockstep_logits(cms["packed"], prompts, TRAIN_TICKS + 1)
+        n_packed = _counts()
+        variants = _fused_variants()
+        per_run = layers * 5 * (TRAIN_TICKS + 1)
+        _check_launches(device, {**n_packed, "fused by variant": variants},
+                        {"fused_bnn_matmul": per_run, "hamming_matmul": 0,
+                         "fused by variant": {"popc": 0, "b1": per_run}}, "trained packed")
+        _reset_counts()
+        ref = _lockstep_logits(cms["reference"], prompts, TRAIN_TICKS + 1)
+        _check_launches(device, _counts(), {"fused_bnn_matmul": 0, "hamming_matmul": 0},
+                        "trained reference")
+        logits = packed["logits"][0]
+        if not torch.isfinite(logits[:, : cfg.vocab_size]).all():
+            raise AssertionError("trained prefill logits not finite")
+        if not np.array_equal(packed["generated"], ref["generated"]) or not torch.equal(
+                logits, ref["logits"][0]):
+            raise AssertionError("trained packed != trained reference (tokens or prefill logits)")
+        step_fn = make_train_step(cfg, OptConfig(), loop)
+        more = step_fn(model, opt_state, held_out, TRAIN_STEPS)
+        moved = {e: not torch.equal(cm.prefill(prompts)[0], w)
+                 for (e, cm), w in zip(cms.items(), (logits, ref["logits"][0]))}
+        if any(moved.values()) or more["skipped"]:
+            raise AssertionError(f"a step after compile() moved the compiled models: {moved}")
+        res["c"] = {"fused_launches": n_packed["fused_bnn_matmul"], "fused_by_variant": variants,
+                    "decode_tok_s": packed["decode_tok_s"], "ref_decode_tok_s": ref["decode_tok_s"],
+                    "held_out_loss": {"initial": init_loss, "trained": more["loss"]}}
+        print(f"[train] (c) trained model compiled to packed and reference: {BATCH} prompts x "
+              f"{TRAIN_TICKS} ticks, tokens and prefill logits equal; packed launched "
+              f"{n_packed['fused_bnn_matmul']} fused ({layers * 5} per prefill or tick, by "
+              f"variant {variants}), reference 0; {packed['decode_tok_s']:.1f} tok/s (reference "
+              f"{ref['decode_tok_s']:.1f}); one more step left both compiled models' prefill "
+              f"logits as they were; its batch (step {TRAIN_STEPS}, unseen in training) has "
+              f"loss {init_loss:.4f} on the initial model, {more['loss']:.4f} on the trained "
+              f"one", flush=True)
+        del cms, model, opt_state, packed, ref
+        _release({})
+
+        # (b) resume == never-failed: a fault, then a preemption
+        calls = {"n": 0}
+
+        def fault(step):
+            calls["n"] += 1
+            if step == TRAIN_FAULT_STEP and calls["n"] <= TRAIN_FAULT_STEP + 1:
+                raise RuntimeError("injected node failure")
+
+        b = train(cfg, dataclasses.replace(loop, checkpoint_dir=os.path.join(root, "b")),
+                  fault_hook=fault, log=log, device=device)
+        bad = _state_mismatches(b, want)
+        if b["restarts"] != 1 or len(b["restore_s"]) != 1 or bad:
+            raise AssertionError(f"fault run: restarts {b['restarts']}, restores "
+                                 f"{len(b['restore_s'])}, leaves != (a): {bad[:5]}")
+        restore_ms = b["restore_s"][0] * 1e3
+        del b
+        _release({})
+
+        def preempt(step):
+            if step == TRAIN_PREEMPT_STEP:  # SIGTERM, as a scheduler sends it
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        p_loop = dataclasses.replace(loop, checkpoint_dir=os.path.join(root, "p"))
+        p1 = train(cfg, p_loop, fault_hook=preempt, log=log, device=device)
+        if not p1["preempted"] or p1["final_step"] != TRAIN_PREEMPT_STEP:
+            raise AssertionError(f"preemption: preempted={p1['preempted']} at {p1['final_step']}")
+        del p1
+        _release({})
+        p2 = train(cfg, p_loop, log=log, device=device)
+        bad = _state_mismatches(p2, want)
+        if p2["preempted"] or p2["final_step"] != TRAIN_STEPS - 1 or bad:
+            raise AssertionError(f"resumed run: final step {p2['final_step']}, leaves != (a): "
+                                 f"{bad[:5]}")
+        res["b"] = {"restore_ms": restore_ms, "leaves": len(want),
+                    "resumed_restore_ms": p2["restore_s"][0] * 1e3}
+        del p2
+        _release({})
+        print(f"[train] (b) fault at step {TRAIN_FAULT_STEP} -> 1 restart from the step-3 "
+              f"checkpoint, and SIGTERM at step {TRAIN_PREEMPT_STEP} -> checkpoint, exit, "
+              f"resume: all {len(want)} parameter and optimizer-state tensors torch.equal to "
+              f"(a)'s in both; a restore takes {restore_ms:.0f} ms "
+              f"({res['b']['resumed_restore_ms']:.0f} ms after the preemption)", flush=True)
+
+        # (d) the paper MLP: trained on the card, read out on every engine
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        mlp_steps = 60 if smoke else MLP_STEPS
+        params, mlp_s, mlp_losses = _train_mlp(device, gen, mlp_steps)
+        x, y = bnn_image_batch(MLP_EVAL, shape=(28, 28, 1), step=10_000, device=device)
+        x = x.reshape(MLP_EVAL, -1)
+        want_logits = paper.mlp_forward_infer(params, x, paper.MLPConfig(), "reference")
+        for engine in MLP_ENGINES:
+            if not torch.equal(paper.mlp_forward_infer(params, x, paper.MLPConfig(), engine),
+                               want_logits):
+                raise AssertionError(f"trained MLP on {engine} != reference")
+        acc = float((want_logits.argmax(dim=-1) == y).float().mean())
+        if not acc > 0.5:
+            raise AssertionError(f"trained MLP accuracy {acc}")
+        res["d"] = {"accuracy": acc, "train_s": mlp_s, "loss_first": mlp_losses[0],
+                    "loss_last": mlp_losses[-1]}
+        print(f"[train] (d) paper MLP 784-500-250-10, {mlp_steps} steps x {MLP_BATCH} in "
+              f"{mlp_s:.2f} s (loss {mlp_losses[0]:.4f} -> {mlp_losses[-1]:.4f}): {MLP_EVAL} "
+              f"held-out images, reference == {', '.join(MLP_ENGINES)} bit for bit, accuracy "
+              f"{acc:.3f}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    res["fused_bnn_matmul"] = res["c"]["fused_launches"] if on_card else 0
+    print(json.dumps({"train": res}), flush=True)
+    print(f"[train] phase {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def kernel_summary(checked: dict, launches: dict) -> list[dict]:
     """One entry per kernel: the sums over one tinyllama-1.1b layer's
     launches in a decode tick of 8 slots."""
@@ -2220,13 +2513,16 @@ ONLY = {  # an argument that stops after some kernels' checks and times (no resu
 
 # a phase alone, after the build (no result line)
 ALONE = {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
-         "--faults-only": "faults"}
+         "--faults-only": "faults", "--train-only": "train"}
 
 
 def main(argv: list[str]) -> int:
     if argv and (len(argv) > 1 or argv[0] not in (*ONLY, *ALONE)):
         print(f"usage: chip_smoke.py [{' | '.join((*ONLY, *ALONE))}]", file=sys.stderr)
         return 2
+    # deterministic cuBLAS, which the train phase's bitwise resume needs,
+    # is set before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     phase("device")
     card = check_device()
     sys.path.insert(0, str(ROOT / "src"))
@@ -2238,7 +2534,7 @@ def main(argv: list[str]) -> int:
         name = ALONE[argv[0]]
         phase(name)
         {"telemetry": telemetry_phase, "simulators": simulators_phase,
-         "faults": faults_phase}[name]()
+         "faults": faults_phase, "train": train_phase}[name]()
         print(card, flush=True)
         return 0
     phase("kernels")
@@ -2272,6 +2568,10 @@ def main(argv: list[str]) -> int:
     telemetry_phase()
     phase("faults")
     faults_phase()
+    phase("train")
+    trained = train_phase()["fused_bnn_matmul"]
+    launches["fused_bnn_matmul"] += trained
+    BY_VARIANT["fused_bnn_matmul"]["b1"] += trained
     summary = kernel_summary(checked, launches) + launch_summary(flash, mma, launches)
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

@@ -34,6 +34,7 @@ sweeps (``scan_faults``), reprograms (``refresh_faults``) and re-places
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Any
@@ -100,7 +101,9 @@ def compile(cfg, params, target: HardwareTarget, *, plan=None, device=None) -> "
     -> program, on ``device`` (default ``cuda``; ``params`` move there).
     ``params`` is a :class:`repro_torch.models.lm.LM`, or ``None`` for a
     price-only compilation (``price()``/``describe()`` work, execution
-    entry points raise). ``plan`` binds a pre-compiled
+    entry points raise); a model whose parameters require grad is
+    compiled from a detached copy, so training on after compile() leaves
+    the compiled model as it was. ``plan`` binds a pre-compiled
     :class:`~repro_torch.mapping.allocator.MappingPlan` instead of
     compiling one from ``target.mapping_policy``."""
     dev = resolve_device(device)
@@ -131,6 +134,11 @@ def _compile_staged(cfg, params, target: HardwareTarget, plan, dev) -> "Compiled
     programmed, program_s = 0, 0.0
     if params is not None:
         params = params.to(dev)
+        if any(p.requires_grad for p in params.parameters()):
+            # a model in training: hold copies, so that an optimizer step
+            # after compile() moves neither the compiled model's shared
+            # tensors (embedding, norms, biases, head) nor its latent ones
+            params = copy.deepcopy(params).requires_grad_(False)
         if base is not None and target.prepare_weights:
             with obs.span("compile.program", track="compile") as prog_span:
                 t0 = time.perf_counter()

@@ -1,4 +1,5 @@
-"""Convert the reference package's parameter trees into the port's.
+"""Convert between the reference package's parameter trees and the
+port's.
 
 :func:`params_from_jax` takes the LM parameter pytree with numpy leaves
 (for example ``jax.tree.map(np.asarray,
@@ -10,6 +11,13 @@ flat parameter dict, such as the paper MLP's or LeNet's
 ``repro_torch.core.model``. Both packages then compute on the same
 weights, which is how the parity tests hold the port against the
 reference.
+
+The other direction: :func:`params_to_jax` and :func:`grads_to_jax`
+give an ``LM``'s parameters and gradients as the reference's numpy tree
+(stacked over repeats, :func:`repro_torch.models.lm.param_tree`), and
+:func:`tree_to_jax` / :func:`tree_from_jax` carry a tree that already
+has the reference's layout, such as the optimizer state (``m``, ``v``
+or its factored ``vr`` / ``vc``, ``step``), leaf by leaf.
 """
 
 from __future__ import annotations
@@ -17,7 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.device import resolve_device
+from repro_torch.models import lm as lm_lib
 from repro_torch.models.layers import FFN, Attention, BitLinear
 from repro_torch.models.lm import LM, Block
 
@@ -55,7 +65,33 @@ def params_from_jax(tree: dict, *, device=None) -> LM:
                 FFN(*(proj(f[k], r) for k in ("w1", "w3", "w2"))),
             ))
     head = t(tree["head"]) if "head" in tree else None
-    return LM(t(tree["embed"]), t(tree["final_norm"]), head, blocks)
+    return LM(t(tree["embed"]), t(tree["final_norm"]), head, blocks, n_slots)
+
+
+def tree_to_jax(tree) -> dict:
+    """A tree of tensors -> the same tree with numpy leaves."""
+    return tree_lib.tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def tree_from_jax(tree, *, device=None):
+    """A tree of numpy leaves -> tensors of the same dtypes on ``device``
+    (default ``cuda``)."""
+    dev = resolve_device(device)
+    return tree_lib.tree_map(lambda x: torch.from_numpy(np.array(x)).to(dev), tree)
+
+
+def params_to_jax(model: LM) -> dict:
+    """An ``LM`` -> the reference's parameter tree with numpy leaves, the
+    block parameters stacked over repeats: the inverse of
+    :func:`params_from_jax`."""
+    return tree_to_jax(lm_lib.param_tree(model, device="cpu"))
+
+
+def grads_to_jax(model: LM) -> dict:
+    """The gradients held by an ``LM``'s parameters after a backward, as
+    the reference's numpy tree (zeros where none arrived); the ``.grad``
+    fields are cleared."""
+    return tree_to_jax(lm_lib.take_grad_tree(model))
 
 
 def params_dict(tree: dict, *, device=None) -> dict[str, torch.Tensor]:

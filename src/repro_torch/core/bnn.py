@@ -1,5 +1,5 @@
-"""Binary-neural-network arithmetic: Eq. 1 of the paper and binarization
-(counterpart of ``repro/core/bnn.py``, forward only).
+"""Binary-neural-network arithmetic: Eq. 1 of the paper, binarization and
+the straight-through estimator (counterpart of ``repro/core/bnn.py``).
 
 The paper's Eq. 1 (for equally-sized binary vectors)::
 
@@ -45,16 +45,49 @@ def nonneg(x: torch.Tensor) -> torch.Tensor:
     return x > NEG_MIN_NORMAL
 
 
-def binarize_ste(x: torch.Tensor) -> torch.Tensor:
-    """Sign-binarize: +1 where :func:`nonneg`, else -1, in ``x``'s dtype.
-
-    Zero, -0.0 and subnormals of either sign map to +1 and NaN to -1, as
-    the reference's ``jnp.where(x >= 0, ...)`` gives under XLA. The
-    serving slice needs no gradient, so the straight-through estimator
-    of the reference is the identity of the forward here.
-    """
+def _signs(x: torch.Tensor) -> torch.Tensor:
     one = torch.ones((), dtype=x.dtype, device=x.device)
     return torch.where(nonneg(x), one, -one)
+
+
+class _BinarizeSTE(torch.autograd.Function):
+    """Forward :func:`_signs`; backward the derivative of the reference's
+    ``jnp.clip(x, -1, 1)`` as XLA differentiates ``min(max(x, -1), 1)``:
+    1 inside (-1, 1), 1/2 at exactly ±1 (max and min split a tie's
+    gradient evenly), 0 outside and for NaN."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _signs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        slope = torch.where((x > -1) & (x < 1), 1.0, torch.where(x.abs() == 1, 0.5, 0.0))
+        return g * slope.to(g.dtype)
+
+
+def binarize_ste(x: torch.Tensor) -> torch.Tensor:
+    """Sign-binarize with a straight-through estimator.
+
+    Forward: +1 where :func:`nonneg`, else -1, in ``x``'s dtype: zero,
+    -0.0 and subnormals of either sign map to +1 and NaN to -1, as the
+    reference's ``jnp.where(x >= 0, ...)`` gives under XLA (the
+    reference's STE sum turns a NaN into NaN; the port keeps the sign).
+    Backward: the hard-tanh STE of the reference, ``g`` inside |x| < 1,
+    ``g / 2`` at |x| == 1 (the reference's tie split, a common bf16
+    value), 0 beyond. The autograd node is recorded only when ``x``
+    requires grad, so serving pays nothing for it.
+    """
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _BinarizeSTE.apply(x)
+    return _signs(x)
+
+
+def binarize_ste_bits(x: torch.Tensor) -> torch.Tensor:
+    """STE binarization straight to the {0,1} encoding."""
+    return signs_to_bits(binarize_ste(x))
 
 
 def binary_matmul_signs(a_signs: torch.Tensor, w_signs: torch.Tensor) -> torch.Tensor:

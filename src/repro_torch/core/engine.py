@@ -136,12 +136,23 @@ class LRUCache:
         }
 
 
+def _version(w) -> int | None:
+    """A tensor's in-place version counter (None where there is none)."""
+    try:
+        return w._version
+    except (AttributeError, RuntimeError):  # not a tensor; an inference tensor
+        return None
+
+
 class WeightCache:
-    """Prepared-weight cache keyed by weight-tensor *identity*.
+    """Prepared-weight cache keyed by weight-tensor *identity* and version.
 
     Each entry keeps a strong reference to its key tensor, so an
     ``id()`` can never be recycled while the entry is alive; a replaced
     weight is a guaranteed miss and its stale entry ages out of the LRU.
+    A weight updated in place (an optimizer step: the reference's arrays
+    are immutable, the port's parameters are not) bumps its version
+    counter, which is a miss too.
     """
 
     def __init__(self, maxsize: int = 32):
@@ -149,12 +160,12 @@ class WeightCache:
 
     def get(self, w) -> PreparedWeights | None:
         entry = self._lru.get(id(w))
-        if entry is not None and entry[0] is w:
-            return entry[1]
+        if entry is not None and entry[0] is w and entry[1] == _version(w):
+            return entry[2]
         return None
 
     def put(self, w, pw: PreparedWeights) -> None:
-        self._lru.put(id(w), (w, pw))
+        self._lru.put(id(w), (w, _version(w), pw))
 
     def __len__(self) -> int:
         return len(self._lru)

@@ -13,9 +13,10 @@ crossbar executes them (one im2col position = one input vector).
 Binarization follows the port's rule, ``x > -2^-126``
 (:func:`repro_torch.core.bnn.nonneg`): the reference's ``x >= 0`` with
 subnormals read as zero, as XLA reads them. The training forwards
-(:func:`mlp_forward_train`, ``conv_forward(train=True)``) give the
-reference's forward value through ``bnn.binarize_ste``; their
-straight-through gradient is not ported.
+(:func:`mlp_forward_train`, ``conv_forward(train=True)``) binarize
+through ``bnn.binarize_ste``, so with parameters that require grad they
+carry the reference's straight-through gradient; the engine paths run
+without autograd.
 
 Parameters are dicts of fp32 tensors drawn from an explicit
 ``torch.Generator`` (``init_mlp`` / ``init_conv``) or carried over from
@@ -24,6 +25,7 @@ the reference's numpy leaves (:func:`repro_torch.convert.params_dict`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -98,12 +100,11 @@ def _div_sqrt(x: torch.Tensor, m: int) -> torch.Tensor:
     return x / torch.tensor(math.sqrt(m), dtype=x.dtype, device=x.device)
 
 
-@torch.no_grad()
 def mlp_forward_train(params: dict, x: torch.Tensor, cfg: MLPConfig) -> torch.Tensor:
-    """Training forward (its value; no gradient): STE binarization on
-    hidden layers, binary MACs scaled by 1/sqrt(m), each layer ending
-    with the learnable affine (g, b) that acts as the next sign's
-    threshold."""
+    """Training forward: STE binarization on hidden layers (the gradient
+    flows through ``bnn.binarize_ste``), binary MACs scaled by
+    1/sqrt(m), each layer ending with the learnable affine (g, b) that
+    acts as the next sign's threshold."""
     h = x
     for i in range(cfg.n_layers):
         w = params[f"w{i}"]
@@ -199,7 +200,6 @@ def _avgpool(x: torch.Tensor, p: int) -> torch.Tensor:
     return x.reshape(b, h // p, p, w // p, p, c).mean(dim=(2, 4))
 
 
-@torch.no_grad()
 def conv_forward(
     params: dict,
     x: torch.Tensor,
@@ -209,9 +209,14 @@ def conv_forward(
     spec: CrossbarSpec | None = None,
 ) -> torch.Tensor:
     """(B, H, W, C) images -> logits. Binary layers = all but first/last;
-    ``train=True`` gives the training forward's value (STE signs, plain
-    ±1 matmul), ``train=False`` runs them through the engine."""
-    eng = engine_lib.resolve(engine, spec)
+    ``train=True`` is the training forward (STE signs, plain ±1 matmul,
+    differentiable), ``train=False`` runs them through the engine, with
+    autograd off."""
+    with contextlib.nullcontext() if train else torch.no_grad():
+        return _conv_forward(params, x, cfg, train, engine_lib.resolve(engine, spec))
+
+
+def _conv_forward(params: dict, x: torch.Tensor, cfg: ConvConfig, train: bool, eng):
     n_fc = len(cfg.fcs)
     h = x
     for i, ((out_ch, k), pool) in enumerate(zip(cfg.convs, cfg.pools)):

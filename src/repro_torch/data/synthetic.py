@@ -1,0 +1,55 @@
+"""Synthetic batches, deterministic in (seed, step) (counterpart of
+``repro/data/synthetic.py``'s real-batch half).
+
+Every draw comes from a CPU ``torch.Generator`` seeded from
+``(seed, step)`` and then moves to the device, so the CPU and the card
+see the same batch. The values follow the reference's formulas but not
+``jax.random``'s bits (parity tests feed the reference's own batches).
+The dry-run input specs (``make_input_specs``, ``token_count``) arrive
+with the distribution slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig, require_servable
+
+
+def _generator(*entropy: int) -> torch.Generator:
+    """A CPU generator seeded from ``entropy`` (such as (seed, step))
+    through numpy's ``SeedSequence``: distinct streams for distinct
+    tuples."""
+    state = np.random.SeedSequence(list(entropy)).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state) & (2**63 - 1))
+
+
+def lm_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0, step: int = 0,
+             device=None) -> dict:
+    """Skewed synthetic token batch ``{"tokens": (batch, seq) int64}`` on
+    ``device`` (default ``cuda``): the reference's Zipf-ish marginal,
+    ``floor(-log(u) * V / 8)`` clipped to the vocabulary, u uniform in
+    [1e-6, 1)."""
+    dev = resolve_device(device)
+    require_servable(cfg)
+    u = torch.rand((batch, seq), generator=_generator(seed, step)) * (1.0 - 1e-6) + 1e-6
+    r = torch.floor(-torch.log(u) * cfg.vocab_size / 8.0).to(torch.int64)
+    return {"tokens": torch.clamp(r, 0, cfg.vocab_size - 1).to(dev)}
+
+
+def bnn_image_batch(
+    n: int, shape: tuple[int, ...] = (28, 28, 1), classes: int = 10, *, seed: int = 0,
+    step: int = 0, device=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Class-conditional synthetic images (MNIST/CIFAR stand-ins) on
+    ``device`` (default ``cuda``): each class is a fixed random template
+    (drawn from ``seed`` alone) plus 0.5 x unit noise, so BNNs actually
+    learn. Returns (images (n, *shape) fp32, labels (n,) int64)."""
+    dev = resolve_device(device)
+    gen = _generator(seed, step)
+    labels = torch.randint(0, classes, (n,), generator=gen)
+    templates = torch.randn((classes, *shape), generator=_generator(seed + 999))
+    x = templates[labels] + 0.5 * torch.randn((n, *shape), generator=gen)
+    return x.to(dev), labels.to(dev)

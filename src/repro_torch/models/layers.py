@@ -1,11 +1,14 @@
-"""Transformer layers for serving: RMSNorm, RoPE, chunked GQA attention
-(plain ops, or the flash-attention kernel), SwiGLU, and the BitLinear
-seam (counterpart of ``repro/models/layers.py``, forward only).
+"""Transformer layers: RMSNorm (with the reference's hand-written
+backward), RoPE, chunked GQA attention (plain ops, or the
+flash-attention kernel), SwiGLU, and the BitLinear seam (counterpart of
+``repro/models/layers.py``).
 
 Conventions as in the reference: activations bf16, accumulations and
 normalizations fp32, latent weights fp32. Attention shapes are
 (B, S, H, D). ``rms_norm``, ``rope``, attention and ``dense`` are plain
-functions on tensors; the modules only hold weights.
+functions on tensors; the modules only hold weights. Latent weights are
+``nn.Parameter``s that require no grad until a trainer asks
+(``model.requires_grad_(True)``), so serving records no autograd graph.
 """
 
 from __future__ import annotations
@@ -31,6 +34,11 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
+def frozen_parameter(t: torch.Tensor | None) -> nn.Parameter | None:
+    """``t`` as a parameter that requires no grad (``None`` stays)."""
+    return None if t is None else nn.Parameter(t, requires_grad=False)
+
+
 class BitLinear(nn.Module):
     """One projection. Holds either the latent weight ``w`` (m, n) fp32,
     or -- once programmed by ``lm.program_weights`` -- the engine's
@@ -39,7 +47,8 @@ class BitLinear(nn.Module):
     [q|k|v] artifact). A fault-injecting engine's artifact carries
     ``(data, delta)``: the inner engine's data goes to ``words`` and the
     fault delta (or ``None``) to ``delta``. ``b`` is the optional bias.
-    All are buffers: the serving slice computes no gradients.
+    ``w`` and ``b`` are parameters (trainable once asked); the programmed
+    artifact is buffers.
     """
 
     def __init__(
@@ -53,8 +62,8 @@ class BitLinear(nn.Module):
         super().__init__()
         if (w is None) == (prepared is None):
             raise ValueError("a BitLinear holds either latent w or prepared weights")
-        self.register_buffer("w", w)
-        self.register_buffer("b", b)
+        self.register_parameter("w", frozen_parameter(w))
+        self.register_parameter("b", frozen_parameter(b))
         data = None if prepared is None else prepared.data
         self._with_delta = isinstance(data, tuple)
         words, delta = data if self._with_delta else (data, None)
@@ -103,12 +112,68 @@ class FFN(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in fp32, returned in ``x``'s dtype. The mean's per-row
-    arithmetic does not depend on the row count (:func:`row_mean`)."""
+def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = row_mean(xf * xf)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The reference's custom VJP: the forward saves only the input in
+    its own dtype (bf16 in the residual stream) and the scale; the
+    backward recomputes the fp32 statistics. Autodiff of the plain
+    forward would save the fp32 upcast of x per layer as well."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rms_norm(x, scale, ctx.eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        gf = g.to(torch.float32)
+        inv = torch.rsqrt(row_mean(xf * xf) + ctx.eps)
+        xhat = xf * inv
+        d_scale = (gf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+        gs = gf * scale.to(torch.float32)
+        dx = inv * (gs - xhat * row_mean(gs * xhat))
+        return dx.to(x.dtype), d_scale.to(scale.dtype), None
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in fp32, returned in ``x``'s dtype. The mean's per-row
+    arithmetic does not depend on the row count (:func:`row_mean`). With
+    grad enabled and an input that requires it, the backward is the
+    reference's hand-written one (:class:`_RMSNorm`)."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rms_norm(x, scale, eps)
+
+
+class _Abs(torch.autograd.Function):
+    """``|x|`` with XLA's derivative, ``select(x >= 0, g, -g)``: +g at
+    zero, where torch's ``abs`` gives 0. A BitLinear's output is an
+    exact zero wherever its ±1 sum is (often), so the two differ in the
+    next layer's scale gradients."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.abs()
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Abs.apply(x)
+    return x.abs()
 
 
 def infer_engine(cfg: ModelConfig):
@@ -147,7 +212,7 @@ def dense(p: BitLinear, x: torch.Tensor, quant: str = "none", engine=None) -> to
         if pw is not None and getattr(engine, "supports_fused_dense", False):
             out = engine.fused_dense(x, pw, p.alpha).to(ACT_DTYPE)
         else:
-            beta = row_mean(x.abs().to(torch.float32))
+            beta = row_mean(_abs(x).to(torch.float32))
             xb = bnn.binarize_ste(x.to(torch.float32))
             if pw is not None:
                 alpha = p.alpha
@@ -155,7 +220,7 @@ def dense(p: BitLinear, x: torch.Tensor, quant: str = "none", engine=None) -> to
             else:
                 _require_latent(p, engine)
                 w = p.w
-                alpha = w.abs().mean().to(torch.float32)
+                alpha = _abs(w).mean().to(torch.float32)
                 if engine is None:
                     dot = xb @ bnn.binarize_ste(w)
                 elif hasattr(engine, "prepare_cached"):
@@ -220,6 +285,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+class FlashBackwardError(NotImplementedError):
+    """A gradient was asked for through the flash-attention kernel."""
+
+
 def multi_head_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -243,9 +312,17 @@ def multi_head_attention(
     prefix-grafted continuation equals the full prefill bit for bit.
 
     ``impl="pallas"`` routes through the fused flash-attention kernel
-    (``kernels/flash_attention.py``) on the (B, H, S, D) layout.
+    (``kernels/flash_attention.py``) on the (B, H, S, D) layout. It has
+    no backward (nor has the reference's): a gradient through it raises
+    :class:`FlashBackwardError`.
     """
     if impl == "pallas":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise FlashBackwardError(
+                "attn_impl='pallas' runs the flash-attention kernel, which has no "
+                "backward (the JAX reference's cannot be differentiated either); "
+                "train with attn_impl='jnp'"
+            )
         out = flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal
         )

@@ -1,16 +1,20 @@
-"""Decoder-only LM for serving (counterpart of ``repro/models/lm.py``).
+"""Decoder-only LM: the training forward and loss, and serving
+(counterpart of ``repro/models/lm.py``).
 
 The reference stacks each pattern slot's parameters over repeats and
 scans over them; here the model is a tree of modules, ``LM`` ->
 ``nn.ModuleList`` of ``Block``s -> ``Attention`` / ``FFN`` ->
 ``BitLinear``, with layer ``r * P + i`` holding repeat ``r`` of pattern
-slot ``i`` (P = ``len(cfg.pattern)``), the order the reference's scan
-applies them in. Caches keep the reference's layout,
-``{"slot<i>": {"k"/"v": (R, B, T, KV, D)}}``.
+slot ``i`` (P = ``len(cfg.pattern)``, ``LM.n_slots``), the order the
+reference's scan applies them in. Caches keep the reference's layout,
+``{"slot<i>": {"k"/"v": (R, B, T, KV, D)}}``, and :func:`param_tree`
+gives the parameters in the reference's stacked tree, the layout the
+optimizer, the checkpoints and ``convert`` work in.
 
-Inference consumers reach ``prefill`` / ``prefill_continue`` /
-``decode_step`` / ``program_weights`` through
-``repro_torch.compiler.compile``.
+Training calls :func:`loss_fn` (per-block rematerialization,
+``models/scan.py``; the sequence-chunked fp32 loss). Inference consumers
+reach ``prefill`` / ``prefill_continue`` / ``decode_step`` /
+``program_weights`` through ``repro_torch.compiler.compile``.
 """
 
 from __future__ import annotations
@@ -18,8 +22,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as tree_lib
 from repro_torch.core import bnn
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import rowblock_matmul
@@ -33,9 +40,11 @@ from repro_torch.models.layers import (
     attention_continue,
     attention_decode_step,
     ffn,
+    frozen_parameter,
     infer_engine,
     rms_norm,
 )
+from repro_torch.models.scan import remat_scan
 
 
 class Block(nn.Module):
@@ -43,23 +52,26 @@ class Block(nn.Module):
 
     def __init__(self, norm1: torch.Tensor, attn: Attention, norm2: torch.Tensor, ffn: FFN):
         super().__init__()
-        self.register_buffer("norm1", norm1)
+        self.norm1 = frozen_parameter(norm1)
         self.attn = attn
-        self.register_buffer("norm2", norm2)
+        self.norm2 = frozen_parameter(norm2)
         self.ffn = ffn
 
 
 class LM(nn.Module):
     """Embedding, the block stack, the final norm and the fp32 head
-    (``head`` is ``None`` with tied embeddings: the head is ``embed.T``)."""
+    (``head`` is ``None`` with tied embeddings: the head is ``embed.T``).
+    ``n_slots`` is the pattern's period P (blocks ``r * P + i`` stack as
+    the reference's ``slot<i>``)."""
 
     def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
-                 head: torch.Tensor | None, blocks: list[Block]):
+                 head: torch.Tensor | None, blocks: list[Block], n_slots: int = 1):
         super().__init__()
-        self.register_buffer("embed", embed)
-        self.register_buffer("final_norm", final_norm)
-        self.register_buffer("head", head)
+        self.embed = frozen_parameter(embed)
+        self.final_norm = frozen_parameter(final_norm)
+        self.register_parameter("head", frozen_parameter(head))
         self.blocks = nn.ModuleList(blocks)
+        self.n_slots = n_slots
 
 
 # ---------------------------------------------------------------------------
@@ -71,7 +83,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> LM:
     """Random parameters with the reference's shapes and distributions:
     N(0, 0.02^2) embeddings, N(0, 1/d_in) projections and head, zero
     biases, unit norm scales. Drawn from ``gen`` on its device, then
-    placed on ``device`` (default ``cuda``)."""
+    placed on ``device`` (default ``cuda``). The parameters require no
+    grad until a trainer asks (``model.requires_grad_(True)``)."""
     dev = resolve_device(device)
     require_servable(cfg)
 
@@ -99,7 +112,184 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> LM:
         )
         f = FFN(proj(d, cfg.d_ff), proj(d, cfg.d_ff), proj(cfg.d_ff, d))
         blocks.append(Block(ones(d), attn, ones(d), f))
-    return LM(embed, ones(d), head, blocks)
+    return LM(embed, ones(d), head, blocks, n_slots=len(cfg.pattern))
+
+
+# ---------------------------------------------------------------------------
+# The reference's stacked parameter tree
+# ---------------------------------------------------------------------------
+
+
+def _proj_leaves(p: BitLinear) -> dict:
+    if p.w is None:
+        raise ValueError(
+            "a programmed projection holds no latent weights: take the tree of "
+            "the un-programmed model"
+        )
+    return {"w": p.w} if p.b is None else {"w": p.w, "b": p.b}
+
+
+def _block_leaves(blk: Block) -> dict:
+    """One block's parameters in the reference's slot layout."""
+    return {
+        "norm1": blk.norm1,
+        "attn": {n: _proj_leaves(getattr(blk.attn, n)) for n in BINARIZED_PROJECTIONS["attn"]},
+        "norm2": blk.norm2,
+        "ffn": {n: _proj_leaves(getattr(blk.ffn, n)) for n in BINARIZED_PROJECTIONS["ffn"]},
+    }
+
+
+def _top_leaves(model: LM) -> dict:
+    out = {"embed": model.embed, "final_norm": model.final_norm}
+    if model.head is not None:
+        out["head"] = model.head
+    return out
+
+
+def _slots(model: LM) -> list[list[Block]]:
+    """Slot ``i``'s blocks, repeat by repeat."""
+    return [list(model.blocks)[i :: model.n_slots] for i in range(model.n_slots)]
+
+
+def _stacked(model: LM, top, per_block) -> dict:
+    """The reference's tree with ``top(t)`` at each top-level leaf and
+    ``torch.stack([per_block(t) for each repeat])`` at each block leaf."""
+    tree = tree_lib.tree_map(top, _top_leaves(model))
+    tree["blocks"] = {}
+    for i, blocks in enumerate(_slots(model)):
+        per = [_block_leaves(b) for b in blocks]
+        tree["blocks"][f"slot{i}"] = tree_lib.map_with_path(
+            lambda path, _: torch.stack([per_block(tree_lib.get(t, path)) for t in per]), per[0]
+        )
+    return tree
+
+
+def param_tree(model: LM, device=None) -> dict:
+    """The parameters as the reference's tree: ``embed``, ``final_norm``,
+    ``head`` (untied models), ``blocks/slot<i>/{norm1, attn/<q|k|v|o>/
+    {w, b}, norm2, ffn/<w1|w3|w2>/w}`` stacked over repeats ((R, m, n) per
+    projection, (R, d) per norm). Fresh detached tensors on ``device``
+    (default: the model's; ``"meta"`` gives shapes and dtypes only): the
+    optimizer updates them in place, :func:`load_param_tree_` writes them
+    back."""
+    return _stacked(
+        model,
+        lambda t: t.detach().to(device or t.device, copy=True),
+        lambda t: t.detach().to(device or t.device),
+    )
+
+
+def take_grad_tree(model: LM) -> dict:
+    """The gradients as :func:`param_tree` lays out the parameters (zeros
+    where a parameter got none, as ``jax.grad`` gives), clearing every
+    ``.grad``: stacking one name at a time frees its per-block gradients
+    as it goes."""
+
+    def grad(p: torch.Tensor) -> torch.Tensor:
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        p.grad = None
+        return g
+
+    return _stacked(model, grad, grad)
+
+
+@torch.no_grad()
+def load_param_tree_(model: LM, tree: dict) -> LM:
+    """Copy a :func:`param_tree`-shaped tree into the model's parameters,
+    in place (any device or float dtype; checkpoints restore through it)."""
+    for name, t in _top_leaves(model).items():
+        t.copy_(tree[name])
+    for i, blocks in enumerate(_slots(model)):
+        stacked = tree["blocks"][f"slot{i}"]
+        for r, blk in enumerate(blocks):
+            tree_lib.map_with_path(
+                lambda path, t: t.copy_(tree_lib.get(stacked, path)[r]), _block_leaves(blk)
+            )
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Forward (train): per-block remat, sequence-chunked loss
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    return model.embed[tokens]
+
+
+def _apply_block(h: torch.Tensor, blk: Block, positions: torch.Tensor, cfg: ModelConfig):
+    hn = rms_norm(h, blk.norm1, cfg.norm_eps)
+    mix, _ = attention_block(blk.attn, hn, positions, cfg, quant=cfg.quant)
+    h = h + mix
+    hn = rms_norm(h, blk.norm2, cfg.norm_eps)
+    return h + ffn(blk.ffn, hn, cfg.quant)
+
+
+def backbone(model: LM, embeds: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """(B, S, d) -> (hidden (B, S, d), MoE aux scalar: 0, dense only).
+    ``cfg.remat`` checkpoints each block, saving only its bf16 input
+    (:func:`~repro_torch.models.scan.remat_scan`); either way the loss
+    and gradients are the same bit for bit."""
+    require_servable(cfg)
+    h = embeds.to(ACT_DTYPE)
+
+    def body(h, blk):
+        return _apply_block(h, blk, positions, cfg)
+
+    if cfg.remat:
+        h = remat_scan(body, h, model.blocks)
+    else:
+        for blk in model.blocks:
+            h = body(h, blk)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return rms_norm(h, model.final_norm, cfg.norm_eps), aux
+
+
+def _loss_chunk(hc: torch.Tensor, tc: torch.Tensor, w: torch.Tensor, cfg: ModelConfig):
+    logits = _mask_padded_vocab(torch.matmul(hc.to(torch.float32), w), cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, tc.clamp_min(0)[..., None], dim=-1)[..., 0]
+    mask = (tc >= 0).to(torch.float32)
+    return mask.sum(), ((lse - ll) * mask).sum()
+
+
+def lm_loss(model: LM, hidden: torch.Tensor, targets: torch.Tensor, cfg: ModelConfig):
+    """Sequence-chunked fp32 softmax cross-entropy over ``cfg.loss_chunk``
+    positions at a time, each chunk checkpointed (the backward recomputes
+    its (B, chunk, V) logits instead of keeping them); the padded vocab
+    is masked and ``targets < 0`` are left out of the mean."""
+    w = _head_weights(model, cfg)
+    s = hidden.shape[1]
+    ck = min(cfg.loss_chunk, s)
+    pad = (-s) % ck
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    n_tok = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, hidden.shape[1], ck):
+        n, t = checkpoint(_loss_chunk, hidden[:, c : c + ck], targets[:, c : c + ck], w, cfg,
+                          use_reentrant=False, preserve_rng_state=False)
+        n_tok = n_tok + n
+        total = total + t
+    return total / torch.clamp_min(n_tok, 1.0)
+
+
+def loss_fn(model: LM, batch: dict, cfg: ModelConfig, aux_coef: float = 0.01) -> torch.Tensor:
+    """Next-token loss over a ``{"tokens": (B, S)}`` batch (dense decoder
+    models; modality-frontend embeddings and the MoE / encoder-decoder
+    losses arrive with the model-breadth slice)."""
+    if "extra_embeds" in batch:
+        raise NotImplementedError(
+            f"{cfg.name}: modality-frontend embeddings (extra_embeds) arrive with the "
+            "model-breadth slice"
+        )
+    tokens = batch["tokens"].to(device=model.embed.device, dtype=torch.int64)
+    embeds = embed_tokens(model, tokens)
+    positions = torch.arange(tokens.shape[1], device=embeds.device)
+    hidden, aux = backbone(model, embeds, positions, cfg)
+    targets = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
+    return lm_loss(model, hidden, targets, cfg) + aux_coef * aux
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +351,7 @@ def program_weights(model: LM, cfg: ModelConfig, engine) -> tuple[LM, int]:
         f = FFN(*(_program(getattr(blk.ffn, name), base) for name in BINARIZED_PROJECTIONS["ffn"]))
         blocks.append(Block(blk.norm1, attn, blk.norm2, f))
         n += 7
-    return LM(model.embed, model.final_norm, model.head, blocks), n
+    return LM(model.embed, model.final_norm, model.head, blocks, model.n_slots), n
 
 
 def programmed_projections(model: LM):
@@ -194,7 +384,7 @@ def map_prepared(model: LM, fn) -> LM:
                          qkv=one(a.qkv))
         ffn_ = FFN(*(one(getattr(f, n)) for n in BINARIZED_PROJECTIONS["ffn"]))
         blocks.append(Block(blk.norm1, attn, blk.norm2, ffn_))
-    return LM(model.embed, model.final_norm, model.head, blocks)
+    return LM(model.embed, model.final_norm, model.head, blocks, model.n_slots)
 
 
 # ---------------------------------------------------------------------------

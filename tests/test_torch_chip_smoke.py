@@ -325,7 +325,7 @@ def test_faults_only_runs_the_device_phase_first(capsys):
     far as the device check (a SystemExit), not the usage error."""
     cs = _chip_smoke()
     assert cs.ALONE == {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
-                        "--faults-only": "faults"}
+                        "--faults-only": "faults", "--train-only": "train"}
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
@@ -333,3 +333,40 @@ def test_faults_only_runs_the_device_phase_first(capsys):
     assert e.value.code != 0
     assert "usage" not in capsys.readouterr().err
     assert cs.main(["--faults-only", "--telemetry-only"]) == 2
+
+
+def test_train_phase_rehearses_on_cpu(capsys):
+    """The train phase at smoke size: 12 steps with async checkpoints and
+    a falling loss, resume == never-failed after a fault and after a
+    SIGTERM, the trained model served on packed == reference and left
+    alone by a later step, the paper MLP trained and read out on four
+    engines, and the JSON line."""
+    import json
+
+    res = _chip_smoke().train_phase(device="cpu", smoke=True)
+    out = capsys.readouterr().out
+    assert "[train] (a) tinyllama-smoke quant=bnn, 12 steps of 8 x 64 tokens" in out
+    assert "[train] fault at restart 1: injected node failure; resuming from checkpoint" in out
+    assert out.count("[train] resumed from step") == 2
+    assert "[train] preempted at step 5; checkpointed" in out
+    assert "torch.equal to (a)'s in both" in out
+    assert "8 prompts x 16 ticks, tokens and prefill logits equal" in out
+    assert "left both compiled models' prefill logits as they were" in out
+    assert "reference == packed, tacitmap, wdm bit for bit" in out
+    assert res["d"]["accuracy"] > 0.5 and res["b"]["leaves"] == 37
+    assert res["a"]["peak_gib"] is None and res["fused_bnn_matmul"] == 0  # CPU: not read
+    line = next(ln for ln in out.splitlines() if ln.startswith('{"train"'))
+    assert json.loads(line) == {"train": json.loads(json.dumps(res))}
+
+
+def test_train_only_runs_the_device_phase_first(capsys):
+    """``--train-only`` is a known argument: without a card it gets as far
+    as the device check (a SystemExit), not the usage error."""
+    cs = _chip_smoke()
+    assert cs.ALONE["--train-only"] == "train"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        cs.main(["--train-only"])
+    assert e.value.code != 0
+    assert "usage" not in capsys.readouterr().err

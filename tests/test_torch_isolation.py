@@ -64,7 +64,9 @@ def test_importing_the_serve_driver_loads_no_jax():
         "repro_torch.obs, repro_torch.obs.trace, repro_torch.obs.metrics, "
         "repro_torch.obs.crosscheck, repro_torch.mapping, repro_torch.core.costmodel, "
         "repro_torch.core.einsteinbarrier, repro_torch.faults, repro_torch.core.model, "
-        "repro_torch.core.multilevel; "
+        "repro_torch.core.multilevel, repro_torch.optim, repro_torch.train, "
+        "repro_torch.checkpoint, repro_torch.data, repro_torch.launch.train, "
+        "repro_torch.models.scan, repro_torch.tree; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -157,7 +159,10 @@ NEW_MODULES = ("fleet/pool.py", "fleet/replica.py", "fleet/router.py", "kernels/
                "obs/crosscheck.py", "core/tacitmap.py", "core/wdm.py", "core/custbinarymap.py",
                "core/networks.py", "core/costmodel.py", "core/einsteinbarrier.py",
                "mapping/__init__.py", "mapping/ir.py", "mapping/allocator.py",
-               "mapping/schedule.py", "mapping/report.py")
+               "mapping/schedule.py", "mapping/report.py", "tree.py", "models/scan.py",
+               "optim/__init__.py", "optim/adamw.py", "optim/schedule.py", "data/__init__.py",
+               "data/synthetic.py", "checkpoint/__init__.py", "checkpoint/manager.py",
+               "train/__init__.py", "train/loop.py", "launch/train.py")
 
 
 def test_import_scan_covers_the_new_modules():
@@ -289,3 +294,28 @@ def test_faults_and_paper_entry_points_default_to_cuda():
         compiler.compile(cfg, params, target)
     assert model.init_mlp(gen, model.MLPConfig(), device="cpu")["w0"].device.type == "cpu"
     assert compiler.compile(cfg, params, target, device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_default_to_cuda(tmp_path):
+    """The training slice's entry points: ``train()``, the launcher and
+    the synthetic batches run on ``cuda`` unless asked for the CPU, and
+    raise without a card."""
+    _needs_no_cuda()
+    from repro_torch.data import bnn_image_batch, lm_batch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import TrainLoopConfig, train
+
+    cfg = get_smoke_config("tinyllama-1.1b")
+    loop = TrainLoopConfig(total_steps=1, batch_size=1, seq_len=8, checkpoint_dir=str(tmp_path))
+    with pytest.raises(CudaUnavailableError):
+        train(cfg, loop)
+    with pytest.raises(CudaUnavailableError):
+        train_cli.run(["--arch", "tinyllama-1.1b", "--smoke", "--steps", "1", "--ckpt",
+                       str(tmp_path)])
+    with pytest.raises(CudaUnavailableError):
+        lm_batch(cfg, 1, 8)
+    with pytest.raises(CudaUnavailableError):
+        bnn_image_batch(1)
+    assert list(tmp_path.iterdir()) == []  # nothing ran
+    assert lm_batch(cfg, 1, 8, device="cpu")["tokens"].device.type == "cpu"
+    assert train(cfg, loop, device="cpu", log=lambda s: None)["final_step"] == 0
