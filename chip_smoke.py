@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py [--mma-only | --flash-only | --hamming-only | --fused-only |
                            --kernels-only | --telemetry-only | --simulators-only |
-                           --faults-only | --train-only]
+                           --faults-only | --train-only | --breadth-only]
 
 Each ``--*-only`` argument stops after those kernels' checks and timings
 (``--kernels-only``: every kernel's; ``--telemetry-only``,
-``--simulators-only``, ``--faults-only`` and ``--train-only``: the build
-and that phase alone) and prints no result line. Needs one
+``--simulators-only``, ``--faults-only``, ``--train-only`` and
+``--breadth-only``: the build and that phase alone) and prints no result
+line. Needs one
 CUDA card (device 0), the CUDA toolkit's ``nvcc`` and ``nvidia-smi``;
 exits non-zero without them. Phases, each announced on its own
 ``[phase]`` line:
@@ -83,7 +84,19 @@ exits non-zero without them. Phases, each announced on its own
    300 steps and read out on four engines; a ``{"train": ...}`` JSON
    line. The fused launches of its serve join row 1's count. The script
    sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before CUDA starts, for the
-   deterministic cuBLAS the bitwise resume needs.
+   deterministic cuBLAS the bitwise resume needs;
+11. breadth: the MoE, Mamba-2 and hybrid decoder stacks -- (a)
+   qwen3-moe-235b-a22b at full width, depth cut to 2 layers, on both
+   attention paths, (b) mamba2-2.7b at full width and depth, (c)
+   jamba-1.5-large-398b's smoke config (a full-width repeat outgrows the
+   card): lockstep packed == reference bit for bit, 8 slots == each
+   request alone, evict/restore unchanged, with prefill ms, decode tok/s,
+   launches per tick, a profiled tick and peak memory; (a)'s attention
+   through the flash kernel == the plain ops' at its shape within
+   ``ATTN_TOL``; mamba2 launches
+   no kernel; jamba refuses ``prefill_continue`` and serves a 2-replica
+   fleet with no graft; a ``{"breadth": ...}`` JSON line. (a)'s fused
+   ``b1`` and flash ``sm90`` launches join rows 1 and 3.
 
 Then one ``{"kernels": [...]}`` JSON line, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -500,6 +513,8 @@ FLASH_CASES = (
     ("continuation 64 over 320", 1, 32, 4, 64, 320, 64, True),
     ("ragged 200", 2, 32, 4, 200, 200, 64, True),
     ("llama3.2-3b D=128", 1, 24, 8, 512, 512, 128, True),
+    # the breadth phase's qwen3-moe-235b-a22b prefill: 64 heads, GQA groups of 16
+    ("qwen3-moe prefill", 8, 64, 4, 128, 128, 64, True),
     ("non-causal square", 1, 32, 4, 128, 128, 64, False),
     # fewer queries than a tile over a ragged key length: the masked edge
     # tile without a diagonal
@@ -1161,6 +1176,30 @@ def drive_fleet(fleet, reqs, device: str) -> tuple[list, float]:
     return states, time.perf_counter() - t0
 
 
+def _attention_impls_agree(cfg, device: str, what: str) -> float:
+    """One layer's attention at ``cfg``'s lockstep prefill shape (BATCH x
+    PROMPT, its query and KV heads) on seeded bf16 q/k/v, through
+    ``multi_head_attention`` (the function the model calls) with
+    ``impl="pallas"`` (the flash kernel) and ``"jnp"`` (plain ops): the
+    max |diff|, which must be within ATTN_TOL."""
+    import torch
+
+    from repro_torch.models import layers as layers_lib
+
+    attn = [torch.randn((BATCH, PROMPT, n, cfg.hd), generator=torch.Generator(device=device)
+                        .manual_seed(SEED + i), device=device).to(torch.bfloat16)
+            for i, n in enumerate((cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))]
+    pos = torch.arange(PROMPT, device=device)
+    by_impl = [layers_lib.multi_head_attention(*attn, pos, pos, causal=True,
+                                               chunk=cfg.attn_chunk, impl=impl)
+               for impl in ("jnp", "pallas")]
+    ok, diff = _within(by_impl[1], by_impl[0], ATTN_TOL, ATTN_TOL)
+    if not ok:
+        raise AssertionError(f"{what}: one layer's attention, pallas vs jnp: max |diff| {diff} "
+                             f"beyond {ATTN_TOL}")
+    return diff
+
+
 def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
     """The flash-attention path: tinyllama-1.1b with ``attn_impl="pallas"``
     through ``compile()``: (a) the lockstep batch on ``packed`` and
@@ -1171,9 +1210,12 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
     so with 16-, 8- and 1-row suffixes, for both attention paths; (c) a
     2-replica fleet with prefix routing on the shared-prefix trace:
     grafts happen, every request's tokens equal a single engine's, and
-    the flash kernel launched once per layer per prefill or continuation;
-    (d) the single engine of 8 slots equals each request alone, for both
-    attention paths. Returns the flash launches of the fleet run."""
+    the flash kernel launched once per layer per prefill or continuation
+    (grafts == alone holds on dense-FFN stacks only: an MoE continuation
+    follows the reference's, whose expert capacity depends on the
+    sequence length); (d) the single engine of 8 slots equals each
+    request alone, for both attention paths. Returns the flash launches
+    of the fleet run."""
     import dataclasses
 
     import numpy as np
@@ -1183,7 +1225,6 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.device import synchronize
     from repro_torch.launch import serve
-    from repro_torch.models import layers as layers_lib
     from repro_torch.models import lm
 
     cfg = dataclasses.replace(get_smoke_config(ARCH) if smoke else get_config(ARCH),
@@ -1227,17 +1268,7 @@ def serve_pallas_phase(device: str = "cuda", smoke: bool = False) -> int:
     jnp_lock = serve.lockstep(jnp_model, tokens, GEN)
     del jnp_model
     bnn_diff = (logits - jnp_lock["prefill_logits"])[:, : cfg.vocab_size].abs().max().item()
-    attn = [torch.randn((BATCH, PROMPT, n, cfg.hd), generator=torch.Generator(device=device)
-                        .manual_seed(SEED + i), device=device).to(torch.bfloat16)
-            for i, n in enumerate((cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))]
-    pos = torch.arange(PROMPT, device=device)
-    by_impl = [layers_lib.multi_head_attention(*attn, pos, pos, causal=True,
-                                               chunk=cfg.attn_chunk, impl=impl)
-               for impl in ("jnp", "pallas")]
-    ok, attn_diff = _within(by_impl[1], by_impl[0], ATTN_TOL, ATTN_TOL)
-    if not ok:
-        raise AssertionError(f"one layer's attention, pallas vs jnp: max |diff| {attn_diff} "
-                             f"beyond {ATTN_TOL}")
+    attn_diff = _attention_impls_agree(cfg, device, "pallas")
     fp = {}
     for impl in ("jnp", "pallas"):
         m_ = compiler.compile(dataclasses.replace(cfg, attn_impl=impl, quant="none"), params(),
@@ -2433,6 +2464,295 @@ def train_phase(device: str = "cuda", smoke: bool = False) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: breadth -- MoE FFNs, the Mamba-2 SSD mixer, the hybrid stack
+# ---------------------------------------------------------------------------
+
+BREADTH_MOE = "qwen3-moe-235b-a22b"
+# full width, depth cut to 2 of its 94 layers: 9.81 GB of fp32 latents
+# per layer plus 4.98 GB of embedding and untied head
+BREADTH_MOE_LAYERS = 2
+BREADTH_SSM = "mamba2-2.7b"  # full width and depth: 64 layers, 10.8 GB
+# at full width one 8-layer repeat holds ~176 GB of fp32 latents, which
+# no single card holds: its smoke config runs here
+BREADTH_HYBRID = "jamba-1.5-large-398b"
+# request prompts: qwen3-moe's as the serve phase's (64-128 tokens); the
+# Mamba stack's below the conv tail (3), below the 80 SSD heads and past
+SSM_PROMPTS = (1, 2, 3, 7, 33, 64, 79, 96)
+
+
+def _breadth_requests(cfg, lengths) -> list:
+    """One request per prompt length, tokens from ``REQUEST_SEED``."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(REQUEST_SEED)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                    max_new_tokens=GEN) for i, n in enumerate(lengths)]
+
+
+def _requests_equal_alone(model, reqs, what: str) -> dict:
+    """The request path's invariants on ``model``: the requests in 8
+    slots, and again with one more request of higher priority arriving
+    after 3 ticks (it evicts a running one, restored later); every
+    generation equals the request served alone (``serve()`` with one
+    slot). Returns the counts and the 8-slot run's wall time and tok/s."""
+    import dataclasses
+
+    from repro_torch.device import synchronize
+    from repro_torch.serving import SchedulerConfig
+
+    max_len = max(len(r.prompt) for r in reqs) + GEN
+    alone = {}
+    for r in reqs:
+        se1 = model.serve(max_batch=1, max_len=max_len)
+        st = se1.submit(r)
+        se1.drain()
+        alone[r.rid] = tuple(st.generated)
+    synchronize(model.device)
+    t0 = time.perf_counter()
+    se = model.serve(max_batch=BATCH, max_len=max_len)
+    states = [se.submit(r) for r in reqs]
+    se.drain()
+    synchronize(model.device)
+    wall = time.perf_counter() - t0
+    toks = sum(len(st.generated) for st in states)
+    for st in states:
+        if tuple(st.generated) != alone[st.request.rid]:
+            raise AssertionError(f"{what}: request {st.request.rid} in {BATCH} slots != alone")
+    late = dataclasses.replace(reqs[0], rid=len(reqs), priority=5)
+    alone[late.rid] = alone[reqs[0].rid]
+    se = model.serve(max_batch=BATCH, max_len=max_len, scheduler=SchedulerConfig())
+    states = [se.submit(r) for r in reqs]
+    for _ in range(3):
+        se.step()
+    states.append(se.submit(late))
+    se.drain()
+    stats = se.stats()
+    if not stats.evictions == stats.restores >= 1:
+        raise AssertionError(f"{what}: evictions {stats.evictions}, restores {stats.restores}")
+    for st in states:
+        if tuple(st.generated) != alone[st.request.rid]:
+            raise AssertionError(f"{what}: request {st.request.rid} after evict/restore != alone")
+    print(f"[breadth] {what} request path: {len(reqs)} requests (prompts "
+          f"{min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)}, gen {GEN}) in "
+          f"{BATCH} slots in {wall * 1e3:.1f} ms ({toks / wall:.1f} tok/s), each == alone; with a "
+          f"priority arrival after 3 ticks: {stats.evictions} eviction(s) and restore(s), every "
+          f"request == alone", flush=True)
+    return {"requests": len(reqs), "evictions": stats.evictions, "wall_ms": wall * 1e3,
+            "tok_s": toks / wall}
+
+
+def _fused_per_step(cfg) -> int:
+    """Fused BitLinear launches per prefill or decode tick on ``packed``:
+    [q|k|v] and o per attention layer, w1, w3 and w2 per dense-FFN layer
+    (Mamba projections and MoE experts are plain products)."""
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    return sum(2 * (k.mixer == "attn") + 3 * (not k.moe and cfg.d_ff > 0) for k in kinds)
+
+
+def _breadth_model(cfg, params_fn, reqs, device: str, what: str, keep: dict | None = None) -> dict:
+    """One configuration of the breadth phase: on ``packed``, the lockstep
+    batch (8 x 128 tokens, ``GEN - 1`` ticks) read for its fused and
+    flash launches, a profiled tick and the request path; then on
+    ``reference`` (one model at a time, so the expert stacks are never
+    held twice) the same lockstep batch, whose tokens and prefill logits
+    must equal packed's bit for bit. ``keep`` receives the packed
+    lockstep's ``generated`` tokens and ``prefill_logits``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.launch import serve
+
+    on_card = device == "cuda"
+    tokens = serve.prompts(cfg, BATCH, PROMPT, SEED)
+    _fresh_peak(on_card)
+    packed = compiler.compile(cfg, params_fn(), compiler.HardwareTarget(engine="packed"),
+                              device=device)
+    serve.lockstep(packed, tokens, 2)  # warm-up: start-up costs out of the timed run
+    _reset_counts()
+    lock = serve.lockstep(packed, tokens, GEN)
+    counts = {**_counts(), "flash_attention": _flash_count()}
+    variants = {"fused_bnn_matmul": _fused_variants(), "flash_attention": _flash_variants()}
+    peak = _peak_gib(on_card)
+    n_fused = _fused_per_step(cfg) * GEN
+    n_flash = sum(k.mixer == "attn" for k in cfg.pattern) * cfg.n_repeats \
+        if cfg.attn_impl == "pallas" else 0
+    _check_launches(device, {**counts, **{f"{k} by variant": v for k, v in variants.items()}},
+                    {"fused_bnn_matmul": n_fused, "hamming_matmul": 0, "flash_attention": n_flash,
+                     "fused_bnn_matmul by variant": {"popc": 0, "b1": n_fused},
+                     "flash_attention by variant": {"fma": 0, "sm90": n_flash}},
+                    f"{what} packed lockstep")
+    logits, gen = lock["prefill_logits"], lock["generated"]
+    if keep is not None:
+        keep.update(generated=gen, prefill_logits=logits[:, : cfg.vocab_size].cpu())
+    if not torch.isfinite(logits[:, : cfg.vocab_size]).all():
+        raise AssertionError(f"{what}: prefill logits not finite")
+    if gen.shape != (BATCH, GEN) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"{what}: generations of shape {gen.shape} out of the vocab")
+    tick_ms = lock["decode_s"] * 1e3 / (GEN - 1)
+    peak_txt = "not measured" if peak is None else f"{peak:.2f} GiB"
+    print(f"[breadth] {what} packed lockstep batch={BATCH} prompt={PROMPT} gen={GEN}: prefill "
+          f"{lock['prefill_s'] * 1e3:.2f} ms, decode {GEN - 1} ticks {lock['decode_s'] * 1e3:.2f} "
+          f"ms ({lock['decode_tok_s']:.1f} tok/s, {tick_ms:.2f} ms/tick); launches {counts}: "
+          f"{n_fused // GEN} fused per prefill or tick, {n_flash} flash per prefill, by variant "
+          f"{variants}; peak {peak_txt}", flush=True)
+    profile_decode(packed, tokens, tick_ms)
+    res = {"prefill_ms": lock["prefill_s"] * 1e3, "decode_tok_s": lock["decode_tok_s"],
+           "tick_ms": tick_ms, "launches": counts, "by_variant": variants, "peak_gib": peak}
+    _reset_counts()
+    res["requests"] = _requests_equal_alone(packed, reqs, what)
+    res["request_launches"] = {**_counts(), "flash_attention": _flash_count()}
+    if on_card and n_fused and (res["request_launches"]["fused_bnn_matmul"] == 0
+                                or _fused_variants()["popc"]):
+        raise AssertionError(f"{what}: request path launched {res['request_launches']}, fused "
+                             f"by variant {_fused_variants()}")
+    _release({"compiled": packed})
+    del packed
+    _fresh_peak(on_card)
+    ref_model = compiler.compile(dataclasses.replace(cfg, quant="bnn"), params_fn(),
+                                 compiler.HardwareTarget(engine="reference"), device=device)
+    ref = serve.lockstep(ref_model, tokens, GEN)
+    _release({"compiled": ref_model})
+    del ref_model
+    if not np.array_equal(ref["generated"], gen):
+        bad = int((ref["generated"] != gen).sum())
+        raise AssertionError(f"{what}: packed generations differ from reference in {bad} tokens")
+    if not torch.equal(ref["prefill_logits"], logits):
+        raise AssertionError(f"{what}: packed prefill logits differ from the reference engine's")
+    res["reference_decode_tok_s"] = ref["decode_tok_s"]
+    print(f"[breadth] {what} reference lockstep: prefill {ref['prefill_s'] * 1e3:.2f} ms, decode "
+          f"{ref['decode_tok_s']:.1f} tok/s; packed == reference: all {gen.size} tokens and the "
+          f"prefill logits bit for bit", flush=True)
+    return res
+
+
+def breadth_phase(device: str = "cuda", smoke: bool = False) -> dict:
+    """The MoE, Mamba-2 and hybrid decoder stacks through ``compile()`` /
+    ``serve()`` on seeded random weights:
+
+    (a) qwen3-moe-235b-a22b at full width (d 4096, 64 / 4 heads of 64,
+        128 experts top-8, d_ff 1536, vocab 151936), depth cut to 2
+        layers, with ``attn_impl="jnp"`` and ``"pallas"`` (flash ``sm90``
+        at D = 64): lockstep on ``packed`` (fused ``b1`` for [q|k|v] and
+        o) == ``reference``, 8 slots == alone, evict/restore unchanged;
+        one layer's attention at its prefill shape through the flash
+        kernel == through the plain ops within ATTN_TOL;
+    (b) mamba2-2.7b at full width and depth: the same checks, with
+        request prompts of 1 to 96 tokens; it launches no kernel (no
+        projection of a Mamba stack is a BitLinear, in the reference
+        either), and its profiled tick gives its device time;
+    (c) jamba-1.5-large-398b's smoke config on ``packed`` == ``reference``,
+        8 slots == alone across attention, Mamba and MoE caches,
+        ``prefill_continue`` raising ``PrefixContinuationError``, and a
+        2-replica prefix-routed fleet serving it with no graft, each
+        request == a single engine's.
+
+    ``device="cpu", smoke=True`` rehearses it at the smoke configs' size.
+    Returns the phase's numbers; ``fused_bnn_matmul`` and
+    ``flash_attention`` are (a)'s packed lockstep launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+
+    def config(arch):
+        return get_smoke_config(arch) if smoke else get_config(arch)
+
+    def seeded(cfg):
+        return lambda: lm.init_params(torch.Generator(device=device).manual_seed(SEED), cfg,
+                                      device=device)
+
+    res: dict = {}
+    moe_cfg = config(BREADTH_MOE)
+    if not smoke:
+        moe_cfg = dataclasses.replace(moe_cfg, n_layers=BREADTH_MOE_LAYERS)
+    lengths = np.random.default_rng(REQUEST_SEED).integers(PROMPT // 2, PROMPT + 1, size=BATCH)
+    moe_reqs = _breadth_requests(moe_cfg, [int(n) for n in lengths])
+    by_impl: dict = {}
+    for impl in ("jnp", "pallas"):
+        cfg = dataclasses.replace(moe_cfg, attn_impl=impl)
+        res[f"a_{impl}"] = _breadth_model(cfg, seeded(cfg), moe_reqs, device,
+                                          f"(a) {cfg.name} {cfg.n_layers} layers attn={impl}",
+                                          keep=by_impl.setdefault(impl, {}))
+    # packed == reference above holds flash against flash: the flash
+    # kernel is held against the plain ops here, at this model's shape
+    # (64 heads, GQA groups of 16), within ATTN_TOL (and in check_flash
+    # against its plain version at the same shape). Whole-model logits
+    # get no bound: a binarized sign or an expert choice that flips
+    # moves a logit by O(1); their difference is reported.
+    attn_diff = _attention_impls_agree(moe_cfg, device, f"(a) {moe_cfg.name}")
+    logit_diff = (by_impl["pallas"]["prefill_logits"]
+                  - by_impl["jnp"]["prefill_logits"]).abs().max().item()
+    same = int((by_impl["pallas"]["generated"] == by_impl["jnp"]["generated"]).sum())
+    res["a_pallas"].update(attn_vs_jnp=attn_diff, prefill_logits_vs_jnp=logit_diff,
+                           tokens_equal_jnp=same)
+    print(f"[breadth] (a) {moe_cfg.name} attn=pallas vs attn=jnp: one layer's attention at "
+          f"B={BATCH} H={moe_cfg.n_heads} KV={moe_cfg.n_kv_heads} S={PROMPT} D={moe_cfg.hd} "
+          f"max |diff| {attn_diff:.4g} (tol {ATTN_TOL}); binarized prefill logits max |diff| "
+          f"{logit_diff:.4g}, tokens equal in {same} of {BATCH * GEN}", flush=True)
+
+    ssm_cfg = config(BREADTH_SSM)
+    res["b"] = _breadth_model(ssm_cfg, seeded(ssm_cfg), _breadth_requests(ssm_cfg, SSM_PROMPTS),
+                              device, f"(b) {ssm_cfg.name} {ssm_cfg.n_layers} layers")
+    launched = res["b"]["launches"], res["b"]["request_launches"]
+    if any(n for counts in launched for n in counts.values()):
+        raise AssertionError(f"(b) {ssm_cfg.name} launched kernels: {launched}")
+    print(f"[breadth] (b) {ssm_cfg.name} launched no kernel (lockstep {launched[0]}, request "
+          f"path {launched[1]})", flush=True)
+
+    hyb = get_smoke_config(BREADTH_HYBRID)
+    res["c"] = _breadth_model(hyb, seeded(hyb), _breadth_requests(hyb, SSM_PROMPTS), device,
+                              f"(c) {hyb.name}")
+    model = compiler.compile(hyb, seeded(hyb)(), compiler.HardwareTarget(engine="packed"),
+                             device=device)
+    _, pre = model.prefill(torch.zeros((1, 8), dtype=torch.int64))
+    try:
+        model.prefill_continue(torch.zeros((1, 4), dtype=torch.int64), pre)
+    except lm.PrefixContinuationError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"(c) {hyb.name}: prefill_continue over Mamba slots did not raise")
+    fleet = build_fleet(hyb, seeded(hyb)(), device)
+    reqs = fleet_requests(hyb)
+    states, wall = drive_fleet(fleet, reqs, device)
+    st = fleet.stats()
+    if st.finished != len(reqs) or st.grafted_tokens or st.prefix_hits or any(
+            r.serving.supports_prefix_graft for r in fleet.replicas.values()):
+        raise AssertionError(f"(c) fleet finished {st.finished} of {len(reqs)}, grafted "
+                             f"{st.grafted_tokens} tokens, prefix hits {st.prefix_hits}")
+    se = model.serve(max_batch=BATCH, max_len=PREFIX_LEN + SUFFIX[1] + GEN)
+    single = [se.submit(r) for r in reqs]
+    se.drain()
+    for f, s_ in zip(states, single, strict=True):
+        if tuple(f.generated) != tuple(s_.generated):
+            raise AssertionError(f"(c) fleet request {f.request.rid} != single engine")
+    res["c"]["fleet_tok_s"] = sum(len(s.generated) for s in states) / wall
+    print(f"[breadth] (c) {hyb.name}: prefill_continue refused ({refused[:80]}...); fleet 2 "
+          f"replicas x {BATCH} slots, routing=prefix: {len(reqs)} requests, no graft (prefix "
+          f"hits {st.prefix_hits}, grafted {st.grafted_tokens}), every request == a single "
+          f"engine's", flush=True)
+    del model, fleet, se
+
+    res["seconds"] = time.perf_counter() - t_phase
+    res["fused_bnn_matmul"] = sum(res[f"a_{i}"]["launches"]["fused_bnn_matmul"]
+                                  for i in ("jnp", "pallas"))
+    res["flash_attention"] = res["a_pallas"]["launches"]["flash_attention"]
+    print(json.dumps({"breadth": res}), flush=True)
+    print(f"[breadth] phase {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def kernel_summary(checked: dict, launches: dict) -> list[dict]:
     """One entry per kernel: the sums over one tinyllama-1.1b layer's
     launches in a decode tick of 8 slots."""
@@ -2513,7 +2833,7 @@ ONLY = {  # an argument that stops after some kernels' checks and times (no resu
 
 # a phase alone, after the build (no result line)
 ALONE = {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
-         "--faults-only": "faults", "--train-only": "train"}
+         "--faults-only": "faults", "--train-only": "train", "--breadth-only": "breadth"}
 
 
 def main(argv: list[str]) -> int:
@@ -2534,7 +2854,7 @@ def main(argv: list[str]) -> int:
         name = ALONE[argv[0]]
         phase(name)
         {"telemetry": telemetry_phase, "simulators": simulators_phase,
-         "faults": faults_phase, "train": train_phase}[name]()
+         "faults": faults_phase, "train": train_phase, "breadth": breadth_phase}[name]()
         print(card, flush=True)
         return 0
     phase("kernels")
@@ -2572,6 +2892,12 @@ def main(argv: list[str]) -> int:
     trained = train_phase()["fused_bnn_matmul"]
     launches["fused_bnn_matmul"] += trained
     BY_VARIANT["fused_bnn_matmul"]["b1"] += trained
+    phase("breadth")
+    breadth = breadth_phase()
+    launches["fused_bnn_matmul"] += breadth["fused_bnn_matmul"]
+    BY_VARIANT["fused_bnn_matmul"]["b1"] += breadth["fused_bnn_matmul"]
+    launches["flash_attention"] += breadth["flash_attention"]
+    BY_VARIANT["flash_attention"]["sm90"] += breadth["flash_attention"]
     summary = kernel_summary(checked, launches) + launch_summary(flash, mma, launches)
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

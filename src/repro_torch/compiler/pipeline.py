@@ -383,12 +383,12 @@ class CompiledModel:
 
     @torch.no_grad()
     def graft_prefill_caches(self, caches: dict, pre_caches: dict) -> dict:
-        """Copy prefill-sized caches into the time prefix of serving-
-        capacity caches from :meth:`init_cache`, in place."""
+        """Copy prefill-sized caches into serving-capacity caches from
+        :meth:`init_cache`, in place: attention K/V rows into the time
+        prefix, Mamba conv tails and states whole (``lm.graft_cache_``)."""
         for slot, kv in pre_caches.items():
             for name, src in kv.items():
-                dst = caches[slot][name]
-                dst[:, :, : src.shape[2]] = src.to(dst.dtype)
+                lm_lib.graft_cache_(caches[slot][name], src, name)
         return caches
 
     def serve(self, *, max_batch: int = 4, max_len: int = 256, scheduler=None):

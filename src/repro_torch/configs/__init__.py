@@ -1,10 +1,10 @@
 """Architecture configs (``--arch <id>``), own copies of ``repro/configs``.
 
 Each module defines ``CONFIG`` (the published numbers) and
-``smoke_config()`` (a reduced same-family variant for CPU tests). This
-slice serves the attention-only dense architectures; the other ids of
-the reference's pool raise ``NotImplementedError`` naming the slice that
-brings them.
+``smoke_config()`` (a reduced same-family variant for CPU tests). The
+port serves the decoder architectures: dense, MoE, Mamba-2 and the
+hybrid Jamba stack. The encoder-decoder and vision ids raise
+``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -27,15 +27,22 @@ ARCH_IDS: tuple[str, ...] = (
     "mamba2-2.7b",
 )
 
-SERVED: tuple[str, ...] = ("qwen1.5-0.5b", "tinyllama-1.1b", "qwen2-72b", "llama3.2-3b")
+SERVED: tuple[str, ...] = (
+    "jamba-1.5-large-398b",
+    "grok-1-314b",
+    "qwen3-moe-235b-a22b",
+    "qwen1.5-0.5b",
+    "tinyllama-1.1b",
+    "qwen2-72b",
+    "llama3.2-3b",
+    "mamba2-2.7b",
+)
 
 PENDING = {
-    "jamba-1.5-large-398b": "hybrid Mamba/MoE stacks arrive with the model-breadth slice",
-    "internvl2-1b": "the vision frontend arrives with the model-breadth slice",
-    "grok-1-314b": "MoE FFNs arrive with the model-breadth slice",
-    "qwen3-moe-235b-a22b": "MoE FFNs arrive with the model-breadth slice",
-    "seamless-m4t-large-v2": "encoder-decoder models arrive with the model-breadth slice",
-    "mamba2-2.7b": "Mamba-2 SSD mixers arrive with the model-breadth slice",
+    "internvl2-1b": "the vision frontend (prefill(extra_embeds=)) arrives with the "
+                    "enc-dec / vision slice",
+    "seamless-m4t-large-v2": "encoder-decoder models (models/encdec.py) arrive with the "
+                             "enc-dec / vision slice",
 }
 
 

@@ -4,8 +4,12 @@ port's.
 :func:`params_from_jax` takes the LM parameter pytree with numpy leaves
 (for example ``jax.tree.map(np.asarray,
 repro.models.lm.init_params(key, cfg))``): a nested dict whose block
-parameters are stacked over repeats, ``(R, m, n)`` per projection and
-``(R, d)`` per norm, and builds an ``LM``. :func:`params_dict` carries a
+parameters are stacked over repeats, ``(R, m, n)`` per projection,
+``(R, E, d, f)`` per expert stack and ``(R, d)`` per norm, with an
+``attn`` or ``mamba`` mixer and an ``ffn``, ``moe`` or no FFN per slot,
+and builds an ``LM``. :func:`mamba_from_jax` and :func:`moe_from_jax`
+take one layer's unstacked ``mamba`` / ``moe`` subtree (the reference's
+``ssm.mamba_init`` / ``moe.moe_init``). :func:`params_dict` carries a
 flat parameter dict, such as the paper MLP's or LeNet's
 (``repro.core.model.init_mlp`` / ``init_conv``), into fp32 tensors for
 ``repro_torch.core.model``. Both packages then compute on the same
@@ -30,6 +34,29 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.layers import FFN, Attention, BitLinear
 from repro_torch.models.lm import LM, Block
+from repro_torch.models.moe import MoE
+from repro_torch.models.ssm import Mamba
+
+
+def _to(dev):
+    def t(x) -> torch.Tensor:
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+    return t
+
+
+def mamba_from_jax(p: dict, *, device=None) -> Mamba:
+    """One layer's reference ``mamba`` subtree (numpy leaves) -> a
+    :class:`Mamba` on ``device`` (default ``cuda``)."""
+    t = _to(resolve_device(device))
+    return Mamba(**{name: t(p[name]["w"]) for name in Mamba.PROJECTIONS},
+                 **{name: t(p[name]) for name in Mamba.VECTORS})
+
+
+def moe_from_jax(p: dict, *, device=None) -> MoE:
+    """One layer's reference ``moe`` subtree (numpy leaves) -> a
+    :class:`MoE` on ``device`` (default ``cuda``)."""
+    t = _to(resolve_device(device))
+    return MoE(*(t(p[name]) for name in MoE.LEAVES))
 
 
 def params_from_jax(tree: dict, *, device=None) -> LM:
@@ -37,33 +64,31 @@ def params_from_jax(tree: dict, *, device=None) -> LM:
     (default ``cuda``). Layer ``r * P + i`` takes repeat ``r`` of slot
     ``i``, the order the reference's scan applies them in."""
     dev = resolve_device(device)
-
-    def t(x) -> torch.Tensor:
-        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+    t = _to(dev)
 
     def proj(p: dict, r: int) -> BitLinear:
         return BitLinear(t(p["w"][r]), t(p["b"][r]) if "b" in p else None)
 
+    def repeat(sub: dict, r: int) -> dict:
+        return tree_lib.tree_map(lambda x: x[r], sub)
+
+    def block(sp: dict, r: int) -> Block:
+        if "attn" in sp:
+            mixer = Attention(*(proj(sp["attn"][k], r) for k in ("q", "k", "v", "o")))
+        else:
+            mixer = mamba_from_jax(repeat(sp["mamba"], r), device=dev)
+        if "moe" in sp:
+            f = moe_from_jax(repeat(sp["moe"], r), device=dev)
+        elif "ffn" in sp:
+            f = FFN(*(proj(sp["ffn"][k], r) for k in ("w1", "w3", "w2")))
+        else:
+            return Block(t(sp["norm1"][r]), mixer)
+        return Block(t(sp["norm1"][r]), mixer, t(sp["norm2"][r]), f)
+
     slots = tree["blocks"]
     n_slots = len(slots)
-    for name, sp in slots.items():
-        if "attn" not in sp or "ffn" not in sp:
-            raise NotImplementedError(
-                f"block {name} holds {sorted(sp)}: only attention + dense FFN "
-                "blocks are ported (Mamba/MoE arrive with the model-breadth slice)"
-            )
     n_repeats = slots["slot0"]["norm1"].shape[0]
-    blocks = []
-    for r in range(n_repeats):
-        for i in range(n_slots):
-            sp = slots[f"slot{i}"]
-            a, f = sp["attn"], sp["ffn"]
-            blocks.append(Block(
-                t(sp["norm1"][r]),
-                Attention(*(proj(a[k], r) for k in ("q", "k", "v", "o"))),
-                t(sp["norm2"][r]),
-                FFN(*(proj(f[k], r) for k in ("w1", "w3", "w2"))),
-            ))
+    blocks = [block(slots[f"slot{i}"], r) for r in range(n_repeats) for i in range(n_slots)]
     head = t(tree["head"]) if "head" in tree else None
     return LM(t(tree["embed"]), t(tree["final_norm"]), head, blocks, n_slots)
 

@@ -36,17 +36,26 @@ PREPAD_COLS = 128
 MEAN_ROWS = 16
 
 
+def _row_reduce(x: torch.Tensor, reduce) -> torch.Tensor:
+    x2 = x.reshape(-1, x.shape[-1])
+    rows = x2.shape[0]
+    if rows < MEAN_ROWS:
+        x2 = F.pad(x2, (0, 0, 0, MEAN_ROWS - rows))
+    return reduce(x2)[:rows].reshape(*x.shape[:-1], 1)
+
+
 def row_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean over the last dim, keepdim, with per-row arithmetic that does
     not depend on the number of rows in the call: a decode tick of 8
     lanes, one request alone, a 1-token continuation and a full prefill
     give each row the same bits (the serving invariants need it; the CPU
     reduction has the property already, and padding leaves it so)."""
-    x2 = x.reshape(-1, x.shape[-1])
-    rows = x2.shape[0]
-    if rows < MEAN_ROWS:
-        x2 = F.pad(x2, (0, 0, 0, MEAN_ROWS - rows))
-    return x2.mean(dim=-1)[:rows].reshape(*x.shape[:-1], 1)
+    return _row_reduce(x, lambda x2: x2.mean(dim=-1))
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim, keepdim, padded as :func:`row_mean` is."""
+    return _row_reduce(x, lambda x2: x2.sum(dim=-1))
 
 
 # ---------------------------------------------------------------------------

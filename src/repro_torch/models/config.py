@@ -2,8 +2,9 @@
 ``LayerKind`` / ``ModelConfig`` schema, so the port imports nothing of
 ``repro``).
 
-One frozen dataclass covers every family of the reference's pool; this
-slice of the port serves the attention-only dense patterns
+One frozen dataclass covers every family of the reference's pool; the
+port serves the decoder patterns (attention or Mamba mixers, dense or
+MoE FFNs), not yet the encoder-decoder and vision ones
 (:func:`require_servable`).
 """
 
@@ -163,24 +164,15 @@ class ModelConfig:
 
 def require_servable(cfg: ModelConfig) -> ModelConfig:
     """Raise ``NotImplementedError`` naming the later slice for a config
-    this slice cannot serve (MoE, Mamba/hybrid, enc-dec, vision)."""
+    the port cannot serve yet (encoder-decoder, a modality frontend)."""
     if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models arrive with the model-breadth "
+            f"{cfg.name}: encoder-decoder models arrive with the enc-dec / vision "
             "slice (models/encdec.py)"
-        )
-    if cfg.has_mamba:
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba/SSM mixers arrive with the model-breadth slice "
-            "(models/ssm.py)"
-        )
-    if any(kind.moe for kind in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs arrive with the model-breadth slice (models/moe.py)"
         )
     if cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend arrives with the "
-            "model-breadth slice"
+            f"{cfg.name}: the {cfg.frontend} frontend arrives with the enc-dec / "
+            "vision slice"
         )
     return cfg

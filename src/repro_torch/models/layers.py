@@ -371,6 +371,30 @@ def multi_head_attention(
     return out.transpose(1, 2).to(q.dtype)
 
 
+def lane_blocks(fn, *ts: torch.Tensor) -> torch.Tensor:
+    """``fn(*ts)`` computed on blocks of ``ROW_BLOCK`` lanes along dim 0
+    (the last block zero-padded), so every call has one shape whatever
+    the lane count: a library op picks its algorithm by shape, and a
+    lane's result must not depend on how many slots share the tick
+    (batched == solo). ``fn`` keeps lanes apart and returns them on
+    dim 0."""
+    b = ts[0].shape[0]
+    pad = (-b) % ROW_BLOCK
+    if pad:
+        ts = tuple(F.pad(t, (0, 0) * (t.ndim - 1) + (0, pad)) for t in ts)
+    out = torch.cat([fn(*(t[i : i + ROW_BLOCK] for t in ts)) for i in range(0, b + pad, ROW_BLOCK)])
+    return out[:b]
+
+
+def row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., K) and w (K, N) with every product call of
+    shape (``ROW_BLOCK``, K) x (K, N) (``rowblock_matmul`` over the
+    flattened rows): a row's bits depend neither on the batch nor on how
+    many lanes share a decode tick."""
+    x2 = x.reshape(-1, x.shape[-1])
+    return rowblock_matmul(x2, w, 0).reshape(*x.shape[:-1], w.shape[-1])
+
+
 def decode_attention(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: torch.Tensor
 ) -> torch.Tensor:
@@ -383,17 +407,7 @@ def decode_attention(
     every product has one shape whatever the lane count: a GEMM picks
     its algorithm by shape, and a lane's result must not depend on how
     many slots share the tick (batched == solo)."""
-    b = q.shape[0]
-    pad = (-b) % ROW_BLOCK
-    if pad:
-        q, k_cache, v_cache = (F.pad(t, (0, 0, 0, 0, 0, 0, 0, pad)) for t in (q, k_cache, v_cache))
-        cache_len = F.pad(cache_len, (0, pad), value=1)
-    out = torch.cat([
-        _decode_block(q[i : i + ROW_BLOCK], k_cache[i : i + ROW_BLOCK],
-                      v_cache[i : i + ROW_BLOCK], cache_len[i : i + ROW_BLOCK])
-        for i in range(0, b + pad, ROW_BLOCK)
-    ])
-    return out[:b]
+    return lane_blocks(_decode_block, q, k_cache, v_cache, cache_len)
 
 
 def _decode_block(q, k_cache, v_cache, cache_len):

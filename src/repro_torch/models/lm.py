@@ -3,12 +3,15 @@
 
 The reference stacks each pattern slot's parameters over repeats and
 scans over them; here the model is a tree of modules, ``LM`` ->
-``nn.ModuleList`` of ``Block``s -> ``Attention`` / ``FFN`` ->
-``BitLinear``, with layer ``r * P + i`` holding repeat ``r`` of pattern
-slot ``i`` (P = ``len(cfg.pattern)``, ``LM.n_slots``), the order the
-reference's scan applies them in. Caches keep the reference's layout,
-``{"slot<i>": {"k"/"v": (R, B, T, KV, D)}}``, and :func:`param_tree`
-gives the parameters in the reference's stacked tree, the layout the
+``nn.ModuleList`` of ``Block``s -> a mixer (``Attention`` or
+``ssm.Mamba``) and an FFN (``FFN``, ``moe.MoE`` or none) -> ``BitLinear``
+for the attention and dense-FFN projections, with layer ``r * P + i``
+holding repeat ``r`` of pattern slot ``i`` (P = ``len(cfg.pattern)``,
+``LM.n_slots``), the order the reference's scan applies them in. Caches
+keep the reference's layout, ``{"slot<i>": {"k"/"v": (R, B, T, KV, D)}}``
+for attention slots and ``{"conv_x"/"conv_b"/"conv_c": (R, B, K-1, C),
+"ssm": (R, B, H, N, P)}`` for Mamba slots, and :func:`param_tree` gives
+the parameters in the reference's stacked tree, the layout the
 optimizer, the checkpoints and ``convert`` work in.
 
 Training calls :func:`loss_fn` (per-block rematerialization,
@@ -30,6 +33,8 @@ from repro_torch import tree as tree_lib
 from repro_torch.core import bnn
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import rowblock_matmul
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig, require_servable
 from repro_torch.models.layers import (
     ACT_DTYPE,
@@ -48,13 +53,22 @@ from repro_torch.models.scan import remat_scan
 
 
 class Block(nn.Module):
-    """One attention + SwiGLU layer (pre-norm residual)."""
+    """One pre-norm residual layer: a ``mixer`` (:class:`Attention` or
+    :class:`~repro_torch.models.ssm.Mamba`) and, unless the layer is
+    mixer-only (mamba2's ``d_ff = 0``), ``norm2`` and an ``ffn`` (SwiGLU
+    :class:`FFN` or :class:`~repro_torch.models.moe.MoE`); the absent
+    ones are ``None``. :func:`_mix`, :func:`_mix_step`,
+    :func:`_ffn_residual` and :func:`_block_leaves` dispatch on the
+    children's types."""
 
-    def __init__(self, norm1: torch.Tensor, attn: Attention, norm2: torch.Tensor, ffn: FFN):
+    def __init__(self, norm1: torch.Tensor, mixer: Attention | ssm_lib.Mamba,
+                 norm2: torch.Tensor | None = None, ffn: FFN | moe_lib.MoE | None = None):
         super().__init__()
+        if (norm2 is None) != (ffn is None):
+            raise ValueError("a block has norm2 exactly when it has an FFN")
         self.norm1 = frozen_parameter(norm1)
-        self.attn = attn
-        self.norm2 = frozen_parameter(norm2)
+        self.mixer = mixer
+        self.register_parameter("norm2", frozen_parameter(norm2))
         self.ffn = ffn
 
 
@@ -81,10 +95,13 @@ class LM(nn.Module):
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> LM:
     """Random parameters with the reference's shapes and distributions:
-    N(0, 0.02^2) embeddings, N(0, 1/d_in) projections and head, zero
-    biases, unit norm scales. Drawn from ``gen`` on its device, then
-    placed on ``device`` (default ``cuda``). The parameters require no
-    grad until a trainer asks (``model.requires_grad_(True)``)."""
+    N(0, 0.02^2) embeddings, N(0, 1/d_in) projections, router, experts and
+    head, N(0, 1/K) conv taps, zero biases, unit norm scales and Mamba's
+    ``A_log`` / ``D`` / ``dt_bias`` as the reference sets them; layer
+    ``r * P + i`` takes pattern slot ``i``'s kind. Drawn from ``gen`` on
+    its device, then placed on ``device`` (default ``cuda``). The
+    parameters require no grad until a trainer asks
+    (``model.requires_grad_(True)``)."""
     dev = resolve_device(device)
     require_servable(cfg)
 
@@ -95,6 +112,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> LM:
     def ones(n: int) -> torch.Tensor:
         return torch.ones((n,), dtype=torch.float32, device=dev)
 
+    def zeros(n: int) -> torch.Tensor:
+        return torch.zeros((n,), dtype=torch.float32, device=dev)
+
     def proj(d_in: int, d_out: int, bias: bool = False) -> BitLinear:
         b = torch.zeros((d_out,), dtype=torch.float32, device=dev) if bias else None
         return BitLinear(normal((d_in, d_out), 1.0 / math.sqrt(d_in)), b)
@@ -102,16 +122,53 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> LM:
     d, hd, vp = cfg.d_model, cfg.hd, cfg.padded_vocab
     embed = normal((vp, d), 0.02)
     head = None if cfg.tie_embeddings else normal((d, vp), 1.0 / math.sqrt(d))
-    blocks = []
-    for _ in range(cfg.n_layers):
-        attn = Attention(
-            proj(d, cfg.n_heads * hd, cfg.qkv_bias),
-            proj(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-            proj(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-            proj(cfg.n_heads * hd, d),
+
+    def mamba() -> ssm_lib.Mamba:
+        di, gn, h, k = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+        f32 = dict(dtype=torch.float32, device=dev)
+        return ssm_lib.Mamba(
+            z_proj=normal((d, di), 1.0 / math.sqrt(d)),
+            x_proj=normal((d, di), 1.0 / math.sqrt(d)),
+            b_proj=normal((d, gn), 1.0 / math.sqrt(d)),
+            c_proj=normal((d, gn), 1.0 / math.sqrt(d)),
+            dt_proj=normal((d, h), 1.0 / math.sqrt(d)),
+            conv_x=normal((k, di), 1.0 / math.sqrt(k)),
+            conv_b=normal((k, gn), 1.0 / math.sqrt(k)),
+            conv_c=normal((k, gn), 1.0 / math.sqrt(k)),
+            conv_bias_x=zeros(di), conv_bias_b=zeros(gn), conv_bias_c=zeros(gn),
+            A_log=torch.log(torch.linspace(1.0, 16.0, h, **f32)),
+            D=ones(h),
+            dt_bias=torch.log(torch.expm1(torch.full((h,), 1e-2, **f32))),  # softplus^-1
+            norm=ones(di),
+            out_proj=normal((di, d), 1.0 / math.sqrt(di)),
         )
-        f = FFN(proj(d, cfg.d_ff), proj(d, cfg.d_ff), proj(cfg.d_ff, d))
-        blocks.append(Block(ones(d), attn, ones(d), f))
+
+    def moe() -> moe_lib.MoE:
+        e, f = cfg.moe_experts, cfg.d_ff
+        return moe_lib.MoE(normal((d, e), 1.0 / math.sqrt(d)),
+                           normal((e, d, f), 1.0 / math.sqrt(d)),
+                           normal((e, d, f), 1.0 / math.sqrt(d)),
+                           normal((e, f, d), 1.0 / math.sqrt(f)))
+
+    blocks = []
+    for layer in range(cfg.n_layers):
+        kind = cfg.pattern[layer % len(cfg.pattern)]
+        if kind.mixer == "attn":
+            mixer = Attention(
+                proj(d, cfg.n_heads * hd, cfg.qkv_bias),
+                proj(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+                proj(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+                proj(cfg.n_heads * hd, d),
+            )
+        else:
+            mixer = mamba()
+        if kind.moe:
+            blocks.append(Block(ones(d), mixer, ones(d), moe()))
+        elif cfg.d_ff > 0:  # mamba2-style stacks set d_ff = 0: mixer-only blocks
+            f = FFN(proj(d, cfg.d_ff), proj(d, cfg.d_ff), proj(cfg.d_ff, d))
+            blocks.append(Block(ones(d), mixer, ones(d), f))
+        else:
+            blocks.append(Block(ones(d), mixer))
     return LM(embed, ones(d), head, blocks, n_slots=len(cfg.pattern))
 
 
@@ -131,12 +188,18 @@ def _proj_leaves(p: BitLinear) -> dict:
 
 def _block_leaves(blk: Block) -> dict:
     """One block's parameters in the reference's slot layout."""
-    return {
-        "norm1": blk.norm1,
-        "attn": {n: _proj_leaves(getattr(blk.attn, n)) for n in BINARIZED_PROJECTIONS["attn"]},
-        "norm2": blk.norm2,
-        "ffn": {n: _proj_leaves(getattr(blk.ffn, n)) for n in BINARIZED_PROJECTIONS["ffn"]},
-    }
+    out = {"norm1": blk.norm1}
+    if isinstance(blk.mixer, Attention):
+        out["attn"] = {n: _proj_leaves(getattr(blk.mixer, n)) for n in BINARIZED_PROJECTIONS["attn"]}
+    else:
+        out["mamba"] = blk.mixer.leaves()
+    if isinstance(blk.ffn, moe_lib.MoE):
+        out["norm2"] = blk.norm2
+        out["moe"] = {n: getattr(blk.ffn, n) for n in moe_lib.MoE.LEAVES}
+    elif blk.ffn is not None:
+        out["norm2"] = blk.norm2
+        out["ffn"] = {n: _proj_leaves(getattr(blk.ffn, n)) for n in BINARIZED_PROJECTIONS["ffn"]}
+    return out
 
 
 def _top_leaves(model: LM) -> dict:
@@ -167,8 +230,10 @@ def _stacked(model: LM, top, per_block) -> dict:
 def param_tree(model: LM, device=None) -> dict:
     """The parameters as the reference's tree: ``embed``, ``final_norm``,
     ``head`` (untied models), ``blocks/slot<i>/{norm1, attn/<q|k|v|o>/
-    {w, b}, norm2, ffn/<w1|w3|w2>/w}`` stacked over repeats ((R, m, n) per
-    projection, (R, d) per norm). Fresh detached tensors on ``device``
+    {w, b} or mamba/{<z|x|b|c|dt|out>_proj/w, conv_*, A_log, D, dt_bias,
+    norm}, norm2, ffn/<w1|w3|w2>/w or moe/{router, w1, w3, w2}}`` stacked
+    over repeats ((R, m, n) per projection, (R, E, d, f) per expert
+    stack, (R, d) per norm). Fresh detached tensors on ``device``
     (default: the model's; ``"meta"`` gives shapes and dtypes only): the
     optimizer updates them in place, :func:`load_param_tree_` writes them
     back."""
@@ -217,31 +282,31 @@ def embed_tokens(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens]
 
 
-def _apply_block(h: torch.Tensor, blk: Block, positions: torch.Tensor, cfg: ModelConfig):
-    hn = rms_norm(h, blk.norm1, cfg.norm_eps)
-    mix, _ = attention_block(blk.attn, hn, positions, cfg, quant=cfg.quant)
-    h = h + mix
-    hn = rms_norm(h, blk.norm2, cfg.norm_eps)
-    return h + ffn(blk.ffn, hn, cfg.quant)
+def _apply_block(carry, blk: Block, positions: torch.Tensor, cfg: ModelConfig):
+    h, aux = carry
+    mix, _ = _mix(blk, rms_norm(h, blk.norm1, cfg.norm_eps), positions, cfg, None)
+    h, a = _ffn_residual(blk, h + mix, cfg, None)
+    return h, aux if a is None else aux + a
 
 
 def backbone(model: LM, embeds: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    """(B, S, d) -> (hidden (B, S, d), MoE aux scalar: 0, dense only).
-    ``cfg.remat`` checkpoints each block, saving only its bf16 input
-    (:func:`~repro_torch.models.scan.remat_scan`); either way the loss
-    and gradients are the same bit for bit."""
+    """(B, S, d) -> (hidden (B, S, d), the MoE layers' summed aux loss,
+    an fp32 scalar). ``cfg.remat`` checkpoints each block, saving only
+    its bf16 input (:func:`~repro_torch.models.scan.remat_scan`); either
+    way the loss and gradients are the same bit for bit."""
     require_servable(cfg)
     h = embeds.to(ACT_DTYPE)
+    carry = (h, torch.zeros((), dtype=torch.float32, device=h.device))
 
-    def body(h, blk):
-        return _apply_block(h, blk, positions, cfg)
+    def body(carry, blk):
+        return _apply_block(carry, blk, positions, cfg)
 
     if cfg.remat:
-        h = remat_scan(body, h, model.blocks)
+        carry = remat_scan(body, carry, model.blocks)
     else:
         for blk in model.blocks:
-            h = body(h, blk)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            carry = body(carry, blk)
+    h, aux = carry
     return rms_norm(h, model.final_norm, cfg.norm_eps), aux
 
 
@@ -277,12 +342,18 @@ def lm_loss(model: LM, hidden: torch.Tensor, targets: torch.Tensor, cfg: ModelCo
 
 def loss_fn(model: LM, batch: dict, cfg: ModelConfig, aux_coef: float = 0.01) -> torch.Tensor:
     """Next-token loss over a ``{"tokens": (B, S)}`` batch (dense decoder
-    models; modality-frontend embeddings and the MoE / encoder-decoder
-    losses arrive with the model-breadth slice)."""
+    models; modality-frontend embeddings arrive with the enc-dec / vision
+    slice, and training MoE and Mamba stacks with the training-breadth
+    slice)."""
     if "extra_embeds" in batch:
         raise NotImplementedError(
             f"{cfg.name}: modality-frontend embeddings (extra_embeds) arrive with the "
-            "model-breadth slice"
+            "enc-dec / vision slice"
+        )
+    if cfg.has_mamba or any(kind.moe for kind in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: training MoE and Mamba stacks (the MoE aux loss, gradient "
+            "parity with the reference) arrives with the training-breadth slice"
         )
     tokens = batch["tokens"].to(device=model.embed.device, dtype=torch.int64)
     embeds = embed_tokens(model, tokens)
@@ -326,43 +397,67 @@ def _fused_qkv_artifact(attn: Attention, base) -> BitLinear | None:
     )
 
 
+def _rebuild(model: LM, attn_fn, ffn_fn) -> LM:
+    """A new ``LM`` whose blocks hold ``attn_fn(attn)`` and ``ffn_fn(ffn)``
+    in place of their attention and dense FFN; Mamba mixers, MoE FFNs,
+    norms and the embedding are shared."""
+    blocks = []
+    for blk in model.blocks:
+        mixer = attn_fn(blk.mixer) if isinstance(blk.mixer, Attention) else blk.mixer
+        f = ffn_fn(blk.ffn) if isinstance(blk.ffn, FFN) else blk.ffn
+        blocks.append(Block(blk.norm1, mixer, blk.norm2, f))
+    return LM(model.embed, model.final_norm, model.head, blocks, model.n_slots)
+
+
+def _binarized_parts(blk: Block):
+    """``(part, module)`` for the block's children whose projections are
+    BitLinears: ``("attn", Attention)`` and ``("ffn", FFN)``."""
+    if isinstance(blk.mixer, Attention):
+        yield "attn", blk.mixer
+    if isinstance(blk.ffn, FFN):
+        yield "ffn", blk.ffn
+
+
 def program_weights(model: LM, cfg: ModelConfig, engine) -> tuple[LM, int]:
     """Program every binarized projection into ``engine``'s resident
-    form once, before serving: each attn q/k/v/o and FFN w1/w3/w2
+    form once, before serving: each attn q/k/v/o and dense-FFN w1/w3/w2
     ``BitLinear`` is replaced by one holding the prepared artifact and
     its ``alpha`` (the latent weight is dropped, as the hardware holds
     only cell states), plus the fused [q|k|v] artifact for fused
-    engines. Returns ``(programmed_model, n_programmed)``; the input
-    model is not mutated (unchanged tensors are shared). No-op unless
-    ``cfg.quant == "bnn"`` and an engine is bound."""
+    engines. Mamba projections and MoE experts are plain matmuls in the
+    reference and stay so. Returns ``(programmed_model, n_programmed)``;
+    the input model is not mutated (unchanged tensors are shared). No-op
+    unless ``cfg.quant == "bnn"`` and an engine is bound."""
     if cfg.quant != "bnn" or engine is None:
         return model, 0
     base = getattr(engine, "base", engine)  # unwrap a GroupedEngine
     if not hasattr(base, "prepare"):
         return model, 0
     fused = getattr(base, "supports_fused_dense", False)
-    blocks, n = [], 0
-    for blk in model.blocks:
-        a = blk.attn
-        attn = Attention(
+
+    def attn(a: Attention) -> Attention:
+        return Attention(
             *(_program(getattr(a, name), base) for name in BINARIZED_PROJECTIONS["attn"]),
             qkv=_fused_qkv_artifact(a, base) if fused else None,
         )
-        f = FFN(*(_program(getattr(blk.ffn, name), base) for name in BINARIZED_PROJECTIONS["ffn"]))
-        blocks.append(Block(blk.norm1, attn, blk.norm2, f))
-        n += 7
-    return LM(model.embed, model.final_norm, model.head, blocks, model.n_slots), n
+
+    def dense_ffn(f: FFN) -> FFN:
+        return FFN(*(_program(getattr(f, name), base) for name in BINARIZED_PROJECTIONS["ffn"]))
+
+    n = sum(len(BINARIZED_PROJECTIONS[part]) for blk in model.blocks
+            for part, _ in _binarized_parts(blk))
+    return _rebuild(model, attn, dense_ffn), n
 
 
 def programmed_projections(model: LM):
     """``(name, BitLinear)`` for every programmed projection, block by
     block: attn q/k/v/o, the fused [q|k|v] when present, FFN w1/w3/w2
     (``name`` is ``"<layer>.<part>.<proj>"``)."""
+    names = {"attn": (*BINARIZED_PROJECTIONS["attn"], "qkv"), "ffn": BINARIZED_PROJECTIONS["ffn"]}
     for layer, blk in enumerate(model.blocks):
-        for part, names in (("attn", (*BINARIZED_PROJECTIONS["attn"], "qkv")),
-                            ("ffn", BINARIZED_PROJECTIONS["ffn"])):
-            for name in names:
-                p = getattr(getattr(blk, part), name)
+        for part, module in _binarized_parts(blk):
+            for name in names[part]:
+                p = getattr(module, name)
                 if p is not None and p.prepared is not None:
                     yield f"{layer}.{part}.{name}", p
 
@@ -377,14 +472,12 @@ def map_prepared(model: LM, fn) -> LM:
             return p
         return BitLinear(b=p.b, prepared=fn(p.prepared), alpha=p.alpha)
 
-    blocks = []
-    for blk in model.blocks:
-        a, f = blk.attn, blk.ffn
-        attn = Attention(*(one(getattr(a, n)) for n in BINARIZED_PROJECTIONS["attn"]),
-                         qkv=one(a.qkv))
-        ffn_ = FFN(*(one(getattr(f, n)) for n in BINARIZED_PROJECTIONS["ffn"]))
-        blocks.append(Block(blk.norm1, attn, blk.norm2, ffn_))
-    return LM(model.embed, model.final_norm, model.head, blocks, model.n_slots)
+    return _rebuild(
+        model,
+        lambda a: Attention(*(one(getattr(a, n)) for n in BINARIZED_PROJECTIONS["attn"]),
+                            qkv=one(a.qkv)),
+        lambda f: FFN(*(one(getattr(f, n)) for n in BINARIZED_PROJECTIONS["ffn"])),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -413,16 +506,50 @@ def _logits(model: LM, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _mask_padded_vocab(logits, cfg)
 
 
-def _ffn_residual(blk: Block, h: torch.Tensor, cfg: ModelConfig, eng) -> torch.Tensor:
+def _mix(blk: Block, hn: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, eng):
+    """The block's mixer over whole sequences of normed input: its output
+    and its decode cache (``{"k", "v"}`` bf16 rows for attention, the
+    Mamba decode cache of :func:`~repro_torch.models.ssm.mamba_block`)."""
+    if isinstance(blk.mixer, Attention):
+        mix, (k, v) = attention_block(blk.mixer, hn, positions, cfg, quant=cfg.quant, engine=eng)
+        return mix, {"k": k.to(ACT_DTYPE), "v": v.to(ACT_DTYPE)}
+    return ssm_lib.mamba_block(blk.mixer, hn, cfg)
+
+
+def _mix_step(blk: Block, hn: torch.Tensor, pos, cache: dict, cfg: ModelConfig, eng):
+    """One decode step of the block's mixer over (B, 1, d), writing
+    ``cache`` (one repeat's entries) in place; returns its output."""
+    if isinstance(blk.mixer, Attention):
+        return attention_decode_step(blk.mixer, hn, pos, cache["k"], cache["v"], cfg,
+                                     quant=cfg.quant, engine=eng)[0]
+    return ssm_lib.mamba_step(blk.mixer, hn, cache, cfg)[0]
+
+
+def _ffn_residual(blk: Block, h: torch.Tensor, cfg: ModelConfig, eng):
+    """``(h + the block's FFN of its normed input, the MoE aux or None)``;
+    ``(h, None)`` for a mixer-only block. Serving drops the aux, as the
+    reference does."""
+    if blk.ffn is None:
+        return h, None
     hn = rms_norm(h, blk.norm2, cfg.norm_eps)
-    return h + ffn(blk.ffn, hn, cfg.quant, eng)
+    if isinstance(blk.ffn, moe_lib.MoE):
+        y, aux = moe_lib.moe_ffn(blk.ffn, hn, cfg)
+        return h + y, aux
+    return h + ffn(blk.ffn, hn, cfg.quant, eng), None
+
+
+def _stack_caches(per_slot: list[dict[str, list[torch.Tensor]]]) -> dict:
+    """Per-slot lists of per-repeat cache tensors -> the stacked tree."""
+    return {f"slot{i}": {key: torch.stack(ts) for key, ts in kv.items()}
+            for i, kv in enumerate(per_slot)}
 
 
 def prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig, engine=None):
     """Forward over (B, S) prompt tokens. Returns last-position logits
-    (B, V) fp32 and the prompt caches ``{"slot<i>": {"k"/"v":
-    (R, B, S, KV, D)}}`` in bf16. ``engine`` overrides ``cfg.bnn_engine``
-    for the binarized projections (serving passes its K-group
+    (B, V) fp32 and the prompt caches: ``{"k"/"v": (R, B, S, KV, D)}``
+    bf16 per attention slot, the Mamba decode cache (``ssm.mamba_block``)
+    per Mamba slot. ``engine`` overrides ``cfg.bnn_engine`` for the
+    binarized projections (serving passes its K-group
     ``GroupedEngine``)."""
     require_servable(cfg)
     tokens = tokens.to(device=model.embed.device, dtype=torch.int64)
@@ -430,19 +557,13 @@ def prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig, engine=None):
     positions = torch.arange(tokens.shape[1], device=h.device)
     eng = engine if engine is not None else infer_engine(cfg)
     n_slots = len(cfg.pattern)
-    ks: list[list[torch.Tensor]] = [[] for _ in range(n_slots)]
-    vs: list[list[torch.Tensor]] = [[] for _ in range(n_slots)]
+    per_slot: list[dict[str, list[torch.Tensor]]] = [{} for _ in range(n_slots)]
     for layer, blk in enumerate(model.blocks):
-        hn = rms_norm(h, blk.norm1, cfg.norm_eps)
-        mix, (k, v) = attention_block(blk.attn, hn, positions, cfg, quant=cfg.quant, engine=eng)
-        ks[layer % n_slots].append(k.to(ACT_DTYPE))
-        vs[layer % n_slots].append(v.to(ACT_DTYPE))
-        h = _ffn_residual(blk, h + mix, cfg, eng)
-    caches = {
-        f"slot{i}": {"k": torch.stack(ks[i]), "v": torch.stack(vs[i])}
-        for i in range(n_slots)
-    }
-    return _logits(model, h, cfg), caches
+        mix, cache = _mix(blk, rms_norm(h, blk.norm1, cfg.norm_eps), positions, cfg, eng)
+        for key, t in cache.items():
+            per_slot[layer % n_slots].setdefault(key, []).append(t)
+        h, _ = _ffn_residual(blk, h + mix, cfg, eng)
+    return _logits(model, h, cfg), _stack_caches(per_slot)
 
 
 class PrefixContinuationError(ValueError):
@@ -480,44 +601,67 @@ def prefill_continue(model: LM, tokens: torch.Tensor, prefix_caches: dict, cfg: 
     positions = torch.arange(start, start + tokens.shape[1], device=h.device)
     eng = engine if engine is not None else infer_engine(cfg)
     n_slots = len(cfg.pattern)
-    ks: list[list[torch.Tensor]] = [[] for _ in range(n_slots)]
-    vs: list[list[torch.Tensor]] = [[] for _ in range(n_slots)]
+    per_slot: list[dict[str, list[torch.Tensor]]] = [{"k": [], "v": []} for _ in range(n_slots)]
     for layer, blk in enumerate(model.blocks):
         pre = prefix_caches[f"slot{layer % n_slots}"]
         r = layer // n_slots
         pk, pv = pre["k"][r], pre["v"][r]
         hn = rms_norm(h, blk.norm1, cfg.norm_eps)
         mix, (k, v) = attention_continue(
-            blk.attn, hn, positions, pk, pv, cfg, quant=cfg.quant, engine=eng
+            blk.mixer, hn, positions, pk, pv, cfg, quant=cfg.quant, engine=eng
         )
-        ks[layer % n_slots].append(torch.cat([pk, k.to(ACT_DTYPE)], dim=1))
-        vs[layer % n_slots].append(torch.cat([pv, v.to(ACT_DTYPE)], dim=1))
-        h = _ffn_residual(blk, h + mix, cfg, eng)
-    caches = {
-        f"slot{i}": {"k": torch.stack(ks[i]), "v": torch.stack(vs[i])}
-        for i in range(n_slots)
-    }
-    return _logits(model, h, cfg), caches
+        per_slot[layer % n_slots]["k"].append(torch.cat([pk, k.to(ACT_DTYPE)], dim=1))
+        per_slot[layer % n_slots]["v"].append(torch.cat([pv, v.to(ACT_DTYPE)], dim=1))
+        h, _ = _ffn_residual(blk, h + mix, cfg, eng)
+    return _logits(model, h, cfg), _stack_caches(per_slot)
+
+
+# the cache entries of an attention slot: rows indexed by position
+KV_KEYS = ("k", "v")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=ACT_DTYPE, *, device) -> dict:
-    """Zero decode caches (stacked over repeats) on ``device``."""
+    """Zero decode caches (stacked over repeats) on ``device``: K/V rows
+    in ``dtype`` per attention slot; per Mamba slot the conv tails in
+    ``dtype`` and the SSD state in fp32."""
     require_servable(cfg)
-    shape = (cfg.n_repeats, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {
-        f"slot{i}": {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-        }
-        for i in range(len(cfg.pattern))
-    }
+    r = cfg.n_repeats
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((r, batch, *shape), dtype=dt, device=device)
+
+    caches = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind.mixer == "attn":
+            caches[f"slot{i}"] = {key: zeros(max_len, cfg.n_kv_heads, cfg.hd) for key in KV_KEYS}
+        else:
+            tail, gn = cfg.ssm_conv - 1, cfg.ssm_groups * cfg.ssm_state
+            caches[f"slot{i}"] = {
+                "conv_x": zeros(tail, cfg.d_inner),
+                "conv_b": zeros(tail, gn),
+                "conv_c": zeros(tail, gn),
+                "ssm": zeros(cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim, dt=torch.float32),
+            }
+    return caches
+
+
+def graft_cache_(dst: torch.Tensor, src: torch.Tensor, key: str) -> None:
+    """Write prompt caches ``src`` into serving caches ``dst`` (same
+    leading (R, B) dims), in place, by the reference's rule: attention
+    K/V rows (R, B, T, KV, D) fill the time prefix; Mamba conv tails and
+    states carry over whole."""
+    if key in KV_KEYS:
+        dst[:, :, : src.shape[2]] = src.to(dst.dtype)
+    else:
+        dst.copy_(src)
 
 
 def decode_step(model: LM, token: torch.Tensor, pos, caches: dict, cfg: ModelConfig, engine=None):
     """One serving step: token (B,), pos a scalar or (B,) per-slot
     positions, caches from ``init_cache``/``prefill``. Writes the new K/V
-    rows into ``caches`` IN PLACE (the reference donates its caches to
-    the same effect) and returns (logits (B, V), caches)."""
+    rows, conv tails and SSD states into ``caches`` IN PLACE (the
+    reference donates its caches to the same effect) and returns (logits
+    (B, V), caches)."""
     token = token.to(device=model.embed.device, dtype=torch.int64)
     h = model.embed[token[:, None]].to(ACT_DTYPE)  # (B, 1, d)
     eng = engine if engine is not None else infer_engine(cfg)
@@ -526,8 +670,6 @@ def decode_step(model: LM, token: torch.Tensor, pos, caches: dict, cfg: ModelCon
         c = caches[f"slot{layer % n_slots}"]
         r = layer // n_slots
         hn = rms_norm(h, blk.norm1, cfg.norm_eps)
-        mix, _, _ = attention_decode_step(
-            blk.attn, hn, pos, c["k"][r], c["v"][r], cfg, quant=cfg.quant, engine=eng
-        )
-        h = _ffn_residual(blk, h + mix, cfg, eng)
+        mix = _mix_step(blk, hn, pos, {key: t[r] for key, t in c.items()}, cfg, eng)
+        h, _ = _ffn_residual(blk, h + mix, cfg, eng)
     return _logits(model, h, cfg), caches

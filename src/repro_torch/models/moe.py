@@ -1,0 +1,131 @@
+"""Mixture-of-Experts FFN: top-k routing with capacity-bounded scatter
+dispatch, Switch/GShard style (counterpart of ``repro/models/moe.py``).
+
+The routing is the reference's: an fp32 router, softmax over all
+experts, the top-k renormalized with a ``1e-9`` floor, each (token,
+expert) assignment's slot inside its expert counted along the row, and
+assignments at or past the capacity dropped (they contribute zero).
+Kept assignments scatter into a dense (B, E, C, d) bf16 buffer; every
+expert runs its SwiGLU over its whole (C, d) buffer, zeros included, in
+bf16 with the SiLU in fp32; the gated results combine back per token.
+
+Per-row arithmetic does not depend on how many rows share a call, which
+batched == solo serving needs on the card: the router runs in
+``ROW_BLOCK``-row products (``layers.row_matmul``), the softmax sums
+through ``ops.row_sum``, the expert products run one (E, ROW_BLOCK, d)
+batched product per block of buffer rows, and the sums over k are
+unrolled. Top-k is a stable descending sort, so ties keep the lower
+expert index first, as ``jax.lax.top_k`` does. Kept (expert, slot)
+pairs never collide, so the scatter is a plain index write.
+
+The expert-parallel ``shard_map`` dispatch of the reference needs a
+device mesh; without one the reference runs :func:`moe_ffn`, and so does
+the port.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.flash_attention import rowblock_matmul
+from repro_torch.kernels.ops import row_sum
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ACT_DTYPE, frozen_parameter, row_matmul
+
+
+class MoE(nn.Module):
+    """The router (d, E) and the expert stacks ``w1`` / ``w3`` (E, d, f)
+    and ``w2`` (E, f, d), fp32."""
+
+    LEAVES = ("router", "w1", "w3", "w2")
+
+    def __init__(self, router: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                 w2: torch.Tensor):
+        super().__init__()
+        self.router = frozen_parameter(router)
+        self.w1 = frozen_parameter(w1)
+        self.w3 = frozen_parameter(w3)
+        self.w2 = frozen_parameter(w2)
+
+
+def capacity(cfg: ModelConfig, seq: int) -> int:
+    return max(1, math.ceil(seq * cfg.moe_top_k / cfg.moe_experts * cfg.moe_capacity_factor))
+
+
+def _sum_k(t: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 2 in a fixed order, one elementwise add per term."""
+    out = t[:, :, 0]
+    for i in range(1, t.shape[2]):
+        out = out + t[:, :, i]
+    return out
+
+
+def route(p: MoE, x: torch.Tensor, cfg: ModelConfig):
+    """(B, S, d) -> (probs (B, S, E) fp32, gates (B, S, k) fp32, top_idx
+    (B, S, k) int64)."""
+    logits = row_matmul(x.to(torch.float32), p.router)
+    ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = ex / row_sum(ex)
+    gates, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe_top_k
+    gates, top_idx = gates[..., :k], top_idx[..., :k]
+    total = _sum_k(gates.unsqueeze(-1))  # (B, S, 1)
+    return probs, gates / torch.clamp_min(total, 1e-9), top_idx
+
+
+def slots(top_idx: torch.Tensor, n_experts: int, cap: int):
+    """Each assignment's expert (B, S*k), its slot inside the expert, the
+    count of earlier assignments of the row to it, and ``keep = slot <
+    cap``; plus the one-hot (B, S*k, E) the aux loss counts."""
+    b = top_idx.shape[0]
+    flat_e = top_idx.reshape(b, -1)
+    onehot = F.one_hot(flat_e, n_experts)
+    pos = onehot.cumsum(dim=1) - 1
+    slot = pos.gather(2, flat_e.unsqueeze(-1)).squeeze(-1)
+    return flat_e, slot, slot < cap, onehot
+
+
+def experts(p: MoE, expert_in: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU over its (B, C) buffer rows: (B, E, C, d)
+    bf16 -> (B, E, C, d) bf16."""
+    b, e, c, d = expert_in.shape
+    xe = expert_in.transpose(0, 1).reshape(e, b * c, d)
+    h = rowblock_matmul(xe, p.w1.to(xe.dtype), 0)
+    g = rowblock_matmul(xe, p.w3.to(xe.dtype), 0)
+    hf = h.to(torch.float32)
+    h = (hf * torch.sigmoid(hf)).to(ACT_DTYPE) * g.to(ACT_DTYPE)  # silu, as x * sigmoid(x)
+    out = rowblock_matmul(h, p.w2.to(h.dtype), 0)
+    return out.reshape(e, b, c, -1).transpose(0, 1)
+
+
+def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, d) -> (B, S, d) in x's dtype, plus the GShard load-balance
+    aux loss ``E * sum_e f_e * P_e`` (fp32 scalar)."""
+    b, s, d = x.shape
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    c = capacity(cfg, s)
+    probs, gates, top_idx = route(p, x, cfg)
+    flat_e, slot, keep, onehot = slots(top_idx, e, c)
+
+    # dispatch: kept assignments write their token into (B, E, C, d);
+    # dropped ones go to a spare slot C that is cut off
+    rows = torch.arange(b, device=x.device)[:, None].expand_as(flat_e)
+    x_rep = x.repeat_interleave(k, dim=1)  # (B, S*k, d)
+    buf = x.new_zeros((b, e, c + 1, d))
+    buf[rows, flat_e, torch.where(keep, slot, c)] = x_rep
+    out_e = experts(p, buf[:, :, :c])
+
+    # combine: a dropped assignment reads the clamped last slot, times 0,
+    # as the reference's out-of-range gather does
+    got = out_e[rows, flat_e, torch.clamp_max(slot, c - 1)]
+    got = got * keep[..., None].to(got.dtype)
+    weighted = got.reshape(b, s, k, d) * gates[..., None].to(got.dtype)
+    y = _sum_k(weighted.to(torch.float32))
+
+    frac = onehot.reshape(b, s, k, e).sum(dim=2).to(torch.float32).mean(dim=(0, 1))
+    aux = e * (frac * probs.mean(dim=(0, 1))).sum()
+    return y.to(x.dtype), aux

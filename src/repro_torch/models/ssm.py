@@ -1,0 +1,257 @@
+"""Mamba-2 mixer, SSD (state-space duality) form (counterpart of
+``repro/models/ssm.py``).
+
+The reference's layout and arithmetic: unfused input projections (z, x,
+B, C, dt) and ``out_proj`` as plain bf16 matmuls (never BitLinears), the
+depthwise causal conv split to match them, the chunked SSD scan in fp32
+(intra-chunk (Q x Q) blocks, chunk end-states, an inter-chunk recurrence
+that here is a Python loop over chunks where the reference has a
+``lax.scan``), a gated RMSNorm, and a decode cache of the last ``K - 1``
+pre-conv values per stream plus the (H, N, P) fp32 state.
+
+Shapes: x (B, S, H, P); dt (B, S, H); A (H,); B/C (B, S, G, N), heads
+grouped G | H. Used by ``mamba2-2.7b`` and Jamba's Mamba layers.
+
+Decode keeps each lane's arithmetic independent of the lane count (the
+serving invariants on the card): the projections run in
+``ROW_BLOCK``-row products (``layers.row_matmul``), the conv taps are
+unrolled elementwise sums, and the state contraction runs in blocks of
+``ROW_BLOCK`` lanes (``layers.lane_blocks``). :func:`mamba_step` writes
+the new conv tails and state into the cache it is given, in place, as
+``layers.attention_decode_step`` does for K/V.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    ACT_DTYPE,
+    frozen_parameter,
+    lane_blocks,
+    rms_norm,
+    row_matmul,
+)
+
+SSD_CHUNK = 256
+
+
+class Mamba(nn.Module):
+    """One Mamba-2 mixer's fp32 parameters, named as the reference's
+    leaves: the projections (``PROJECTIONS``, each (d_in, d_out); in the
+    reference's tree ``{"w": ...}``) and the rest (``VECTORS``)."""
+
+    PROJECTIONS = ("z_proj", "x_proj", "b_proj", "c_proj", "dt_proj", "out_proj")
+    VECTORS = ("conv_x", "conv_b", "conv_c", "conv_bias_x", "conv_bias_b", "conv_bias_c",
+               "A_log", "D", "dt_bias", "norm")
+
+    def __init__(self, **leaves: torch.Tensor):
+        super().__init__()
+        want = set(self.PROJECTIONS + self.VECTORS)
+        if set(leaves) != want:
+            raise ValueError(f"Mamba takes {sorted(want)}, got {sorted(leaves)}")
+        for name in self.PROJECTIONS + self.VECTORS:
+            setattr(self, name, frozen_parameter(leaves[name]))
+
+    def leaves(self) -> dict:
+        """The parameters in the reference's slot layout."""
+        out = {name: {"w": getattr(self, name)} for name in self.PROJECTIONS}
+        out.update({name: getattr(self, name) for name in self.VECTORS})
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, S, C) depthwise causal conv with kernel (K, C), summed in fp32
+    tap by tap."""
+    k, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(k):
+        out = out + xp[:, i : i + s, :].to(torch.float32) * w[i]
+    return (out + b).to(x.dtype)
+
+
+def conv_step(state: torch.Tensor, xt: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """Decode: state (B, K-1, C), xt (B, C) -> (new_state, yt)."""
+    window = torch.cat([state, xt[:, None, :]], dim=1)  # (B, K, C)
+    wf = window.to(torch.float32)
+    yt = wf[:, 0] * w[0]
+    for i in range(1, w.shape[0]):
+        yt = yt + wf[:, i] * w[i]
+    return window[:, 1:, :], (yt + b).to(xt.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SSD core
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int = SSD_CHUNK):
+    """Chunked SSD scan. Returns (y (B, S, H, P) in x's dtype, final
+    state (B, H, N, P) fp32)."""
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    rep = h // g
+    q = min(chunk, s)
+    pad = (-s) % q
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b_mat = F.pad(b_mat, (0, 0, 0, 0, 0, pad))
+        c_mat = F.pad(c_mat, (0, 0, 0, 0, 0, pad))
+    nc = x.shape[1] // q
+    f32 = torch.float32
+
+    xc = x.reshape(bsz, nc, q, h, p).to(f32)
+    dtc = dt.reshape(bsz, nc, q, h).to(f32)
+    bc = b_mat.reshape(bsz, nc, q, g, n).to(f32)
+    cc = c_mat.reshape(bsz, nc, q, g, n).to(f32)
+
+    da = dtc * a  # (B, nc, Q, H), a < 0
+    cum = torch.cumsum(da, dim=2)
+
+    # intra-chunk (diagonal blocks): attention-like Q x Q products
+    ci = cum.transpose(2, 3)  # (B, nc, H, Q)
+    l_mat = torch.exp(ci[..., :, None] - ci[..., None, :])
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    l_mat = torch.where(tri, l_mat, 0.0)
+    cb = torch.einsum("bnqgs,bnkgs->bngqk", cc, bc)
+    cb = cb.repeat_interleave(rep, dim=2)  # groups -> heads (B, nc, H, Q, Q)
+    m = cb * l_mat * dtc.transpose(2, 3)[:, :, :, None, :]
+    y_diag = torch.einsum("bnhqk,bnkhp->bnqhp", m, xc)
+
+    # chunk end-states
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B, nc, Q, H)
+    xw = xc * (dtc * decay_to_end)[..., None]
+    bh = bc.repeat_interleave(rep, dim=3)  # (B, nc, Q, H, N)
+    states = torch.einsum("bnkhs,bnkhp->bnhsp", bh, xw)
+
+    # inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B, nc, H)
+    hprev = torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
+    entering = []
+    for i in range(nc):
+        entering.append(hprev)
+        hprev = states[:, i] + hprev * chunk_decay[:, i, :, None, None]
+    hprevs = torch.stack(entering, dim=1)  # (B, nc, H, N, P)
+
+    # off-diagonal contribution
+    ch = cc.repeat_interleave(rep, dim=3)  # (B, nc, Q, H, N)
+    y_off = torch.einsum("bnqhs,bnhsp->bnqhp", ch, hprevs)
+    y_off = y_off * torch.exp(cum)[..., None]
+
+    y = (y_diag + y_off).reshape(bsz, nc * q, h, p)[:, :s]
+    return y.to(x.dtype), hprev
+
+
+def _state_readout(ch: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """(B, H, N) x (B, H, N, P) -> (B, H, P): the sum over N."""
+    return torch.matmul(ch[:, :, None, :], state)[:, :, 0]
+
+
+def ssd_step(state, xt, dtt, a, bt, ct):
+    """One decode step. state (B, H, N, P) fp32; xt (B, H, P); dtt (B, H);
+    bt/ct (B, G, N). Returns (new_state, yt (B, H, P) in xt's dtype)."""
+    rep = xt.shape[1] // bt.shape[1]
+    f32 = torch.float32
+    decay = torch.exp(dtt.to(f32) * a)  # (B, H)
+    bh = bt.repeat_interleave(rep, dim=1).to(f32)  # (B, H, N)
+    upd = bh[..., :, None] * (xt.to(f32) * dtt[..., None])[..., None, :]
+    new_state = state * decay[..., None, None] + upd
+    ch = ct.repeat_interleave(rep, dim=1).to(f32)
+    yt = lane_blocks(_state_readout, ch, new_state)
+    return new_state, yt.to(xt.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The mixer
+# ---------------------------------------------------------------------------
+
+
+def _silu_act(t: torch.Tensor) -> torch.Tensor:
+    tf = t.to(torch.float32)
+    return (tf * torch.sigmoid(tf)).to(ACT_DTYPE)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``logaddexp(x, 0)``, the reference's softplus formula."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _project(p: Mamba, u: torch.Tensor, name: str) -> torch.Tensor:
+    return row_matmul(u, getattr(p, name).to(u.dtype))
+
+
+def _ssm_inputs(p: Mamba, xc, bcv, ccv, dt, cfg: ModelConfig):
+    """Post-conv activations -> (x, dt, A, B, C) of the SSD, shaped by the
+    leading dims of ``xc``."""
+    lead = xc.shape[:-1]
+    x = _silu_act(xc).reshape(*lead, cfg.ssm_heads, cfg.ssm_head_dim)
+    b_mat = _silu_act(bcv).reshape(*lead, cfg.ssm_groups, cfg.ssm_state)
+    c_mat = _silu_act(ccv).reshape(*lead, cfg.ssm_groups, cfg.ssm_state)
+    dt = _softplus(dt.to(torch.float32) + p.dt_bias)
+    return x, dt, -torch.exp(p.A_log), b_mat, c_mat
+
+
+def _output(p: Mamba, y, x, z, cfg: ModelConfig) -> torch.Tensor:
+    """The D skip, the SiLU(z) gate, the RMSNorm and ``out_proj``."""
+    y = y + x.to(torch.float32).to(y.dtype) * p.D[:, None].to(y.dtype)
+    y = y.reshape(*y.shape[:-2], cfg.d_inner)
+    y = y * _silu_act(z).to(y.dtype)
+    y = rms_norm(y, p.norm, cfg.norm_eps)
+    return _project(p, y, "out_proj")
+
+
+def mamba_block(p: Mamba, u: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """Full-sequence mixer. u (B, S, d) -> (out (B, S, d), decode cache
+    ``{conv_x, conv_b, conv_c}`` (B, K-1, C) bf16 tails of the pre-conv
+    streams, left-padded with zeros below K-1 tokens, and ``ssm`` (B, H,
+    N, P) fp32)."""
+    z = _project(p, u, "z_proj")
+    x_pre = _project(p, u, "x_proj")
+    b_pre = _project(p, u, "b_proj")
+    c_pre = _project(p, u, "c_proj")
+    dt = _project(p, u, "dt_proj")
+    x, dt, a, b_mat, c_mat = _ssm_inputs(
+        p,
+        causal_conv1d(x_pre, p.conv_x, p.conv_bias_x),
+        causal_conv1d(b_pre, p.conv_b, p.conv_bias_b),
+        causal_conv1d(c_pre, p.conv_c, p.conv_bias_c),
+        dt, cfg,
+    )
+    y, final = ssd_chunked(x, dt, a, b_mat, c_mat)
+    out = _output(p, y, x, z, cfg)
+    tail = cfg.ssm_conv - 1
+
+    def _tail(t: torch.Tensor) -> torch.Tensor:
+        tt = t[:, -tail:, :]
+        return F.pad(tt, (0, 0, tail - tt.shape[1], 0)).to(ACT_DTYPE)
+
+    cache = {"conv_x": _tail(x_pre), "conv_b": _tail(b_pre), "conv_c": _tail(c_pre),
+             "ssm": final.to(torch.float32)}
+    return out, cache
+
+
+def mamba_step(p: Mamba, ut: torch.Tensor, cache: dict, cfg: ModelConfig):
+    """One-token step. ut (B, 1, d); ``cache`` ``{conv_x, conv_b, conv_c,
+    ssm}`` with the lanes on dim 0. Writes the new tails and state into
+    ``cache`` IN PLACE and returns (out (B, 1, d), cache)."""
+    u = ut[:, 0, :]
+    z = _project(p, u, "z_proj")
+    cx, xt = conv_step(cache["conv_x"], _project(p, u, "x_proj"), p.conv_x, p.conv_bias_x)
+    cb, bt = conv_step(cache["conv_b"], _project(p, u, "b_proj"), p.conv_b, p.conv_bias_b)
+    cc, ct = conv_step(cache["conv_c"], _project(p, u, "c_proj"), p.conv_c, p.conv_bias_c)
+    x, dt, a, b_mat, c_mat = _ssm_inputs(p, xt, bt, ct, _project(p, u, "dt_proj"), cfg)
+    new_ssm, y = ssd_step(cache["ssm"], x, dt, a, b_mat, c_mat)
+    out = _output(p, y, x, z, cfg)[:, None, :]
+    for key, t in (("conv_x", cx), ("conv_b", cb), ("conv_c", cc), ("ssm", new_ssm)):
+        cache[key].copy_(t)
+    return out, cache

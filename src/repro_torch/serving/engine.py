@@ -42,6 +42,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.faults import FaultyEngine, HealthMonitor
+from repro_torch.models import lm as lm_lib
 from repro_torch.serving.scheduler import (
     Request,
     RequestScheduler,
@@ -237,7 +238,8 @@ class ServingEngine:
 
     @torch.no_grad()
     def prefill_into(self, slot: int, st: RequestState) -> None:
-        """Prefill the request's prompt, write its KV into the slot and
+        """Prefill the request's prompt, write its caches into the slot
+        (K/V rows by time prefix, Mamba conv tails and state whole) and
         emit the first (argmax) token onto the state.
 
         A request carrying a :class:`~repro_torch.serving.scheduler
@@ -268,7 +270,7 @@ class ServingEngine:
                 self._counts["prefill_tokens"] += plen
             for name, kv in pre.items():
                 for key, src in kv.items():
-                    self.caches[name][key][:, slot, :plen] = src[:, 0]
+                    lm_lib.graft_cache_(self.caches[name][key][:, slot : slot + 1], src, key)
             st.emit(int(torch.argmax(logits[0])))
             sp.fence(self.caches)
         self.pos[slot] = plen

@@ -1,0 +1,337 @@
+"""The MoE, Mamba-2 and hybrid decoder stacks served through the port's
+entry points (``compile`` / ``prefill`` / ``decode_step`` / ``serve()`` /
+the fleet / the serve CLI) on the smoke configs of ``qwen3-moe-235b-a22b``,
+``grok-1-314b``, ``mamba2-2.7b`` and ``jamba-1.5-large-398b``.
+
+Against the JAX package (its compiled model run op by op, the helpers of
+test_torch_generate.py): greedy tokens over 8 steps are identical on
+``reference`` and ``packed``, and every step's logits agree within 1e-6
+of their largest magnitude (the bound test_torch_generate.py holds the
+dense models to; on these inputs they are equal). grok's smoke config
+is held so at seeds 0 and 2; seed 1 is the exception, and its test says
+why: XLA and torch sum ``alpha = mean|w|`` of layer 0's v projection in
+another order (8 fp32 ulps apart), one bf16 element of v rounds the
+other way at decode step 4, and the binarized layers after it amplify
+that; fed the reference's own programmed alphas, the port's generations
+equal the reference's.
+
+Inside the port, exactly: continuous batching == each request alone,
+preemption and restore of Mamba rows, prompts shorter than the conv tail
+and the head count, packed == reference, a 2-replica fleet with no
+graft on a hybrid stack, and ``prefill_continue`` raising for Mamba
+slots. On MoE stacks a continuation equals the reference's
+``prefill_continue``, not its full prefill: the expert capacity depends
+on the sequence length, so a prefix token can be kept in one and
+dropped in the other (ROADMAP.md, queue 3).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import compiler as jax_compiler
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import lm as jax_lm
+from repro_torch import compiler
+from repro_torch.configs import PENDING, SERVED, get_config, get_smoke_config
+from repro_torch.convert import params_from_jax, params_to_jax
+from repro_torch.data import lm_batch
+from repro_torch.fleet import FleetEngine
+from repro_torch.launch import serve
+from repro_torch.models import lm
+from repro_torch.models.layers import FFN
+from repro_torch.models.moe import MoE
+from repro_torch.models.ssm import Mamba
+from repro_torch.serving import Request, SchedulerConfig
+from test_torch_generate import jax_steps, op_by_op, pair, port_steps
+
+# smoke shapes gain nothing from intra-op threads, which only contend
+# with the other test workers
+torch.set_num_threads(1)
+
+BREADTH = ("qwen3-moe-235b-a22b", "grok-1-314b", "mamba2-2.7b", "jamba-1.5-large-398b")
+MAX_LEN = 40
+
+
+def _prompts(cfg, lengths, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in lengths]
+
+
+def _compiled(arch, engine="packed", seed=0):
+    """The smoke model compiled for ``engine``, binarized (the reference
+    engine runs the plain ±1 matmul)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), quant="bnn")
+    params = lm.init_params(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    return compiler.compile(cfg, params, compiler.HardwareTarget(engine=engine), device="cpu")
+
+
+def _solo(cm, prompt, n_new, max_len=MAX_LEN):
+    """One request alone: prefill, then batch-1 decode steps, in a cache
+    of the serving pool's capacity."""
+    logits, pre = cm.prefill(torch.as_tensor(prompt, dtype=torch.int64)[None])
+    caches = cm.graft_prefill_caches(cm.init_cache(1, max_len), pre)
+    out = [int(torch.argmax(logits[0]))]
+    for i in range(n_new - 1):
+        logits, caches = cm.decode_step(torch.tensor([out[-1]]), len(prompt) + i, caches)
+        out.append(int(torch.argmax(logits[0])))
+    return out
+
+
+def _assert_logits(got, want):
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6 * np.abs(w).max())
+
+
+# ---------------------------------------------------------------------------
+# parity with the JAX package
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("engine", ["packed", "reference"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_greedy_tokens_and_logits_match_the_reference(arch, engine):
+    jcfg, jparams, cfg, model = pair(arch, seed=1)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(2, 12))
+    want, want_logits = jax_steps(jcfg, jparams, jax_compiler.HardwareTarget(engine=engine),
+                                  tokens, 8)
+    got, got_logits = port_steps(cfg, model, compiler.HardwareTarget(engine=engine), tokens, 8)
+    np.testing.assert_array_equal(got, want)
+    _assert_logits(got_logits, want_logits)
+
+
+@pytest.mark.parametrize("engine", ["packed", "reference"])
+@pytest.mark.parametrize("seed", [0, 2])
+def test_grok_greedy_tokens_and_logits_match_the_reference(seed, engine):
+    jcfg, jparams, cfg, model = pair("grok-1-314b", seed=seed)
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(2, 12))
+    want, want_logits = jax_steps(jcfg, jparams, jax_compiler.HardwareTarget(engine=engine),
+                                  tokens, 8)
+    got, got_logits = port_steps(cfg, model, compiler.HardwareTarget(engine=engine), tokens, 8)
+    np.testing.assert_array_equal(got, want)
+    _assert_logits(got_logits, want_logits)
+
+
+def test_grok_equals_the_reference_given_its_alphas():
+    """grok smoke, seed 1, packed: the first 4 greedy steps equal the
+    reference's with the port's own alphas (from step 4 row 0 may leave
+    them: the module docstring says why); with the reference's
+    programmed alphas every token and every step's logits agree."""
+    jcfg, jparams, cfg, model = pair("grok-1-314b", seed=1)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(2, 12))
+    target = jax_compiler.HardwareTarget(engine="packed")
+    want, want_logits = jax_steps(jcfg, jparams, target, tokens, 8)
+    with op_by_op():
+        jprog = jax_compiler.compile(jcfg, jparams, target).params["blocks"]["slot0"]["attn"]
+    cm = compiler.compile(cfg, model, compiler.HardwareTarget(engine="packed"), device="cpu")
+    own, _ = port_steps(cfg, model, compiler.HardwareTarget(engine="packed"), tokens, 8)
+    np.testing.assert_array_equal(own[:, :4], want[:, :4])
+    for layer, blk in enumerate(cm.params.blocks):
+        for name in ("q", "k", "v", "o", "qkv"):
+            getattr(blk.mixer, name).alpha.copy_(
+                torch.from_numpy(np.array(jprog[name]["alpha"][layer])))
+    b, s = tokens.shape
+    logits, pre = cm.prefill(tokens)
+    caches = cm.graft_prefill_caches(cm.init_cache(b, s + 8), pre)
+    out, got_logits = [torch.argmax(logits, -1)], [logits.numpy()]
+    for i in range(7):
+        logits, caches = cm.decode_step(out[-1], s + i, caches)
+        out.append(torch.argmax(logits, -1))
+        got_logits.append(logits.numpy())
+    np.testing.assert_array_equal(torch.stack(out, 1).numpy(), want)
+    _assert_logits(got_logits, want_logits)
+
+
+def test_grok_full_precision_tokens_match_the_reference():
+    """Without binarized signs to amplify a bf16 rounding, grok's greedy
+    tokens equal the reference's (seed 1)."""
+    jcfg, jparams, cfg, model = pair("grok-1-314b", quant="none", seed=1)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(2, 12))
+    want, _ = jax_steps(jcfg, jparams, jax_compiler.HardwareTarget(), tokens, 8)
+    got, _ = port_steps(cfg, model, compiler.HardwareTarget(), tokens, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", BREADTH)
+def test_params_round_trip(arch):
+    jcfg = jax_smoke_config(arch)
+    tree = jax.tree.map(np.asarray, jax_lm.init_params(jax.random.key(2), jcfg))
+    back = params_to_jax(params_from_jax(tree, device="cpu"))
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(tree), strict=True):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_moe_continuation_equals_the_reference_continuation():
+    """qwen3-moe smoke, jax.random.key(0), a 40-token prompt from
+    default_rng(0) continued after 16: the port's continuation equals the
+    reference's continuation; neither equals the full prefill."""
+    jcfg, jparams, cfg, model = pair("qwen3-moe-235b-a22b", quant="none", seed=0)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, 40))
+    with op_by_op():
+        _, jpre = jax_lm.prefill(jparams, jnp.asarray(prompt[:, :16], jnp.int32), jcfg)
+        jlogits, jcaches = jax_lm.prefill_continue(
+            jparams, jnp.asarray(prompt[:, 16:], jnp.int32), jpre, jcfg)
+    full_logits, _ = lm.prefill(model, torch.as_tensor(prompt), cfg)
+    _, pre = lm.prefill(model, torch.as_tensor(prompt[:, :16]), cfg)
+    logits, caches = lm.prefill_continue(model, torch.as_tensor(prompt[:, 16:]), pre, cfg)
+    _assert_logits([logits.numpy()], [np.asarray(jlogits)])
+    for slot, kv in caches.items():
+        for key, t in kv.items():
+            np.testing.assert_array_equal(t.float().numpy(),
+                                          np.asarray(jcaches[slot][key].astype(jnp.float32)))
+    assert not torch.equal(logits, full_logits)
+
+
+# ---------------------------------------------------------------------------
+# the serving invariants inside the port
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", BREADTH)
+def test_continuous_batching_equals_isolated(arch):
+    """3 requests in 2 slots, one arriving mid-flight (the reference's
+    tests/test_serving.py case), and a K of 1."""
+    cm = _compiled(arch)
+    prompts = _prompts(cm.cfg, (5, 9, 7))
+    refs = [_solo(cm, p, 6) for p in prompts]
+    se = cm.serve(max_batch=2, max_len=MAX_LEN)
+    states = [se.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+              for i, p in enumerate(prompts[:2])]
+    se.step()
+    states.append(se.submit(Request(rid=2, prompt=prompts[2], max_new_tokens=6)))
+    se.drain()
+    assert [s.generated for s in states] == refs
+    assert se.supports_prefix_graft == (arch in ("qwen3-moe-235b-a22b", "grok-1-314b"))
+
+
+@pytest.mark.parametrize("engine", ["packed", "reference"])
+def test_short_prompts_on_mamba_slots(engine):
+    """Prompts of 1 and 2 tokens (below the conv tail of 3) and of 5 (below
+    the 8 SSD heads): the slot's rows equal the prompt's prefill caches,
+    and the generations equal each request alone."""
+    cm = _compiled("mamba2-2.7b", engine)
+    cfg = cm.cfg
+    assert cfg.ssm_conv - 1 == 3 and cfg.ssm_heads == 8
+    prompts = _prompts(cfg, (1, 2, 5, 3))
+    se = cm.serve(max_batch=4, max_len=MAX_LEN)
+    for i, p in enumerate(prompts):
+        st = se.submit(Request(rid=i, prompt=p, max_new_tokens=1))
+        slot = i
+        se.prefill_into(slot, st)
+        _, pre = cm.prefill(torch.as_tensor(p, dtype=torch.int64)[None])
+        for key, t in pre["slot0"].items():
+            assert torch.equal(se.caches["slot0"][key][:, slot], t[:, 0]), key
+    refs = [_solo(cm, p, 6) for p in prompts]
+    se = cm.serve(max_batch=4, max_len=MAX_LEN)
+    states = [se.submit(Request(rid=i, prompt=p, max_new_tokens=6)) for i, p in enumerate(prompts)]
+    se.drain()
+    assert [s.generated for s in states] == refs
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_preemption_restores_mamba_rows(arch):
+    """A strictly higher-priority arrival evicts a running request; its
+    conv tails and SSD state come back into another slot and it finishes
+    as it would alone."""
+    cm = _compiled(arch, seed=1)
+    prompts = _prompts(cm.cfg, (6, 8, 5), seed=1)
+    refs = [_solo(cm, p, 10) for p in prompts]
+    se = cm.serve(max_batch=2, max_len=MAX_LEN, scheduler=SchedulerConfig())
+    states = [se.submit(Request(rid=i, prompt=p, max_new_tokens=10))
+              for i, p in enumerate(prompts[:2])]
+    for _ in range(3):
+        se.step()
+    states.append(se.submit(Request(rid=2, prompt=prompts[2], max_new_tokens=10, priority=5)))
+    se.drain()
+    stats = se.stats()
+    assert stats.evictions == stats.restores >= 1
+    assert [s.generated for s in states] == refs
+
+
+@pytest.mark.parametrize("arch", BREADTH)
+def test_packed_equals_reference(arch):
+    tokens = serve.prompts(get_smoke_config(arch), 3, 10, 4)
+    got = serve.lockstep(_compiled(arch, "packed", seed=3), tokens, 6)
+    want = serve.lockstep(_compiled(arch, "reference", seed=3), tokens, 6)
+    np.testing.assert_array_equal(got["generated"], want["generated"])
+    assert torch.equal(got["prefill_logits"], want["prefill_logits"])
+
+
+def test_programmed_projections_cover_attention_and_dense_ffn_only():
+    """jamba smoke: slot 1 is attention + MoE, slots 0 and 2 Mamba + dense
+    FFN, slot 3 Mamba + MoE; only attn q/k/v/o and dense w1/w3/w2 are
+    programmed."""
+    cm = _compiled("jamba-1.5-large-398b")
+    assert cm.programmed == 4 + 3 + 3
+    names = [n for n, _ in lm.programmed_projections(cm.params)]
+    assert names == ["0.ffn.w1", "0.ffn.w3", "0.ffn.w2", "1.attn.q", "1.attn.k", "1.attn.v",
+                     "1.attn.o", "1.attn.qkv", "2.ffn.w1", "2.ffn.w3", "2.ffn.w2"]
+    blocks = cm.params.blocks
+    assert isinstance(blocks[1].ffn, MoE) and isinstance(blocks[3].ffn, MoE)
+    assert isinstance(blocks[0].mixer, Mamba) and isinstance(blocks[0].ffn, FFN)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_prefix_continuation_refuses_mamba_slots(arch):
+    cm = _compiled(arch)
+    _, pre = cm.prefill(torch.zeros((1, 4), dtype=torch.int64))
+    with pytest.raises(lm.PrefixContinuationError, match="slot0"):
+        cm.prefill_continue(torch.zeros((1, 2), dtype=torch.int64), pre)
+
+
+def test_hybrid_fleet_serves_without_grafts():
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    target = compiler.HardwareTarget(engine="packed")
+    solo_cm = compiler.compile(cfg, params, target, device="cpu")
+    shared = _prompts(cfg, (8,))[0]
+    prompts = [np.concatenate([shared, p]) for p in _prompts(cfg, (2, 3, 4, 2), seed=1)]
+    fleet = FleetEngine.build(cfg, params, target, n_replicas=2, max_batch=2, max_len=MAX_LEN,
+                              routing="prefix", block_size=4, device="cpu")
+    states = [fleet.submit(Request(rid=i, prompt=p, max_new_tokens=4))
+              for i, p in enumerate(prompts)]
+    fleet.drain()
+    stats = fleet.stats()
+    assert stats.finished == len(prompts) and stats.grafted_tokens == 0
+    assert not any(r.serving.supports_prefix_graft for r in fleet.replicas.values())
+    assert [s.generated for s in states] == [_solo(solo_cm, p, 4) for p in prompts]
+
+
+# ---------------------------------------------------------------------------
+# entry points and the slices still to come
+# ---------------------------------------------------------------------------
+
+
+def test_serve_cli_on_mamba2():
+    res = serve.run(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu", "--engine", "packed",
+                     "--batch", "2", "--prompt-len", "5", "--gen", "3"])
+    assert res["generated"].shape == (2, 3) and res["compiled"].programmed == 0
+    assert serve.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu", "--requests", "3",
+                       "--gen", "3", "--prompt-len", "6"]) == 0
+
+
+@pytest.mark.parametrize("arch", BREADTH)
+def test_configs_batches_and_training_refusal(arch):
+    cfg = get_smoke_config(arch)
+    assert arch in SERVED and get_config(arch).name == arch
+    batch = lm_batch(cfg, 2, 8, device="cpu")
+    assert batch["tokens"].shape == (2, 8)
+    model = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="training-breadth slice"):
+        lm.loss_fn(model, batch, cfg)
+
+
+def test_encdec_and_vision_name_the_next_slice():
+    assert set(PENDING) == {"seamless-m4t-large-v2", "internvl2-1b"}
+    for arch in PENDING:
+        with pytest.raises(NotImplementedError, match="enc-dec / vision slice"):
+            get_config(arch)
+    cfg = dataclasses.replace(get_smoke_config("tinyllama-1.1b"), n_encoder_layers=2)
+    with pytest.raises(NotImplementedError, match="enc-dec / vision slice"):
+        lm.init_params(torch.Generator(), cfg, device="cpu")

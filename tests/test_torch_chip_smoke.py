@@ -325,7 +325,8 @@ def test_faults_only_runs_the_device_phase_first(capsys):
     far as the device check (a SystemExit), not the usage error."""
     cs = _chip_smoke()
     assert cs.ALONE == {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
-                        "--faults-only": "faults", "--train-only": "train"}
+                        "--faults-only": "faults", "--train-only": "train",
+                        "--breadth-only": "breadth"}
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
@@ -368,5 +369,54 @@ def test_train_only_runs_the_device_phase_first(capsys):
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
         cs.main(["--train-only"])
+    assert e.value.code != 0
+    assert "usage" not in capsys.readouterr().err
+
+
+def test_breadth_phase_rehearses_on_cpu(capsys):
+    """The breadth phase at smoke size: qwen3-moe on both attention
+    paths, mamba2 and jamba, each packed == reference on the lockstep
+    batch, 8 slots == alone and evict/restore unchanged; mamba2 launches
+    nothing; jamba refuses a continuation and serves a fleet with no
+    graft; qwen3-moe's attention on both paths agrees within ATTN_TOL;
+    and the JSON line."""
+    import json
+
+    res = _chip_smoke().breadth_phase(device="cpu", smoke=True)
+    out = capsys.readouterr().out
+    for what in ("(a) qwen3-moe-smoke 2 layers attn=jnp", "(a) qwen3-moe-smoke 2 layers attn=pallas",
+                 "(b) mamba2-smoke 2 layers", "(c) jamba-smoke"):
+        assert f"[breadth] {what} reference lockstep" in out
+        assert "packed == reference: all 256 tokens and the prefill logits bit for bit" in out
+        assert f"[breadth] {what} request path: 8 requests" in out
+    assert "(prompts 1-96, gen 32)" in out and "every request == alone" in out
+    assert "[breadth] (b) mamba2-smoke launched no kernel" in out
+    assert "[breadth] (a) qwen3-moe-smoke attn=pallas vs attn=jnp: one layer's attention" in out
+    assert res["a_pallas"]["attn_vs_jnp"] <= _chip_smoke().ATTN_TOL
+    assert 0 <= res["a_pallas"]["tokens_equal_jnp"] <= 8 * 32
+    assert "prefill_continue refused" in out and "no graft (prefix hits 0, grafted 0)" in out
+    assert res["b"]["requests"]["evictions"] >= 1
+    assert res["fused_bnn_matmul"] == res["flash_attention"] == 0  # CPU: no kernel launch
+    line = next(ln for ln in out.splitlines() if ln.startswith('{"breadth"'))
+    assert json.loads(line) == {"breadth": json.loads(json.dumps(res))}
+
+
+def test_breadth_fused_launches_per_step():
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config, get_smoke_config
+
+    assert cs._fused_per_step(get_smoke_config("jamba-1.5-large-398b")) == 2 + 3 + 3
+    assert cs._fused_per_step(get_config("mamba2-2.7b")) == 0
+    assert cs._fused_per_step(get_smoke_config("qwen3-moe-235b-a22b")) == 2 * 2
+    assert cs._fused_per_step(get_config("tinyllama-1.1b")) == 22 * 5
+
+
+def test_breadth_only_runs_the_device_phase_first(capsys):
+    cs = _chip_smoke()
+    assert cs.ALONE["--breadth-only"] == "breadth"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        cs.main(["--breadth-only"])
     assert e.value.code != 0
     assert "usage" not in capsys.readouterr().err

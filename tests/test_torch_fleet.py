@@ -4,7 +4,11 @@ degraded replica, and routing decisions equal to the JAX package's
 ``FleetEngine`` on the same seeded requests.
 
 Everything is compared for exact equality: a graft or a failover may not
-change a single generated token.
+change a single generated token. Grafts == alone is a property of
+dense-FFN stacks (these tests' tinyllama smoke): on an MoE stack a
+continuation equals the reference's ``prefill_continue``, which differs
+from a full prefill, since the expert capacity depends on the sequence
+length (ROADMAP.md, queue 3; tests/test_torch_breadth_serving.py).
 """
 
 import dataclasses

@@ -13,7 +13,7 @@ import torch
 
 import repro_torch
 from repro_torch import compiler
-from repro_torch.configs import ARCH_IDS, SERVED, get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, PENDING, SERVED, get_config, get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.device import CudaUnavailableError
 from repro_torch.kernels import (
@@ -136,6 +136,8 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
 
 
 def test_later_slices_are_named():
+    assert set(PENDING) == {"seamless-m4t-large-v2", "internvl2-1b"}
+    assert set(SERVED) | set(PENDING) == set(ARCH_IDS)
     for arch in ARCH_IDS:
         if arch in SERVED:
             assert get_config(arch).name == arch
@@ -162,7 +164,9 @@ NEW_MODULES = ("fleet/pool.py", "fleet/replica.py", "fleet/router.py", "kernels/
                "mapping/schedule.py", "mapping/report.py", "tree.py", "models/scan.py",
                "optim/__init__.py", "optim/adamw.py", "optim/schedule.py", "data/__init__.py",
                "data/synthetic.py", "checkpoint/__init__.py", "checkpoint/manager.py",
-               "train/__init__.py", "train/loop.py", "launch/train.py")
+               "train/__init__.py", "train/loop.py", "launch/train.py", "models/moe.py",
+               "models/ssm.py", "configs/qwen3_moe_235b_a22b.py", "configs/grok_1_314b.py",
+               "configs/mamba2_2_7b.py", "configs/jamba_1_5_large_398b.py")
 
 
 def test_import_scan_covers_the_new_modules():

@@ -61,7 +61,7 @@ def test_program_weights_words_bit_exact(arch):
         jslot = jprog["blocks"]["slot0"]
         for part, names in lm.BINARIZED_PROJECTIONS.items():
             for name in names:
-                ours = getattr(getattr(blk, part), name)
+                ours = getattr({"attn": blk.mixer, "ffn": blk.ffn}[part], name)
                 theirs = jslot[part][name]
                 np.testing.assert_array_equal(
                     ours.words.numpy(), np.asarray(theirs["prepared"].data[layer])
@@ -70,7 +70,7 @@ def test_program_weights_words_bit_exact(arch):
                     ours.alpha.numpy(), np.asarray(theirs["alpha"][layer]), rtol=2.0**-20
                 )
         np.testing.assert_array_equal(
-            blk.attn.qkv.words.numpy(), np.asarray(jslot["attn"]["qkv"]["prepared"].data[layer])
+            blk.mixer.qkv.words.numpy(), np.asarray(jslot["attn"]["qkv"]["prepared"].data[layer])
         )
 
 
@@ -157,12 +157,12 @@ def test_attention_block_dense_and_ffn(arch):
     sp = jax.tree.map(lambda a: a[0], jparams["blocks"]["slot0"])
     blk = model.blocks[0]
     want, (wk, wv) = jax_layers.attention_block(sp["attn"], x, jnp.arange(6), jcfg, quant="bnn")
-    got, (k, v) = layers.attention_block(blk.attn, tx, torch.arange(6), cfg, quant="bnn")
+    got, (k, v) = layers.attention_block(blk.mixer, tx, torch.arange(6), cfg, quant="bnn")
     for g, w in ((got, want), (k, wk), (v, wv)):
         _assert_bf16_ulp(g, w)
     _assert_bf16_ulp(layers.ffn(blk.ffn, tx, "bnn"), jax_layers.ffn(sp["ffn"], x, "bnn"))
     _assert_bf16_ulp(
-        layers.dense(blk.attn.q, tx, "none"), jax_layers.dense(sp["attn"]["q"], x, "none")
+        layers.dense(blk.mixer.q, tx, "none"), jax_layers.dense(sp["attn"]["q"], x, "none")
     )
 
 
