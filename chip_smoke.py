@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py [--mma-only | --flash-only | --hamming-only | --fused-only |
                            --kernels-only | --telemetry-only | --simulators-only |
-                           --faults-only | --train-only | --breadth-only]
+                           --faults-only | --train-only | --breadth-only |
+                           --frontends-only]
 
 Each ``--*-only`` argument stops after those kernels' checks and timings
 (``--kernels-only``: every kernel's; ``--telemetry-only``,
-``--simulators-only``, ``--faults-only``, ``--train-only`` and
-``--breadth-only``: the build and that phase alone) and prints no result
-line. Needs one
+``--simulators-only``, ``--faults-only``, ``--train-only``,
+``--breadth-only`` and ``--frontends-only``: the build and that phase
+alone) and prints no result line. Needs one
 CUDA card (device 0), the CUDA toolkit's ``nvcc`` and ``nvidia-smi``;
 exits non-zero without them. Phases, each announced on its own
 ``[phase]`` line:
@@ -23,13 +24,16 @@ exits non-zero without them. Phases, each announced on its own
    (bit-exact, ``torch.equal``; each kernel's variant, ``b1`` or ``popc``,
    and plan printed, two launches equal), the fused kernel also at an
    edge shape (partial last word and k stage, n % 128 != 0) in bf16 and
-   fp32, and -- with the ragged and block-padded shapes (``popc``), the
+   fp32, the Hamming kernel also at seamless-m4t-large-v2's encoder FFN
+   shape (4096 rows, 1024 -> 8192), and -- with the ragged and
+   block-padded shapes (``popc``), the
    Hamming kernel's words packed from them and bitlinear's ragged
    (``wmma``) and k-edge (``sm90``) shapes in bf16 and fp32 -- on signed
    zeros, NaN, subnormals of both signs and -2^-126, which must
    binarize as ``x > -2^-126`` (the JAX reference's ``x >= 0`` with
    subnormals read as zero), flash attention on
-   prefill, continuation, ragged, D = 128 and non-causal cases in bf16
+   prefill, continuation, ragged, D = 128, non-causal and the frontends
+   phase's encoder, cross-attention and GQA-7 prefill cases in bf16
    (variant ``sm90``) and fp32 (``fma``), within a stated tolerance, two
    launches bit-identical, bitlinear and the WDM MMM at the projection shapes, a
    ragged shape (their WMMA variant) and an aligned shape with a partial
@@ -96,7 +100,20 @@ exits non-zero without them. Phases, each announced on its own
    ``ATTN_TOL``; mamba2 launches
    no kernel; jamba refuses ``prefill_continue`` and serves a 2-replica
    fleet with no graft; a ``{"breadth": ...}`` JSON line. (a)'s fused
-   ``b1`` and flash ``sm90`` launches join rows 1 and 3.
+   ``b1`` and flash ``sm90`` launches join rows 1 and 3;
+12. frontends: (a) seamless-m4t-large-v2 at full width and depth (24 +
+   24 layers, 512 source frames) served as the serve CLI serves it, every
+   projection through the Hamming kernel (432 ``b1`` launches per
+   prefill, 216 per tick) on both attention paths, packed == reference
+   bit for bit, decode == prefill at one position within a stated bound
+   that three planted decode faults exceed, the encoder's, the
+   cross-attention's and the decoder self-attention's flash == plain ops
+   within ``ATTN_TOL``; (b) internvl2-1b at full width and depth, 256 patch
+   embeddings before each 128-token prompt, on both paths (120 fused
+   ``b1`` per prefill or tick, 24 flash ``sm90`` per prefill), packed ==
+   reference, the request path with token prompts == alone; a
+   ``{"frontends": ...}`` JSON line. Its Hamming, fused and flash
+   launches join rows 2, 1 and 3.
 
 Then one ``{"kernels": [...]}`` JSON line, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -389,6 +406,12 @@ def check_fused_edges(gen) -> float:
     return worst
 
 
+# Hamming-only cases (label, rows, m, n): seamless-m4t-large-v2's encoder
+# FFN w1/w3 over a prefill of 8 x 512 frames (the frontends phase runs
+# every projection of that model through the Hamming kernel)
+HAMMING_ONLY = (("seamless-enc-w1/w3 B=4096", 4096, 1024, 8192),)
+
+
 def check_kernels(which: tuple[str, ...] = ("fused_bnn_matmul", "hamming_matmul")) -> dict:
     """The fused BitLinear and Hamming kernels (those in ``which``) against
     their plain versions at every shape (``torch.equal``); returns
@@ -409,11 +432,14 @@ def check_kernels(which: tuple[str, ...] = ("fused_bnn_matmul", "hamming_matmul"
               # element-wise store
               ("prepad m=100 n=45 B=3", 3, 100, 45, True),
               ("prepad m=300 n=200 B=8", 8, 300, 200, True)]
+    cases = [(*c, which) for c in cases]
+    if "hamming_matmul" in which:
+        cases += [(label, b, m, n, False, ("hamming_matmul",)) for label, b, m, n in HAMMING_ONLY]
     rec = {k: {} for k in which}
     worst = dict.fromkeys(which, 0.0)
     if "fused_bnn_matmul" in which:
         worst["fused_bnn_matmul"] = check_fused_edges(gen)
-    for label, b, m, n, prepad in cases:
+    for label, b, m, n, prepad, kernels in cases:
         x, w_signs, wp, alpha, beta = _case(gen, b, m, n, prepad)
         if prepad or label.startswith("ragged"):
             # the popc variant's cases (and the Hamming kernel's words
@@ -424,7 +450,7 @@ def check_kernels(which: tuple[str, ...] = ("fused_bnn_matmul", "hamming_matmul"
         kw = -(-m // 32)
         a = ops.pack_bits(bnn.nonneg(x))
         plan_text = ""
-        if "fused_bnn_matmul" in which:
+        if "fused_bnn_matmul" in kernels:
             # the projection shapes take b1; the ragged and block-padded
             # ones (bf16 rows of 200 or 600 bytes) popc
             fplan, err = _check_fused(label, x, wp, alpha, beta, m, n,
@@ -432,7 +458,7 @@ def check_kernels(which: tuple[str, ...] = ("fused_bnn_matmul", "hamming_matmul"
             worst["fused_bnn_matmul"] = max(worst["fused_bnn_matmul"], err)
             plan_text = f"; fused {fplan.describe()}"
         dot = bnn.nonneg(x).float() * 2 - 1
-        if "hamming_matmul" in which:
+        if "hamming_matmul" in kernels:
             plan = mma_plan.choose_hamming(a, wp, torch.empty((b, n), dtype=torch.int32,
                                                               device="cuda"))
             # every shape takes the b1 variant but m = 300 (10 words a row:
@@ -457,8 +483,8 @@ def check_kernels(which: tuple[str, ...] = ("fused_bnn_matmul", "hamming_matmul"
             worst["hamming_matmul"] = max(worst["hamming_matmul"],
                                           (ham - ham_plain).abs().max().item())
             plan_text += f"; Hamming {plan.describe()}"
-        print(f"[kernels] {label}: {' and '.join(which)} == plain"
-              f"{' == ±1 matmul, two launches equal' if 'hamming_matmul' in which else ''}"
+        print(f"[kernels] {label}: {' and '.join(kernels)} == plain"
+              f"{' == ±1 matmul, two launches equal' if 'hamming_matmul' in kernels else ''}"
               f"{plan_text}", flush=True)
         if prepad or label.startswith("ragged"):
             continue
@@ -480,7 +506,7 @@ def check_kernels(which: tuple[str, ...] = ("fused_bnn_matmul", "hamming_matmul"
                 lambda w: xnor_matmul.hamming_matmul_plain(a, w),
                 lambda w: torch.matmul(x_pm, w)),
         }
-        for kname in which:
+        for kname in kernels:
             fn, plain_fn, lib_fn = runs[kname]
             ms = _graph_ms(fn, w_sets, 200)
             eager = _time_ms(fn, w_sets, 200)
@@ -519,6 +545,14 @@ FLASH_CASES = (
     # fewer queries than a tile over a ragged key length: the masked edge
     # tile without a diagonal
     ("non-causal 40 over 100", 2, 8, 2, 40, 100, 64, False),
+    # the frontends phase's shapes: seamless-m4t-large-v2's encoder (512
+    # frames), cross-attention (128 decoder queries over 512 frames) and
+    # decoder self-attention (GQA group 1, causal), internvl2-1b's prefill
+    # (256 patches + 128 tokens, GQA groups of 7)
+    ("seamless encoder", 8, 16, 16, 512, 512, 64, False),
+    ("seamless cross", 8, 16, 16, 128, 512, 64, False),
+    ("seamless decoder self", 8, 16, 16, 128, 128, 64, True),
+    ("internvl2 prefill", 8, 14, 2, 384, 384, 64, True),
 )
 # the main-path launch the summary line reports: one prefill layer
 FLASH_MAIN = ("tinyllama prefill", "bf16")
@@ -880,24 +914,29 @@ def _check_launches(device: str, got: dict, want: dict, what: str) -> None:
 PROFILE_TICKS = 4
 
 
-def profile_decode(compiled, tokens, tick_ms: float) -> None:
+def profile_decode(compiled, tokens, tick_ms: float, extra_embeds=None) -> dict | None:
     """Where a decode tick's time goes: PROFILE_TICKS lockstep ticks under
-    ``torch.profiler`` after an unprofiled prefill. Prints the host wall
-    time per tick, the device time the profiler attributes to kernels
-    and copies, their share of that wall time and of ``tick_ms`` (the
-    same tick measured without the profiler), the device launches per
-    tick and the kernels that take the most device time. A profiler
-    that reports no device time prints "not measured"."""
+    ``torch.profiler`` after an unprofiled prefill (after ``extra_embeds``,
+    a VLM's patches, when given). Prints the host wall time per tick, the
+    device time the profiler attributes to kernels and copies, their
+    share of that wall time and of ``tick_ms`` (the same tick measured
+    without the profiler), the device launches per tick and the kernels
+    that take the most device time, and the device time of the kernels
+    launched inside ``dense``'s latent-weight span; returns those per
+    tick. A profiler that reports no device time prints "not measured"
+    and returns None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.device import synchronize
+    from repro_torch.models.layers import LATENT_WEIGHT_SPAN
 
     dev = compiled.device
-    logits, pre = compiled.prefill(tokens)
+    start = tokens.shape[1] + (0 if extra_embeds is None else extra_embeds.shape[1])
+    logits, pre = compiled.prefill(tokens, extra_embeds)
     caches = compiled.graft_prefill_caches(
-        compiled.init_cache(tokens.shape[0], tokens.shape[1] + PROFILE_TICKS), pre
+        compiled.init_cache(tokens.shape[0], start + PROFILE_TICKS), pre
     )
     tok = torch.argmax(logits, dim=-1)
     synchronize(dev)
@@ -905,23 +944,30 @@ def profile_decode(compiled, tokens, tick_ms: float) -> None:
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for i in range(PROFILE_TICKS):
-            logits, caches = compiled.decode_step(tok, tokens.shape[1] + i, caches)
+            logits, caches = compiled.decode_step(tok, start + i, caches)
             tok = torch.argmax(logits, dim=-1)
         synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_TICKS
     # device-side events only (kernels, copies): the host ops that launch
-    # them carry the same device time again
+    # them carry the same device time again, and a span's device-side
+    # annotation covers its kernels again
+    averages = prof.key_averages()
     rows = [
         (getattr(e, "self_device_time_total", 0) / 1e3 / PROFILE_TICKS, e.count / PROFILE_TICKS, e.key)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
+        for e in averages
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        and e.key != LATENT_WEIGHT_SPAN
     ]
+    # the kernels launched inside dense's latent-weight span (host side)
+    weight_ms = sum(getattr(e, "device_time_total", 0) for e in averages
+                    if e.key == LATENT_WEIGHT_SPAN and e.device_type == DeviceType.CPU
+                    ) / 1e3 / PROFILE_TICKS
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     device_ms = sum(r[0] for r in rows)
     if not rows:
         print(f"[profile] decode tick {wall_ms:.2f} ms wall under the profiler; device "
               f"time not measured (the profiler reported none)", flush=True)
-        return
+        return None
     print(f"[profile] decode tick {wall_ms:.2f} ms wall under the profiler, device busy "
           f"{device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%, idle "
           f"{100 - 100 * device_ms / wall_ms:.1f}%); {100 * device_ms / tick_ms:.1f}% of the "
@@ -929,6 +975,12 @@ def profile_decode(compiled, tokens, tick_ms: float) -> None:
           f"per tick", flush=True)
     for ms, count, name in rows[:8]:
         print(f"[profile]   {ms:.4f} ms/tick in {count:.0f} launches: {name[:90]}", flush=True)
+    if weight_ms:
+        print(f"[profile]   of which the latent weight side ({LATENT_WEIGHT_SPAN}: alpha, "
+              f"binarize and pack on a weight-cache miss) {weight_ms:.4f} ms/tick, "
+              f"{100 * weight_ms / device_ms:.1f}% of device busy", flush=True)
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "launches": sum(r[1] for r in rows),
+            "weight_side_ms": weight_ms}
 
 
 def serve_phase(device: str = "cuda", smoke: bool = False) -> dict:
@@ -1176,22 +1228,26 @@ def drive_fleet(fleet, reqs, device: str) -> tuple[list, float]:
     return states, time.perf_counter() - t0
 
 
-def _attention_impls_agree(cfg, device: str, what: str) -> float:
-    """One layer's attention at ``cfg``'s lockstep prefill shape (BATCH x
-    PROMPT, its query and KV heads) on seeded bf16 q/k/v, through
-    ``multi_head_attention`` (the function the model calls) with
-    ``impl="pallas"`` (the flash kernel) and ``"jnp"`` (plain ops): the
+def _attention_impls_agree(cfg, device: str, what: str, sq: int = PROMPT, skv: int = PROMPT,
+                           causal: bool = True, chunk: int | None = None) -> float:
+    """One layer's attention at ``cfg``'s heads over BATCH x ``sq``
+    queries and ``skv`` keys (default: the lockstep prefill, causal) on
+    seeded bf16 q/k/v, through ``multi_head_attention`` (the function the
+    model calls) with ``impl="pallas"`` (the flash kernel) and ``"jnp"``
+    (plain ops, key chunks of ``chunk``, default ``cfg.attn_chunk``): the
     max |diff|, which must be within ATTN_TOL."""
     import torch
 
     from repro_torch.models import layers as layers_lib
 
-    attn = [torch.randn((BATCH, PROMPT, n, cfg.hd), generator=torch.Generator(device=device)
+    attn = [torch.randn((BATCH, s, n, cfg.hd), generator=torch.Generator(device=device)
                         .manual_seed(SEED + i), device=device).to(torch.bfloat16)
-            for i, n in enumerate((cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))]
-    pos = torch.arange(PROMPT, device=device)
-    by_impl = [layers_lib.multi_head_attention(*attn, pos, pos, causal=True,
-                                               chunk=cfg.attn_chunk, impl=impl)
+            for i, (s, n) in enumerate(((sq, cfg.n_heads), (skv, cfg.n_kv_heads),
+                                        (skv, cfg.n_kv_heads)))]
+    q_pos = torch.arange(skv - sq if causal else 0, skv if causal else sq, device=device)
+    kv_pos = torch.arange(skv, device=device)
+    by_impl = [layers_lib.multi_head_attention(*attn, q_pos, kv_pos, causal=causal,
+                                               chunk=chunk or cfg.attn_chunk, impl=impl)
                for impl in ("jnp", "pallas")]
     ok, diff = _within(by_impl[1], by_impl[0], ATTN_TOL, ATTN_TOL)
     if not ok:
@@ -1442,6 +1498,7 @@ def _tick_launches(compiled, tokens) -> tuple[float, float]:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.device import synchronize
+    from repro_torch.models.layers import LATENT_WEIGHT_SPAN
 
     ticks = 2
     logits, pre = compiled.prefill(tokens)
@@ -2492,7 +2549,7 @@ def _breadth_requests(cfg, lengths) -> list:
                     max_new_tokens=GEN) for i, n in enumerate(lengths)]
 
 
-def _requests_equal_alone(model, reqs, what: str) -> dict:
+def _requests_equal_alone(model, reqs, what: str, tag: str = "breadth") -> dict:
     """The request path's invariants on ``model``: the requests in 8
     slots, and again with one more request of higher priority arriving
     after 3 ticks (it evicts a running one, restored later); every
@@ -2535,7 +2592,7 @@ def _requests_equal_alone(model, reqs, what: str) -> dict:
     for st in states:
         if tuple(st.generated) != alone[st.request.rid]:
             raise AssertionError(f"{what}: request {st.request.rid} after evict/restore != alone")
-    print(f"[breadth] {what} request path: {len(reqs)} requests (prompts "
+    print(f"[{tag}] {what} request path: {len(reqs)} requests (prompts "
           f"{min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)}, gen {GEN}) in "
           f"{BATCH} slots in {wall * 1e3:.1f} ms ({toks / wall:.1f} tok/s), each == alone; with a "
           f"priority arrival after 3 ticks: {stats.evictions} eviction(s) and restore(s), every "
@@ -2552,14 +2609,17 @@ def _fused_per_step(cfg) -> int:
     return sum(2 * (k.mixer == "attn") + 3 * (not k.moe and cfg.d_ff > 0) for k in kinds)
 
 
-def _breadth_model(cfg, params_fn, reqs, device: str, what: str, keep: dict | None = None) -> dict:
+def _breadth_model(cfg, params_fn, reqs, device: str, what: str, keep: dict | None = None,
+                   extra_embeds=None, tag: str = "breadth") -> dict:
     """One configuration of the breadth phase: on ``packed``, the lockstep
-    batch (8 x 128 tokens, ``GEN - 1`` ticks) read for its fused and
-    flash launches, a profiled tick and the request path; then on
-    ``reference`` (one model at a time, so the expert stacks are never
-    held twice) the same lockstep batch, whose tokens and prefill logits
-    must equal packed's bit for bit. ``keep`` receives the packed
-    lockstep's ``generated`` tokens and ``prefill_logits``."""
+    batch (8 x 128 tokens, after ``extra_embeds`` when given, ``GEN - 1``
+    ticks) read for its fused and flash launches, then -- unless
+    ``reqs`` is None -- a profiled tick and the request path (token
+    prompts); then on ``reference`` (one model at a time, so the expert
+    stacks are never held twice) the same lockstep batch, whose tokens
+    and prefill logits must equal packed's bit for bit. ``keep`` receives
+    the packed lockstep's ``generated`` tokens and ``prefill_logits``;
+    ``tag`` heads the printed lines."""
     import dataclasses
 
     import numpy as np
@@ -2573,9 +2633,9 @@ def _breadth_model(cfg, params_fn, reqs, device: str, what: str, keep: dict | No
     _fresh_peak(on_card)
     packed = compiler.compile(cfg, params_fn(), compiler.HardwareTarget(engine="packed"),
                               device=device)
-    serve.lockstep(packed, tokens, 2)  # warm-up: start-up costs out of the timed run
+    serve.lockstep(packed, tokens, 2, extra_embeds)  # warm-up: start-up costs out of the timed run
     _reset_counts()
-    lock = serve.lockstep(packed, tokens, GEN)
+    lock = serve.lockstep(packed, tokens, GEN, extra_embeds)
     counts = {**_counts(), "flash_attention": _flash_count()}
     variants = {"fused_bnn_matmul": _fused_variants(), "flash_attention": _flash_variants()}
     peak = _peak_gib(on_card)
@@ -2596,27 +2656,28 @@ def _breadth_model(cfg, params_fn, reqs, device: str, what: str, keep: dict | No
         raise AssertionError(f"{what}: generations of shape {gen.shape} out of the vocab")
     tick_ms = lock["decode_s"] * 1e3 / (GEN - 1)
     peak_txt = "not measured" if peak is None else f"{peak:.2f} GiB"
-    print(f"[breadth] {what} packed lockstep batch={BATCH} prompt={PROMPT} gen={GEN}: prefill "
+    print(f"[{tag}] {what} packed lockstep batch={BATCH} prompt={PROMPT} gen={GEN}: prefill "
           f"{lock['prefill_s'] * 1e3:.2f} ms, decode {GEN - 1} ticks {lock['decode_s'] * 1e3:.2f} "
           f"ms ({lock['decode_tok_s']:.1f} tok/s, {tick_ms:.2f} ms/tick); launches {counts}: "
           f"{n_fused // GEN} fused per prefill or tick, {n_flash} flash per prefill, by variant "
           f"{variants}; peak {peak_txt}", flush=True)
-    profile_decode(packed, tokens, tick_ms)
     res = {"prefill_ms": lock["prefill_s"] * 1e3, "decode_tok_s": lock["decode_tok_s"],
            "tick_ms": tick_ms, "launches": counts, "by_variant": variants, "peak_gib": peak}
-    _reset_counts()
-    res["requests"] = _requests_equal_alone(packed, reqs, what)
-    res["request_launches"] = {**_counts(), "flash_attention": _flash_count()}
-    if on_card and n_fused and (res["request_launches"]["fused_bnn_matmul"] == 0
-                                or _fused_variants()["popc"]):
-        raise AssertionError(f"{what}: request path launched {res['request_launches']}, fused "
-                             f"by variant {_fused_variants()}")
+    if reqs is not None:
+        res["profile"] = profile_decode(packed, tokens, tick_ms, extra_embeds)
+        _reset_counts()
+        res["requests"] = _requests_equal_alone(packed, reqs, what, tag)
+        res["request_launches"] = {**_counts(), "flash_attention": _flash_count()}
+        if on_card and n_fused and (res["request_launches"]["fused_bnn_matmul"] == 0
+                                    or _fused_variants()["popc"]):
+            raise AssertionError(f"{what}: request path launched {res['request_launches']}, "
+                                 f"fused by variant {_fused_variants()}")
     _release({"compiled": packed})
     del packed
     _fresh_peak(on_card)
     ref_model = compiler.compile(dataclasses.replace(cfg, quant="bnn"), params_fn(),
                                  compiler.HardwareTarget(engine="reference"), device=device)
-    ref = serve.lockstep(ref_model, tokens, GEN)
+    ref = serve.lockstep(ref_model, tokens, GEN, extra_embeds)
     _release({"compiled": ref_model})
     del ref_model
     if not np.array_equal(ref["generated"], gen):
@@ -2625,7 +2686,7 @@ def _breadth_model(cfg, params_fn, reqs, device: str, what: str, keep: dict | No
     if not torch.equal(ref["prefill_logits"], logits):
         raise AssertionError(f"{what}: packed prefill logits differ from the reference engine's")
     res["reference_decode_tok_s"] = ref["decode_tok_s"]
-    print(f"[breadth] {what} reference lockstep: prefill {ref['prefill_s'] * 1e3:.2f} ms, decode "
+    print(f"[{tag}] {what} reference lockstep: prefill {ref['prefill_s'] * 1e3:.2f} ms, decode "
           f"{ref['decode_tok_s']:.1f} tok/s; packed == reference: all {gen.size} tokens and the "
           f"prefill logits bit for bit", flush=True)
     return res
@@ -2753,6 +2814,298 @@ def breadth_phase(device: str = "cuda", smoke: bool = False) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: frontends -- the encoder-decoder stack and the vision frontend
+# ---------------------------------------------------------------------------
+
+# full width and depth: 24 + 24 layers, d 1024, 16 heads of 64, d_ff
+# 8192, vocab 256206, 512 frames per utterance (8.1 GB of fp32 latents)
+FRONTEND_ENCDEC = "seamless-m4t-large-v2"
+# full width and depth: 24 layers, d 896, 14 / 2 heads of 64, d_ff 4864,
+# vocab 151655, 256 patch embeddings per image (2.5 GB)
+FRONTEND_VLM = "internvl2-1b"
+
+
+def _hamming_per_step(cfg) -> tuple[int, int]:
+    """Hamming launches of one enc-dec prefill and one decode tick on
+    ``packed``: every binarized projection through ``binary_vmm`` --
+    prefill: q, k, v, o, w1, w3, w2 per encoder layer and self q/k/v/o,
+    cross q/k/v/o, w1, w3, w2 per decoder layer; a tick: the decoder's
+    less the cross k/v (cached)."""
+    return 7 * cfg.n_encoder_layers + 11 * cfg.n_layers, 9 * cfg.n_layers
+
+
+def _encdec_lockstep(model, cfg, src, tokens, device: str, what: str,
+                     profile: bool = False) -> dict:
+    """The enc-dec model on ``cfg.bnn_engine`` through the serve CLI's
+    ``EncDecServing``: a warm-up, then the lockstep batch (``GEN - 1``
+    ticks) with the Hamming and flash launches it made, and with
+    ``profile`` a profiled tick. Returns the lockstep's results with
+    ``launches``, ``by_variant``, ``peak_gib`` and ``profile``."""
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.kernels import xnor_matmul
+    from repro_torch.launch import serve
+
+    on_card = device == "cuda"
+    served = serve.EncDecServing(model, cfg, src, compiler.HardwareTarget(engine=cfg.bnn_engine),
+                                 torch.device(device))
+    serve.lockstep(served, tokens, 2)  # warm-up: start-up costs out of the timed run
+    _fresh_peak(on_card)
+    _reset_counts()
+    lock = serve.lockstep(served, tokens, GEN)
+    lock["launches"] = {**_counts(), "flash_attention": _flash_count()}
+    lock["by_variant"] = {"hamming_matmul": dict(xnor_matmul.launches_by_variant),
+                          "flash_attention": _flash_variants()}
+    lock["peak_gib"] = _peak_gib(on_card)
+    lock["profile"] = None
+    tick_ms = lock["decode_s"] * 1e3 / (GEN - 1)
+    if cfg.bnn_engine == "packed":
+        prefill_n, tick_n = _hamming_per_step(cfg)
+        n_ham = prefill_n + (GEN - 1) * tick_n
+        # self, cross and encoder attention per layer, in the prefill
+        n_flash = (cfg.n_encoder_layers + 2 * cfg.n_layers) if cfg.attn_impl == "pallas" else 0
+        _check_launches(device, {**lock["launches"], **{f"{k} by variant": v
+                                                        for k, v in lock["by_variant"].items()}},
+                        {"fused_bnn_matmul": 0, "hamming_matmul": n_ham, "flash_attention": n_flash,
+                         "hamming_matmul by variant": {"popc": 0, "b1": n_ham},
+                         "flash_attention by variant": {"fma": 0, "sm90": n_flash}},
+                        f"{what} lockstep")
+    peak = lock["peak_gib"]
+    print(f"[frontends] {what} lockstep batch={BATCH} prompt={PROMPT} over "
+          f"{src.shape[1]} frames gen={GEN}: prefill {lock['prefill_s'] * 1e3:.2f} ms, decode "
+          f"{GEN - 1} ticks {lock['decode_s'] * 1e3:.2f} ms ({lock['decode_tok_s']:.1f} tok/s, "
+          f"{tick_ms:.2f} ms/tick); launches {lock['launches']}, by variant "
+          f"{lock['by_variant']}; peak "
+          f"{'not measured' if peak is None else f'{peak:.2f} GiB'}", flush=True)
+    if profile:
+        lock["profile"] = profile_decode(served, tokens, tick_ms)
+    return lock
+
+
+# enc-dec decode == prefill at one position, full-precision projections:
+# the two round p and v in another order, 0.0098 of the largest logit on
+# the smoke config (CPU) and 0.0146 at full depth (an H100). A planted
+# decode fault moves it further: the last prompt row stale 0.049 / 0.028,
+# one position early 0.21 / 0.073, another utterance's cross K/V 1.01 /
+# 0.67 (smoke / full depth). The bound lies between the sound readings
+# and every fault's at both sizes: 0.02 of the largest logit.
+DECODE_REL = 0.02
+
+
+def _decode_matches_prefill(model, base, src, tokens, device: str, what: str) -> dict:
+    """Decode at position ``PROMPT - 1`` over a prefill of the first
+    ``PROMPT - 1`` tokens == a prefill of all ``PROMPT`` (the reference's
+    invariant, its tests/test_smoke_archs.py), with ``attn_impl="jnp"``
+    and full-precision projections: max |diff| within ``DECODE_REL`` of
+    the largest logit and every greedy token equal. The same decode with
+    each of three planted faults -- the last prompt row of the self cache
+    zeroed, the step one position early, the cross K/V rolled onto
+    another utterance -- must exceed the bound, so the check is shown to
+    catch them."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import encdec
+
+    cfg = dataclasses.replace(base, attn_impl="jnp")
+    n = PROMPT - 1
+    tok = torch.as_tensor(tokens, device=device)
+
+    def stale(caches):
+        for key in encdec.SELF_KEYS:
+            caches[key][:, :, n - 1].zero_()
+
+    def cross_of_another(caches):
+        for key in encdec.CROSS_KEYS:
+            caches[key].copy_(caches[key].roll(1, dims=1))
+
+    def decode(pos=n, plant=None):
+        caches = encdec.graft_prefill_caches(
+            encdec.init_cache(cfg, BATCH, n + 1, src.shape[1], device=device), pre)
+        if plant is not None:
+            plant(caches)
+        return encdec.decode_step(model, tok[:, n], pos, caches, cfg)[0][:, : cfg.vocab_size]
+
+    with torch.no_grad():
+        want = encdec.prefill(model, src, tok, cfg)[0][:, : cfg.vocab_size]
+        _, pre = encdec.prefill(model, src, tok[:, :n], cfg)
+        got = decode()
+        faults = {name: (decode(**kw) - want).abs().max().item() for name, kw in (
+            ("last prompt row stale", {"plant": stale}),
+            ("one position early", {"pos": n - 1}),
+            ("another utterance's cross K/V", {"plant": cross_of_another}))}
+    del pre
+    top = want.abs().max().item()
+    diff = (got - want).abs().max().item()
+    bound = DECODE_REL * top
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    # the reference's smoke-size rule, reported: at full depth it is not
+    # the reference's claim
+    smoke_rule = bool(torch.allclose(got, want, atol=5e-2, rtol=5e-2))
+    print(f"[frontends] {what} quant=none: decode at position {n} vs a prefill of {n + 1} "
+          f"tokens: max |diff| {diff:.4g} ({diff / top:.4g} of max |logit| {top:.4g}; bound "
+          f"{bound:.4g} = {DECODE_REL} x max |logit|; the reference's smoke rule, allclose 5e-2: "
+          f"{smoke_rule}), greedy tokens equal in {same} of {BATCH}; planted faults: "
+          + ", ".join(f"{k} {v:.4g} ({v / top:.4g})" for k, v in faults.items()), flush=True)
+    if not diff <= bound or same != BATCH:
+        raise AssertionError(f"{what}: decode at position {n} vs a prefill of {n + 1} tokens: "
+                             f"max |diff| {diff} (bound {bound}), greedy tokens equal in {same} "
+                             f"of {BATCH}")
+    missed = [k for k, v in faults.items() if not v > bound]
+    if missed:
+        raise AssertionError(f"{what}: the decode == prefill bound {bound} misses the planted "
+                             f"faults {missed}: {faults}")
+    return {"max_abs_diff": diff, "bound": bound, "max_abs_logit": top, "tokens_equal": same,
+            "within_5e-2": smoke_rule, "faults": faults}
+
+
+def frontends_phase(device: str = "cuda", smoke: bool = False) -> dict:
+    """The encoder-decoder stack and the vision frontend, on seeded random
+    weights and frontend embeddings:
+
+    (a) seamless-m4t-large-v2 at full width and depth, served as the
+        serve CLI serves it (``EncDecServing``: no compile, every
+        projection on ``cfg.bnn_engine``): 8 utterances of 512 frames, 8
+        x 128 prompt tokens, 31 ticks, with ``attn_impl="jnp"`` and
+        ``"pallas"``. ``packed`` runs every projection through the Hamming
+        kernel (``b1``; flash ``sm90`` for the encoder, self- and
+        cross-attention with pallas); its tokens and prefill logits equal
+        the ``reference`` engine's bit for bit. Decode == prefill at one
+        position (``_decode_matches_prefill``). One encoder layer's, one
+        cross-attention layer's and one decoder self-attention layer's
+        attention through flash == the plain ops' within ATTN_TOL;
+    (b) internvl2-1b at full width and depth compiled on ``packed``, on
+        both attention paths: 8 x (256 patch embeddings + 128 tokens), 31
+        ticks from position 384, == ``reference`` bit for bit (fused
+        ``b1``, flash ``sm90`` at GQA groups of 7); then (on the jnp path)
+        the request path with token prompts, 8 requests with one
+        preemption, each == alone.
+
+    ``device="cpu", smoke=True`` rehearses it at the smoke configs' size.
+    Returns the phase's numbers; ``hamming_matmul``, ``fused_bnn_matmul``
+    and ``flash_attention`` are the launches of (a)'s packed and (b)'s
+    packed lockstep runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import frontend_embeds
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec, lm
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+
+    def config(arch):
+        return get_smoke_config(arch) if smoke else get_config(arch)
+
+    def frames(cfg):
+        return frontend_embeds(cfg, BATCH, generator=torch.Generator().manual_seed(SEED),
+                               device=device)
+
+    res: dict = {"card": smi("name,power.limit") if on_card else None}
+
+    # (a) the encoder-decoder stack
+    base = config(FRONTEND_ENCDEC)
+    _fresh_peak(on_card)
+    model = encdec.init_params(torch.Generator(device=device).manual_seed(SEED), base,
+                               device=device)
+    src = frames(base)
+    tokens = serve.prompts(base, BATCH, PROMPT, SEED)
+    what = f"(a) {base.name} {base.n_encoder_layers}+{base.n_layers} layers"
+    # decode ticks run the same ops on both attention paths (decode
+    # attention is plain), so the profiled tick and the request path run
+    # once, on the first
+    for impl in ("jnp", "pallas"):
+        runs = {}
+        for engine in ("packed", "reference"):
+            cfg = dataclasses.replace(base, quant="bnn", bnn_engine=engine, attn_impl=impl)
+            runs[engine] = _encdec_lockstep(model, cfg, src, tokens, device,
+                                            f"{what} attn={impl} {engine}",
+                                            profile=engine == "packed" and impl == "jnp")
+        packed, ref = runs["packed"], runs["reference"]
+        logits, gen = packed["prefill_logits"], packed["generated"]
+        if not torch.isfinite(logits[:, : base.vocab_size]).all():
+            raise AssertionError(f"{what} attn={impl}: prefill logits not finite")
+        if gen.shape != (BATCH, GEN) or gen.min() < 0 or gen.max() >= base.vocab_size:
+            raise AssertionError(f"{what} attn={impl}: generations of shape {gen.shape} out of "
+                                 f"the vocab")
+        if not np.array_equal(ref["generated"], gen):
+            bad = int((ref["generated"] != gen).sum())
+            raise AssertionError(f"{what} attn={impl}: packed generations differ from "
+                                 f"reference in {bad} tokens")
+        if not torch.equal(ref["prefill_logits"], logits):
+            raise AssertionError(f"{what} attn={impl}: packed prefill logits differ from the "
+                                 f"reference engine's")
+        print(f"[frontends] {what} attn={impl}: packed == reference: all {gen.size} tokens and "
+              f"the prefill logits bit for bit", flush=True)
+        res[f"a_{impl}"] = {
+            engine: {k: r[k] for k in ("prefill_s", "decode_s", "decode_tok_s", "launches",
+                                       "by_variant", "peak_gib", "profile")}
+            for engine, r in runs.items()}
+
+    res["a_decode_vs_prefill"] = _decode_matches_prefill(model, base, src, tokens, device, what)
+    # frames that do not fill the plain ops' key chunk are padded and
+    # masked by position, which turns their attention causal (the
+    # reference's rule, ROADMAP queue 3; the smoke config's 16 frames
+    # under a 32-key chunk); flash has no such rule, so the plain ops run
+    # one chunk of exactly the frames there. At full width 512 frames
+    # fill the 512-key chunk: the model's own setting.
+    ss = src.shape[1]
+    chunk = base.attn_chunk if ss % base.attn_chunk == 0 else ss
+    enc_diff = _attention_impls_agree(base, device, f"{what} encoder", ss, ss, causal=False,
+                                      chunk=chunk)
+    cross_diff = _attention_impls_agree(base, device, f"{what} cross-attention", PROMPT, ss,
+                                        causal=False, chunk=chunk)
+    # the decoder's self-attention: the prompt over itself, causal
+    self_diff = _attention_impls_agree(base, device, f"{what} decoder self-attention")
+    res["a_attn_vs_jnp"] = {"encoder": enc_diff, "cross": cross_diff, "decoder_self": self_diff}
+    print(f"[frontends] {what} attn=pallas vs attn=jnp (key chunk {chunk}; the decoder's "
+          f"{base.attn_chunk}): one encoder layer's "
+          f"attention (B={BATCH} H={base.n_heads} S={ss} D={base.hd}, non-causal) max |diff| "
+          f"{enc_diff:.4g}; one cross-attention layer's (Sq={PROMPT} over Skv={ss}) "
+          f"{cross_diff:.4g}; one decoder self-attention layer's (S={PROMPT}, causal) "
+          f"{self_diff:.4g} (tol {ATTN_TOL})", flush=True)
+    del model, src
+    _release({})
+
+    # (b) the vision frontend
+    vlm = config(FRONTEND_VLM)
+    extra = frames(vlm)
+    lengths = np.random.default_rng(REQUEST_SEED).integers(PROMPT // 2, PROMPT + 1, size=BATCH)
+    reqs = _breadth_requests(vlm, [int(n) for n in lengths])
+    for impl in ("jnp", "pallas"):
+        cfg = dataclasses.replace(vlm, attn_impl=impl)
+        res[f"b_{impl}"] = _breadth_model(
+            cfg, lambda c=cfg: lm.init_params(torch.Generator(device=device).manual_seed(SEED), c,
+                                              device=device),
+            reqs if impl == "jnp" else None, device,
+            f"(b) {cfg.name} {cfg.n_layers} layers + {cfg.frontend_len} patches attn={impl}",
+            extra_embeds=extra, tag="frontends")
+    attn_diff = _attention_impls_agree(vlm, device, f"(b) {vlm.name}", PROMPT + vlm.frontend_len,
+                                       PROMPT + vlm.frontend_len)
+    res["b_attn_vs_jnp"] = attn_diff
+    print(f"[frontends] (b) {vlm.name} attn=pallas vs attn=jnp: one layer's attention at "
+          f"B={BATCH} H={vlm.n_heads} KV={vlm.n_kv_heads} S={PROMPT + vlm.frontend_len} "
+          f"D={vlm.hd} max |diff| {attn_diff:.4g} (tol {ATTN_TOL})", flush=True)
+
+    res["seconds"] = time.perf_counter() - t_phase
+    res["hamming_matmul"] = sum(res[f"a_{i}"]["packed"]["launches"]["hamming_matmul"]
+                                for i in ("jnp", "pallas"))
+    res["fused_bnn_matmul"] = sum(res[f"b_{i}"]["launches"]["fused_bnn_matmul"]
+                                  for i in ("jnp", "pallas"))
+    res["flash_attention"] = (res["a_pallas"]["packed"]["launches"]["flash_attention"]
+                              + res["b_pallas"]["launches"]["flash_attention"])
+    print(json.dumps({"frontends": res}), flush=True)
+    print(f"[frontends] phase {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def kernel_summary(checked: dict, launches: dict) -> list[dict]:
     """One entry per kernel: the sums over one tinyllama-1.1b layer's
     launches in a decode tick of 8 slots."""
@@ -2833,7 +3186,8 @@ ONLY = {  # an argument that stops after some kernels' checks and times (no resu
 
 # a phase alone, after the build (no result line)
 ALONE = {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
-         "--faults-only": "faults", "--train-only": "train", "--breadth-only": "breadth"}
+         "--faults-only": "faults", "--train-only": "train", "--breadth-only": "breadth",
+         "--frontends-only": "frontends"}
 
 
 def main(argv: list[str]) -> int:
@@ -2854,7 +3208,8 @@ def main(argv: list[str]) -> int:
         name = ALONE[argv[0]]
         phase(name)
         {"telemetry": telemetry_phase, "simulators": simulators_phase,
-         "faults": faults_phase, "train": train_phase, "breadth": breadth_phase}[name]()
+         "faults": faults_phase, "train": train_phase, "breadth": breadth_phase,
+         "frontends": frontends_phase}[name]()
         print(card, flush=True)
         return 0
     phase("kernels")
@@ -2898,6 +3253,12 @@ def main(argv: list[str]) -> int:
     BY_VARIANT["fused_bnn_matmul"]["b1"] += breadth["fused_bnn_matmul"]
     launches["flash_attention"] += breadth["flash_attention"]
     BY_VARIANT["flash_attention"]["sm90"] += breadth["flash_attention"]
+    phase("frontends")
+    frontends = frontends_phase()
+    for kname, variant in (("hamming_matmul", "b1"), ("fused_bnn_matmul", "b1"),
+                           ("flash_attention", "sm90")):
+        launches[kname] += frontends[kname]
+        BY_VARIANT[kname][variant] += frontends[kname]
     summary = kernel_summary(checked, launches) + launch_summary(flash, mma, launches)
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

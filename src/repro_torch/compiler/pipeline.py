@@ -2,8 +2,9 @@
 ``repro/compiler/pipeline.py``: validate -> map -> resolve -> program).
 
 1. **Validate** the target eagerly (named :class:`TargetError`\\ s —
-   plan+engine mismatch, spec mismatch, K over plan capacity) and the
-   config (this slice serves attention-only dense stacks).
+   plan+engine mismatch, spec mismatch, K over plan capacity, an
+   enc-dec config on any engine but ``reference``: enc-dec models serve
+   through ``cfg.bnn_engine`` directly, ``models/encdec.py``).
 2. **Map**: compile an explicit layer->tile
    :class:`~repro_torch.mapping.allocator.MappingPlan`
    (``mapping.compile_plan``) when the target names a policy, budget or
@@ -53,7 +54,6 @@ from repro_torch.core import engine as engine_lib
 from repro_torch.core.crossbar import EPCM_TILE, OPCM_TILE, CrossbarSpec
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import lm as lm_lib
-from repro_torch.models.config import require_servable
 
 
 def _default_spec(engine_name: str) -> CrossbarSpec:
@@ -117,7 +117,12 @@ def compile(cfg, params, target: HardwareTarget, *, plan=None, device=None) -> "
 def _compile_staged(cfg, params, target: HardwareTarget, plan, dev) -> "CompiledModel":
     with obs.span("compile.validate", track="compile"):
         target = target.validate()
-        require_servable(cfg)
+        if cfg.is_encdec and target.engine != "reference":
+            raise TargetError(
+                f"{cfg.name}: hardware targets compile the decoder-only LM "
+                "projection stack; enc-dec models serve through "
+                "cfg.bnn_engine directly"
+            )
 
     # -- map: the explicit layer->tile placement ---------------------------
     with obs.span("compile.map", track="compile") as map_span:
@@ -351,12 +356,16 @@ class CompiledModel:
         return torch.as_tensor(tokens).to(device=self.device, dtype=torch.int64)
 
     @torch.no_grad()
-    def prefill(self, tokens):
-        """(B, S) tokens -> (last-position logits (B, V), prompt caches)."""
+    def prefill(self, tokens, extra_embeds=None):
+        """(B, S) tokens -> (last-position logits (B, V), prompt caches).
+        ``extra_embeds`` (B, L, d) prepends modality-frontend embeddings
+        (a VLM's patch embeddings); the caches then cover L + S positions."""
         self._require_params()
         tokens = self._tokens(tokens)
+        if extra_embeds is not None:
+            extra_embeds = torch.as_tensor(extra_embeds)
         ex = self.executor(int(tokens.shape[0]))
-        return lm_lib.prefill(self.params, tokens, self.cfg, engine=ex)
+        return lm_lib.prefill(self.params, tokens, self.cfg, extra_embeds=extra_embeds, engine=ex)
 
     @torch.no_grad()
     def prefill_continue(self, tokens, prefix_caches: dict):

@@ -2,9 +2,10 @@
 
 Each module defines ``CONFIG`` (the published numbers) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests). The
-port serves the decoder architectures: dense, MoE, Mamba-2 and the
-hybrid Jamba stack. The encoder-decoder and vision ids raise
-``NotImplementedError`` naming the slice that brings them.
+port serves every architecture of the reference's pool: dense, MoE,
+Mamba-2, the hybrid Jamba stack, the encoder-decoder seamless-m4t
+(``models/encdec.py``) and the vision-frontend internvl2
+(``lm.prefill(extra_embeds=)``).
 """
 
 from __future__ import annotations
@@ -27,23 +28,10 @@ ARCH_IDS: tuple[str, ...] = (
     "mamba2-2.7b",
 )
 
-SERVED: tuple[str, ...] = (
-    "jamba-1.5-large-398b",
-    "grok-1-314b",
-    "qwen3-moe-235b-a22b",
-    "qwen1.5-0.5b",
-    "tinyllama-1.1b",
-    "qwen2-72b",
-    "llama3.2-3b",
-    "mamba2-2.7b",
-)
+SERVED: tuple[str, ...] = ARCH_IDS
 
-PENDING = {
-    "internvl2-1b": "the vision frontend (prefill(extra_embeds=)) arrives with the "
-                    "enc-dec / vision slice",
-    "seamless-m4t-large-v2": "encoder-decoder models (models/encdec.py) arrive with the "
-                             "enc-dec / vision slice",
-}
+# architectures the port cannot serve yet, each with the reason (none)
+PENDING: dict[str, str] = {}
 
 
 def _module(arch: str):

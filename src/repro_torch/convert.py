@@ -7,7 +7,10 @@ repro.models.lm.init_params(key, cfg))``): a nested dict whose block
 parameters are stacked over repeats, ``(R, m, n)`` per projection,
 ``(R, E, d, f)`` per expert stack and ``(R, d)`` per norm, with an
 ``attn`` or ``mamba`` mixer and an ``ffn``, ``moe`` or no FFN per slot,
-and builds an ``LM``. :func:`mamba_from_jax` and :func:`moe_from_jax`
+and builds an ``LM``; :func:`encdec_from_jax` does the same for the
+enc-dec tree (``repro.models.encdec.init_params``: ``enc_blocks`` /
+``dec_blocks`` stacked over layers) and builds an ``EncDec``.
+:func:`mamba_from_jax` and :func:`moe_from_jax`
 take one layer's unstacked ``mamba`` / ``moe`` subtree (the reference's
 ``ssm.mamba_init`` / ``moe.moe_init``). :func:`params_dict` carries a
 flat parameter dict, such as the paper MLP's or LeNet's
@@ -18,7 +21,9 @@ reference.
 
 The other direction: :func:`params_to_jax` and :func:`grads_to_jax`
 give an ``LM``'s parameters and gradients as the reference's numpy tree
-(stacked over repeats, :func:`repro_torch.models.lm.param_tree`), and
+(stacked over repeats, :func:`repro_torch.models.lm.param_tree`);
+:func:`encdec_to_jax` gives an ``EncDec``'s as the reference's enc-dec
+tree; and
 :func:`tree_to_jax` / :func:`tree_from_jax` carry a tree that already
 has the reference's layout, such as the optimizer state (``m``, ``v``
 or its factored ``vr`` / ``vc``, ``step``), leaf by leaf.
@@ -32,6 +37,7 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.device import resolve_device
 from repro_torch.models import lm as lm_lib
+from repro_torch.models.encdec import DecoderLayer, EncDec, EncoderLayer
 from repro_torch.models.layers import FFN, Attention, BitLinear
 from repro_torch.models.lm import LM, Block
 from repro_torch.models.moe import MoE
@@ -91,6 +97,59 @@ def params_from_jax(tree: dict, *, device=None) -> LM:
     blocks = [block(slots[f"slot{i}"], r) for r in range(n_repeats) for i in range(n_slots)]
     head = t(tree["head"]) if "head" in tree else None
     return LM(t(tree["embed"]), t(tree["final_norm"]), head, blocks, n_slots)
+
+
+# the reference's enc-dec layer subtrees: (name, kind) per child
+_ENC_LAYER = (("norm1", "norm"), ("attn", "attn"), ("norm2", "norm"), ("ffn", "ffn"))
+_DEC_LAYER = (("norm1", "norm"), ("self_attn", "attn"), ("norm_x", "norm"),
+              ("cross_attn", "attn"), ("norm2", "norm"), ("ffn", "ffn"))
+_PROJECTIONS = {"attn": ("q", "k", "v", "o"), "ffn": ("w1", "w3", "w2")}
+
+
+def encdec_from_jax(tree: dict, *, device=None) -> EncDec:
+    """The reference's enc-dec parameter tree (numpy leaves; ``enc_blocks``
+    and ``dec_blocks`` stacked over layers) -> an ``EncDec`` on ``device``
+    (default ``cuda``): layer ``i`` from index ``i`` of each stack."""
+    t = _to(resolve_device(device))
+
+    def child(sub, kind: str, i: int):
+        if kind == "norm":
+            return t(sub[i])
+        projs = [BitLinear(t(sub[n]["w"][i]), t(sub[n]["b"][i]) if "b" in sub[n] else None)
+                 for n in _PROJECTIONS[kind]]
+        return Attention(*projs) if kind == "attn" else FFN(*projs)
+
+    def layers(stack: dict, spec, cls) -> list:
+        n = stack["norm1"].shape[0]
+        return [cls(*(child(stack[name], kind, i) for name, kind in spec)) for i in range(n)]
+
+    return EncDec(t(tree["embed"]), t(tree["head"]),
+                  layers(tree["enc_blocks"], _ENC_LAYER, EncoderLayer), t(tree["enc_norm"]),
+                  layers(tree["dec_blocks"], _DEC_LAYER, DecoderLayer), t(tree["final_norm"]))
+
+
+def encdec_to_jax(model: EncDec) -> dict:
+    """An ``EncDec`` -> the reference's enc-dec tree with numpy leaves,
+    each layer leaf stacked over layers: the inverse of
+    :func:`encdec_from_jax`."""
+
+    def leaves(layer, spec) -> dict:
+        out = {}
+        for name, kind in spec:
+            c = getattr(layer, name)
+            out[name] = c if kind == "norm" else {
+                n: lm_lib._proj_leaves(getattr(c, n)) for n in _PROJECTIONS[kind]}
+        return out
+
+    def stacked(blocks, spec) -> dict:
+        per = [leaves(b, spec) for b in blocks]
+        return tree_lib.map_with_path(
+            lambda path, _: torch.stack([tree_lib.get(p, path) for p in per]), per[0])
+
+    tree = {"embed": model.embed, "head": model.head,
+            "enc_blocks": stacked(model.enc_blocks, _ENC_LAYER), "enc_norm": model.enc_norm,
+            "dec_blocks": stacked(model.dec_blocks, _DEC_LAYER), "final_norm": model.final_norm}
+    return tree_to_jax(tree)
 
 
 def tree_to_jax(tree) -> dict:

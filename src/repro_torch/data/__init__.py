@@ -6,4 +6,4 @@ Restart safety is structural: batch(step) is a pure function of
 no data-loader state in checkpoints.
 """
 
-from repro_torch.data.synthetic import bnn_image_batch, lm_batch
+from repro_torch.data.synthetic import bnn_image_batch, frontend_embeds, lm_batch

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.config import ModelConfig, require_servable
+from repro_torch.models.config import ModelConfig
 
 
 def _generator(*entropy: int) -> torch.Generator:
@@ -31,12 +31,30 @@ def lm_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0, step: int
     """Skewed synthetic token batch ``{"tokens": (batch, seq) int64}`` on
     ``device`` (default ``cuda``): the reference's Zipf-ish marginal,
     ``floor(-log(u) * V / 8)`` clipped to the vocabulary, u uniform in
-    [1e-6, 1)."""
+    [1e-6, 1). A vision-frontend config adds ``extra_embeds`` and an
+    enc-dec config ``src_embeds`` (:func:`frontend_embeds`, drawn after
+    the tokens from the same stream)."""
     dev = resolve_device(device)
-    require_servable(cfg)
-    u = torch.rand((batch, seq), generator=_generator(seed, step)) * (1.0 - 1e-6) + 1e-6
+    gen = _generator(seed, step)
+    u = torch.rand((batch, seq), generator=gen) * (1.0 - 1e-6) + 1e-6
     r = torch.floor(-torch.log(u) * cfg.vocab_size / 8.0).to(torch.int64)
-    return {"tokens": torch.clamp(r, 0, cfg.vocab_size - 1).to(dev)}
+    out = {"tokens": torch.clamp(r, 0, cfg.vocab_size - 1).to(dev)}
+    if cfg.frontend == "vision":
+        out["extra_embeds"] = frontend_embeds(cfg, batch, generator=gen, device=dev)
+    elif cfg.is_encdec:
+        out["src_embeds"] = frontend_embeds(cfg, batch, generator=gen, device=dev)
+    return out
+
+
+def frontend_embeds(cfg: ModelConfig, batch: int, *, generator: torch.Generator | None = None,
+                    device=None) -> torch.Tensor:
+    """The stub modality frontend, as the reference's: unit-variance
+    (batch, ``cfg.frontend_len``, ``cfg.d_model``) fp32 patch or frame
+    embeddings on ``device`` (default ``cuda``), drawn from ``generator``
+    (default: a CPU generator seeded with 0)."""
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    x = torch.randn((batch, cfg.frontend_len, cfg.d_model), generator=gen, device=gen.device)
+    return x.to(resolve_device(device))
 
 
 def bnn_image_batch(

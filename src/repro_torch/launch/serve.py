@@ -24,6 +24,13 @@ or, with ``--requests N``, drive the request scheduler.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --engine packed --device cpu --requests 12 --replicas 2 --routing prefix
 
+    # the encoder-decoder model (served through cfg.bnn_engine, no
+    # compile) and the vision frontend (256 patch embeddings per prompt):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
+        --smoke --engine packed --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \\
+        --smoke --engine packed --device cpu
+
     # traced: compile-stage, prefill and decode-tick spans as a Chrome
     # trace, and the serving metrics as a Prometheus-style snapshot:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
@@ -33,9 +40,17 @@ or, with ``--requests N``, drive the request scheduler.
 Weights are random (``init_params`` from a ``torch.Generator`` seeded by
 ``--seed`` on the serving device); prompts come from a numpy generator
 seeded by ``--seed``, and the request trace's prompt lengths from
-``--request-seed`` (default ``--seed``). ``--engine tiled`` always
-executes per a compiled mapping plan (``--mapping-policy``, default the
-arch's policy) and prints its placement and the cost model's pricing
+``--request-seed`` (default ``--seed``). A frontend's embeddings
+(``data.frontend_embeds``: an enc-dec model's source frames, a VLM's
+patches) come from a CPU ``torch.Generator`` seeded by ``--seed``. An
+enc-dec model is not compiled (``compile()`` takes decoder-only stacks
+on hardware targets): it serves the lockstep batch through
+``cfg.bnn_engine`` and refuses the decoder-only knobs, as the reference
+does. A VLM's lockstep prompts prepend the patches, and decode
+positions start after them; its request path serves token prompts.
+``--engine tiled`` always executes per a compiled mapping plan
+(``--mapping-policy``, default the arch's policy) and prints its
+placement and the cost model's pricing
 (``CompiledModel.describe()``); a fleet prints ``FleetEngine.price()``.
 Those are the cost model's figures for an ePCM/oPCM crossbar, labelled
 as modeled. :func:`run` returns the generations and timings for
@@ -53,6 +68,8 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.models import encdec
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,17 +108,52 @@ def prompts(cfg, n: int, length: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(n, length))
 
 
-def lockstep(compiled, tokens: np.ndarray, gen: int) -> dict:
-    """Prefill the batch, then ``gen - 1`` lockstep decode ticks. Returns
-    the generated tokens (B, gen), the prefill logits and the
-    prefill/decode wall times, each ending in a device synchronization."""
+class EncDecServing:
+    """An enc-dec model behind the interface :func:`lockstep` drives
+    (``prefill`` / ``init_cache`` / ``graft_prefill_caches`` /
+    ``decode_step``), for one batch of source embeddings (B, Ss, d):
+    every call runs ``models.encdec`` on ``cfg.bnn_engine``. ``target``
+    is what the CLI was given; nothing is programmed."""
+
+    def __init__(self, model, cfg, src_embeds: torch.Tensor, target, device):
+        self.model, self.cfg, self.target, self.device = model, cfg, target, device
+        self.src_embeds = src_embeds.to(device)
+
+    @torch.no_grad()
+    def prefill(self, tokens, extra_embeds=None):
+        if extra_embeds is not None:
+            raise ValueError("an enc-dec prompt takes its frontend embeddings as the source")
+        tokens = torch.as_tensor(tokens).to(device=self.device, dtype=torch.int64)
+        return encdec.prefill(self.model, self.src_embeds, tokens, self.cfg)
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return encdec.init_cache(self.cfg, batch, max_len, self.src_embeds.shape[1],
+                                 device=self.device)
+
+    @torch.no_grad()
+    def graft_prefill_caches(self, caches: dict, pre: dict) -> dict:
+        return encdec.graft_prefill_caches(caches, pre)
+
+    @torch.no_grad()
+    def decode_step(self, token, pos, caches):
+        return encdec.decode_step(self.model, token, pos, caches, self.cfg)
+
+
+def lockstep(compiled, tokens: np.ndarray, gen: int, extra_embeds=None) -> dict:
+    """Prefill the batch (after ``extra_embeds`` (B, L, d), a VLM's
+    patches, when given), then ``gen - 1`` lockstep decode ticks from
+    position ``L + S``. Returns the generated tokens (B, gen), the
+    prefill logits and the prefill/decode wall times, each ending in a
+    device synchronization."""
     from repro_torch.device import synchronize
 
     dev = compiled.device
     b, s = tokens.shape
+    if extra_embeds is not None:
+        s += extra_embeds.shape[1]
     synchronize(dev)
     t0 = time.perf_counter()
-    logits, pre = compiled.prefill(tokens)
+    logits, pre = compiled.prefill(tokens, extra_embeds)
     caches = compiled.graft_prefill_caches(compiled.init_cache(b, s + gen), pre)
     synchronize(dev)
     t_prefill = time.perf_counter() - t0
@@ -200,6 +252,7 @@ def run(argv: list[str] | None = None) -> dict:
     its artifacts written before this returns."""
     from repro_torch import compiler as compiler_lib
     from repro_torch import obs
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.device import resolve_device
 
     ap = build_parser()
@@ -210,15 +263,34 @@ def run(argv: list[str] | None = None) -> dict:
         ap.error(str(e))
     if target.engine == "reference" and target.group_size:
         ap.error("--group-size requires a non-reference --engine")
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encdec:
+        # the compiler pipeline covers the decoder-only LM projection
+        # stack; enc-dec archs bind the backend via cfg.bnn_engine and
+        # reject the decoder-only-serving knobs (the reference's messages)
+        if target.group_size:
+            ap.error("--group-size applies to the decoder-only serving path")
+        if target.wants_plan:
+            ap.error("--mapping-policy/--tile-budget place weights for the "
+                     "decoder-only LM projection stack")
+        if not target.prepare_weights:
+            ap.error("--raw-weights toggles the decoder-only compile "
+                     "pipeline's programming phase; the enc-dec path never "
+                     "programs weights")
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
-    if args.replicas > 1 and not args.requests:
-        ap.error("--replicas > 1 serves the request path; pass --requests N")
+    if args.replicas > 1:
+        if cfg.is_encdec:
+            ap.error("--replicas drives the decoder-only fleet path")
+        if not args.requests:
+            ap.error("--replicas > 1 serves the request path; pass --requests N")
+    if args.requests and cfg.is_encdec:
+        ap.error("--requests drives the decoder-only scheduler path")
     dev = resolve_device(args.device)
     # live before compile() so the pipeline-stage spans are captured
     tel = compiler_lib.obs_from_args(args)
     try:
-        result = _serve(args, target, dev)
+        result = _serve(args, cfg, target, dev)
     finally:
         if tel is not None:
             obs.stop()
@@ -231,19 +303,29 @@ def run(argv: list[str] | None = None) -> dict:
     return result
 
 
-def _serve(args, target, dev) -> dict:
+def _serve(args, cfg, target, dev) -> dict:
     """The body of :func:`run`: seeded weights, compile (or a fleet of
-    compiled replicas), then the lockstep batch or the request trace."""
+    compiled replicas), then the lockstep batch or the request trace; an
+    enc-dec model serves the lockstep batch uncompiled."""
     from repro_torch import compiler as compiler_lib
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import frontend_embeds
     from repro_torch.models import lm as lm_lib
 
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if target.engine == "tiled" and target.mapping_policy is None:
         # `--engine tiled` executes per an explicit compiled plan; the
         # policy falls back to the arch config's default
         target = dataclasses.replace(target, mapping_policy=cfg.mapping_policy)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    embeds = None
+    if cfg.frontend != "none":
+        embeds = frontend_embeds(cfg, args.batch,
+                                 generator=torch.Generator().manual_seed(args.seed), device=dev)
+    if cfg.is_encdec:
+        if target.engine != "reference":
+            cfg = dataclasses.replace(cfg, quant="bnn", bnn_engine=target.engine)
+        model = EncDecServing(encdec.init_params(gen, cfg, device=dev), cfg, embeds, target, dev)
+        tokens = prompts(cfg, args.batch, args.prompt_len, args.seed)
+        return {"compiled": model, "args": args, **lockstep(model, tokens, args.gen)}
     params = lm_lib.init_params(gen, cfg, device=dev)
     if args.replicas > 1:
         # each replica compiles and programs its own copy of the target
@@ -256,7 +338,7 @@ def _serve(args, target, dev) -> dict:
         result.update(serve_requests(compiled, args))
     else:
         tokens = prompts(compiled.cfg, args.batch, args.prompt_len, args.seed)
-        result.update(lockstep(compiled, tokens, args.gen))
+        result.update(lockstep(compiled, tokens, args.gen, embeds))
     return result
 
 
@@ -264,10 +346,20 @@ def main(argv: list[str] | None = None) -> int:
     res = run(argv)
     compiled, args = res["compiled"], res["args"]
     cfg = compiled.cfg
-    print(f"[serve] arch={cfg.name} device={compiled.device} engine={compiled.target.engine} "
-          f"quant={cfg.quant} programmed={compiled.programmed} "
-          f"({compiled.program_s * 1e3:.1f} ms)")
-    if compiled.plan is not None and args.replicas == 1:
+    if cfg.is_encdec:
+        # not compiled: every projection runs on cfg.bnn_engine
+        if compiled.target.engine != "reference":
+            from repro_torch.core import engine as engine_lib
+
+            eng = engine_lib.get_engine(compiled.target.engine)
+            print(f"[serve] engine={eng.name} ({eng.info.description})")
+        print(f"[serve] arch={cfg.name} device={compiled.device} "
+              f"engine={compiled.target.engine} quant={cfg.quant} (enc-dec: not compiled)")
+    else:
+        print(f"[serve] arch={cfg.name} device={compiled.device} engine={compiled.target.engine} "
+              f"quant={cfg.quant} programmed={compiled.programmed} "
+              f"({compiled.program_s * 1e3:.1f} ms)")
+    if not cfg.is_encdec and compiled.plan is not None and args.replicas == 1:
         print("[serve] placement and the cost model's pricing (modeled for the target's "
               "crossbar, not measured):")
         print(compiled.describe())
@@ -306,7 +398,9 @@ def main(argv: list[str] | None = None) -> int:
         if done:
             print(f"[serve] rid={done[0].rid} generated[:8] = {done[0].generated[:8]}")
     else:
-        print(f"[serve] batch={args.batch} prompt={args.prompt_len}: prefill "
+        frontend = {"none": "", "vision": f" after {cfg.frontend_len} patch embeddings"}.get(
+            cfg.frontend, f" over {cfg.frontend_len} source frames")
+        print(f"[serve] batch={args.batch} prompt={args.prompt_len}{frontend}: prefill "
               f"{res['prefill_s'] * 1e3:.1f} ms; decode {args.gen - 1} steps "
               f"{res['decode_s'] * 1e3:.1f} ms ({res['decode_tok_s']:.1f} tok/s)")
         print(f"[serve] generated[0,:8] = {res['generated'][0, :8].tolist()}")

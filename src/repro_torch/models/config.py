@@ -2,10 +2,10 @@
 ``LayerKind`` / ``ModelConfig`` schema, so the port imports nothing of
 ``repro``).
 
-One frozen dataclass covers every family of the reference's pool; the
-port serves the decoder patterns (attention or Mamba mixers, dense or
-MoE FFNs), not yet the encoder-decoder and vision ones
-(:func:`require_servable`).
+One frozen dataclass covers every family of the reference's pool: the
+decoder patterns (attention or Mamba mixers, dense or MoE FFNs), the
+encoder-decoder stack (``n_encoder_layers > 0``) and the modality
+frontends (``frontend``).
 """
 
 from __future__ import annotations
@@ -161,18 +161,3 @@ class ModelConfig:
         )
         return self.param_count() - n_moe_layers * (full_ffn - active_ffn)
 
-
-def require_servable(cfg: ModelConfig) -> ModelConfig:
-    """Raise ``NotImplementedError`` naming the later slice for a config
-    the port cannot serve yet (encoder-decoder, a modality frontend)."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models arrive with the enc-dec / vision "
-            "slice (models/encdec.py)"
-        )
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend arrives with the enc-dec / "
-            "vision slice"
-        )
-    return cfg

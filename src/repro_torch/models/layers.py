@@ -27,6 +27,8 @@ from repro_torch.models.config import ModelConfig
 
 ACT_DTYPE = torch.bfloat16
 NEG_INF = -1e30
+# the profiler's name for a latent projection's weight side in ``dense``
+LATENT_WEIGHT_SPAN = "dense.latent_weight"
 
 
 # ---------------------------------------------------------------------------
@@ -220,15 +222,20 @@ def dense(p: BitLinear, x: torch.Tensor, quant: str = "none", engine=None) -> to
             else:
                 _require_latent(p, engine)
                 w = p.w
-                alpha = _abs(w).mean().to(torch.float32)
+                # the weight side of a latent projection, named for the
+                # profiler: alpha and, on a weight-cache miss, the
+                # binarize + pack
+                with torch.profiler.record_function(LATENT_WEIGHT_SPAN):
+                    alpha = _abs(w).mean().to(torch.float32)
+                    if engine is not None and hasattr(engine, "prepare_cached"):
+                        # lazy: binarization runs only on a weight-cache miss
+                        wx = engine.prepare_cached(lambda: bnn.binarize_ste(w), key=w)
+                    else:
+                        wx = bnn.binarize_ste(w)
                 if engine is None:
-                    dot = xb @ bnn.binarize_ste(w)
-                elif hasattr(engine, "prepare_cached"):
-                    # lazy: binarization runs only on a weight-cache miss
-                    wx = engine.prepare_cached(lambda: bnn.binarize_ste(w), key=w)
-                    dot = engine.binary_vmm(xb, wx).to(torch.float32)
+                    dot = xb @ wx
                 else:
-                    dot = engine.binary_vmm(xb, bnn.binarize_ste(w)).to(torch.float32)
+                    dot = engine.binary_vmm(xb, wx).to(torch.float32)
             out = (dot * (alpha * beta)).to(ACT_DTYPE)
     else:
         _require_latent(p, engine)
@@ -305,11 +312,23 @@ def multi_head_attention(
     q (B, Sq, H, D); k/v (B, Skv, KV, D); positions (S,)-shaped. Returns
     (B, Sq, H, D) in q's dtype. The probabilities and values of each
     chunk round to bf16 before an fp32 contraction, as the reference's
-    bf16 einsum with fp32 accumulation does. The queries are the last Sq
-    of the Skv positions (every model path gives them so), and both
-    contractions run in row blocks aligned to those absolute positions
-    (``rowblock_matmul``), so a row's result does not depend on Sq: a
-    prefix-grafted continuation equals the full prefill bit for bit.
+    bf16 einsum with fp32 accumulation does. Both contractions run in
+    blocks of 16 query rows (``rowblock_matmul``) aligned to row
+    ``Skv - Sq``. In self-attention the queries are the last Sq of the
+    Skv positions, so that is their absolute position and a row's result
+    does not depend on Sq: a prefix-grafted continuation equals the full
+    prefill bit for bit. Cross-attention's queries are decoder positions
+    over encoder frames, so ``Skv - Sq`` is only an offset (negative for
+    a prompt longer than the source; the blocks are whole either way):
+    the products are exact as always, and no row-count invariant is
+    asked of them, since an enc-dec prompt is never continued.
+
+    When ``Skv`` is not a multiple of ``chunk`` the keys are padded and
+    masked by position, which turns on the causal mask for the real keys
+    too, as the reference does (it makes seamless's smoke encoder
+    causal, and masks the frames past a decoder position in its
+    cross-attention; at full width 512 frames fill one chunk). The flash
+    path has no such rule.
 
     ``impl="pallas"`` routes through the fused flash-attention kernel
     (``kernels/flash_attention.py``) on the (B, H, S, D) layout. It has
@@ -447,6 +466,29 @@ def attention_block(
     )
     out = dense(attn.o, out.reshape(b, s, cfg.n_heads * hd), quant, engine)
     return out, (k, v)
+
+
+def cross_attention_block(
+    attn: Attention,
+    x: torch.Tensor,
+    kv: tuple[torch.Tensor, torch.Tensor],
+    positions: torch.Tensor,
+    cfg: ModelConfig,
+    quant: str = "none",
+    engine=None,
+) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (B, Ss, KV, D):
+    non-causal, the keys at source positions ``0 .. Ss - 1``, no RoPE."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    k, v = kv
+    q = dense(attn.q, x, quant, engine).reshape(b, s, cfg.n_heads, hd)
+    src_pos = torch.arange(k.shape[1], device=x.device)
+    out = multi_head_attention(
+        q, k, v, positions, src_pos, causal=False, chunk=cfg.attn_chunk,
+        impl=cfg.attn_impl,
+    )
+    return dense(attn.o, out.reshape(b, s, cfg.n_heads * hd), quant, engine)
 
 
 def attention_continue(

@@ -35,7 +35,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import rowblock_matmul
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.config import ModelConfig, require_servable
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     ACT_DTYPE,
     FFN,
@@ -103,7 +103,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> LM:
     parameters require no grad until a trainer asks
     (``model.requires_grad_(True)``)."""
     dev = resolve_device(device)
-    require_servable(cfg)
 
     def normal(shape, std: float) -> torch.Tensor:
         x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
@@ -294,7 +293,6 @@ def backbone(model: LM, embeds: torch.Tensor, positions: torch.Tensor, cfg: Mode
     an fp32 scalar). ``cfg.remat`` checkpoints each block, saving only
     its bf16 input (:func:`~repro_torch.models.scan.remat_scan`); either
     way the loss and gradients are the same bit for bit."""
-    require_servable(cfg)
     h = embeds.to(ACT_DTYPE)
     carry = (h, torch.zeros((), dtype=torch.float32, device=h.device))
 
@@ -342,13 +340,12 @@ def lm_loss(model: LM, hidden: torch.Tensor, targets: torch.Tensor, cfg: ModelCo
 
 def loss_fn(model: LM, batch: dict, cfg: ModelConfig, aux_coef: float = 0.01) -> torch.Tensor:
     """Next-token loss over a ``{"tokens": (B, S)}`` batch (dense decoder
-    models; modality-frontend embeddings arrive with the enc-dec / vision
-    slice, and training MoE and Mamba stacks with the training-breadth
-    slice)."""
+    models; training with modality-frontend embeddings and training MoE
+    and Mamba stacks arrive with the training-breadth slice)."""
     if "extra_embeds" in batch:
         raise NotImplementedError(
-            f"{cfg.name}: modality-frontend embeddings (extra_embeds) arrive with the "
-            "enc-dec / vision slice"
+            f"{cfg.name}: training with modality-frontend embeddings (extra_embeds) "
+            "arrives with the training-breadth slice"
         )
     if cfg.has_mamba or any(kind.moe for kind in cfg.pattern):
         raise NotImplementedError(
@@ -544,17 +541,24 @@ def _stack_caches(per_slot: list[dict[str, list[torch.Tensor]]]) -> dict:
             for i, kv in enumerate(per_slot)}
 
 
-def prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig, engine=None):
+def prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
+            extra_embeds: torch.Tensor | None = None, engine=None):
     """Forward over (B, S) prompt tokens. Returns last-position logits
     (B, V) fp32 and the prompt caches: ``{"k"/"v": (R, B, S, KV, D)}``
     bf16 per attention slot, the Mamba decode cache (``ssm.mamba_block``)
-    per Mamba slot. ``engine`` overrides ``cfg.bnn_engine`` for the
+    per Mamba slot. ``extra_embeds`` (B, L, d) prepends modality-frontend
+    embeddings (a VLM's patches): the sequence is ``[extra_embeds,
+    embed(tokens)]`` at positions ``0 .. L + S - 1``, and the caches
+    cover all of it. ``engine`` overrides ``cfg.bnn_engine`` for the
     binarized projections (serving passes its K-group
     ``GroupedEngine``)."""
-    require_servable(cfg)
     tokens = tokens.to(device=model.embed.device, dtype=torch.int64)
-    h = model.embed[tokens].to(ACT_DTYPE)
-    positions = torch.arange(tokens.shape[1], device=h.device)
+    embeds = model.embed[tokens]
+    if extra_embeds is not None:
+        extra = extra_embeds.to(device=embeds.device, dtype=embeds.dtype)
+        embeds = torch.cat([extra, embeds], dim=1)
+    h = embeds.to(ACT_DTYPE)
+    positions = torch.arange(h.shape[1], device=h.device)
     eng = engine if engine is not None else infer_engine(cfg)
     n_slots = len(cfg.pattern)
     per_slot: list[dict[str, list[torch.Tensor]]] = [{} for _ in range(n_slots)]
@@ -585,7 +589,9 @@ def prefill_continue(model: LM, tokens: torch.Tensor, prefix_caches: dict, cfg: 
     concatenated back in), bit for bit
     (:func:`~repro_torch.models.layers.attention_continue`).
     Attention-only stacks: anything else raises
-    :class:`PrefixContinuationError`.
+    :class:`PrefixContinuationError`. Token prompts only, as in the
+    reference: there is no ``extra_embeds`` (a VLM prompt's frontend
+    embeddings have positions a token-hash prefix cannot name).
     """
     bad = [f"slot{i}" for i, kind in enumerate(cfg.pattern) if kind.mixer != "attn"]
     if bad:
@@ -594,7 +600,6 @@ def prefill_continue(model: LM, tokens: torch.Tensor, prefix_caches: dict, cfg: 
             f"non-attention mixer(s) at {', '.join(bad)} whose recurrent state "
             "cannot be sliced at a prefix boundary"
         )
-    require_servable(cfg)
     tokens = tokens.to(device=model.embed.device, dtype=torch.int64)
     start = next(iter(prefix_caches.values()))["k"].shape[2]
     h = model.embed[tokens].to(ACT_DTYPE)
@@ -624,7 +629,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=ACT_DTYPE, *, d
     """Zero decode caches (stacked over repeats) on ``device``: K/V rows
     in ``dtype`` per attention slot; per Mamba slot the conv tails in
     ``dtype`` and the SSD state in fp32."""
-    require_servable(cfg)
     r = cfg.n_repeats
 
     def zeros(*shape, dt=dtype):

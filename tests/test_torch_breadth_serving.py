@@ -328,10 +328,22 @@ def test_configs_batches_and_training_refusal(arch):
 
 
 def test_encdec_and_vision_name_the_next_slice():
-    assert set(PENDING) == {"seamless-m4t-large-v2", "internvl2-1b"}
-    for arch in PENDING:
-        with pytest.raises(NotImplementedError, match="enc-dec / vision slice"):
-            get_config(arch)
-    cfg = dataclasses.replace(get_smoke_config("tinyllama-1.1b"), n_encoder_layers=2)
-    with pytest.raises(NotImplementedError, match="enc-dec / vision slice"):
-        lm.init_params(torch.Generator(), cfg, device="cpu")
+    """The enc-dec / vision slice has come: no architecture is pending,
+    both configs resolve, and their smoke models build and prefill."""
+    from repro_torch.data import frontend_embeds
+    from repro_torch.models import encdec
+
+    assert PENDING == {}
+    assert {"seamless-m4t-large-v2", "internvl2-1b"} <= set(SERVED)
+    seamless = get_smoke_config("seamless-m4t-large-v2")
+    assert get_config("seamless-m4t-large-v2").is_encdec and seamless.is_encdec
+    model = encdec.init_params(torch.Generator().manual_seed(0), seamless, device="cpu")
+    logits, caches = encdec.prefill(model, frontend_embeds(seamless, 1, device="cpu"),
+                                    torch.zeros((1, 3), dtype=torch.int64), seamless)
+    assert logits.shape == (1, seamless.padded_vocab) and caches["cross_k"].shape[2] == 16
+    vlm = get_smoke_config("internvl2-1b")
+    assert get_config("internvl2-1b").frontend == "vision"
+    params = lm.init_params(torch.Generator().manual_seed(0), vlm, device="cpu")
+    _, pre = lm.prefill(params, torch.zeros((1, 3), dtype=torch.int64), vlm,
+                        extra_embeds=frontend_embeds(vlm, 1, device="cpu"))
+    assert pre["slot0"]["k"].shape[2] == vlm.frontend_len + 3

@@ -326,7 +326,7 @@ def test_faults_only_runs_the_device_phase_first(capsys):
     cs = _chip_smoke()
     assert cs.ALONE == {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
                         "--faults-only": "faults", "--train-only": "train",
-                        "--breadth-only": "breadth"}
+                        "--breadth-only": "breadth", "--frontends-only": "frontends"}
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
@@ -418,5 +418,69 @@ def test_breadth_only_runs_the_device_phase_first(capsys):
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
         cs.main(["--breadth-only"])
+    assert e.value.code != 0
+    assert "usage" not in capsys.readouterr().err
+
+
+def test_frontends_phase_rehearses_on_cpu(capsys):
+    """The frontends phase at smoke size: seamless on both attention paths
+    (packed == reference, decode == prefill within its bound and each
+    planted decode fault beyond it, the encoder's, the cross-attention's
+    and the decoder self-attention's flash == plain ops), internvl2
+    with its patches on both paths (packed == reference, the request path
+    with one preemption == alone), and the JSON line."""
+    import json
+
+    cs = _chip_smoke()
+    res = cs.frontends_phase(device="cpu", smoke=True)
+    out = capsys.readouterr().out
+    for impl in ("jnp", "pallas"):
+        assert (f"[frontends] (a) seamless-smoke 2+2 layers attn={impl}: packed == reference: all "
+                f"256 tokens and the prefill logits bit for bit") in out
+        what = f"(b) internvl2-smoke 2 layers + 8 patches attn={impl}"
+        assert f"[frontends] {what} reference lockstep" in out
+    # the request path and the profiled tick run once, on the jnp path
+    assert "[frontends] (b) internvl2-smoke 2 layers + 8 patches attn=jnp request path: 8 " in out
+    assert res["b_jnp"]["requests"]["evictions"] >= 1 and "requests" not in res["b_pallas"]
+    assert out.count("[profile] decode tick") == 2
+    assert "over 16 frames gen=32" in out and "every request == alone" in out
+    assert "decode at position 127 vs a prefill of 128 tokens" in out
+    dvp = res["a_decode_vs_prefill"]
+    assert dvp["max_abs_diff"] <= dvp["bound"] and dvp["tokens_equal"] == cs.BATCH
+    # each planted decode fault lies beyond the bound
+    assert len(dvp["faults"]) == 3 and min(dvp["faults"].values()) > dvp["bound"]
+    assert dvp["bound"] == cs.DECODE_REL * dvp["max_abs_logit"]
+    assert max(res["a_attn_vs_jnp"].values()) <= cs.ATTN_TOL >= res["b_attn_vs_jnp"]
+    assert "(key chunk 16; " in out  # 16 smoke frames: one chunk of exactly the frames
+    # CPU: no kernel launch, no card, no peak
+    assert res["hamming_matmul"] == res["fused_bnn_matmul"] == res["flash_attention"] == 0
+    assert res["card"] is None and res["a_jnp"]["packed"]["peak_gib"] is None
+    line = next(ln for ln in out.splitlines() if ln.startswith('{"frontends"'))
+    assert json.loads(line) == {"frontends": json.loads(json.dumps(res))}
+
+
+def test_frontends_launches_per_step():
+    """432 Hamming launches per seamless prefill and 216 per tick at full
+    depth; the flash cases cover the phase's four new shapes."""
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config
+
+    assert cs._hamming_per_step(get_config("seamless-m4t-large-v2")) == (24 * 7 + 24 * 11, 24 * 9)
+    assert cs._fused_per_step(get_config("internvl2-1b")) == 24 * 5
+    labels = {c[0]: c[1:] for c in cs.FLASH_CASES}
+    assert labels["seamless encoder"] == (8, 16, 16, 512, 512, 64, False)
+    assert labels["seamless cross"] == (8, 16, 16, 128, 512, 64, False)
+    assert labels["seamless decoder self"] == (8, 16, 16, 128, 128, 64, True)
+    assert labels["internvl2 prefill"] == (8, 14, 2, 384, 384, 64, True)
+    assert cs.HAMMING_ONLY == (("seamless-enc-w1/w3 B=4096", 4096, 1024, 8192),)
+
+
+def test_frontends_only_runs_the_device_phase_first(capsys):
+    cs = _chip_smoke()
+    assert cs.ALONE["--frontends-only"] == "frontends"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        cs.main(["--frontends-only"])
     assert e.value.code != 0
     assert "usage" not in capsys.readouterr().err

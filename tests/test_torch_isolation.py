@@ -136,14 +136,12 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
 
 
 def test_later_slices_are_named():
-    assert set(PENDING) == {"seamless-m4t-large-v2", "internvl2-1b"}
-    assert set(SERVED) | set(PENDING) == set(ARCH_IDS)
+    """All ten architectures are served; none is pending."""
+    assert PENDING == {}
+    assert set(SERVED) == set(ARCH_IDS) and len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
-        if arch in SERVED:
-            assert get_config(arch).name == arch
-            continue
-        with pytest.raises(NotImplementedError, match="slice"):
-            get_config(arch)
+        assert get_config(arch).name == arch
+        assert get_smoke_config(arch).family == get_config(arch).family
     for engine in ("tacitmap", "wdm", "tiled", "custbinarymap"):
         assert compiler.HardwareTarget(engine=engine).validate().engine == engine
     with pytest.raises(compiler.PlanEngineMismatchError):
