@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py [--mma-only | --flash-only | --hamming-only | --fused-only |
                            --kernels-only | --telemetry-only | --simulators-only |
-                           --faults-only | --train-only | --breadth-only |
-                           --frontends-only]
+                           --faults-only | --train-only | --train-breadth-only |
+                           --breadth-only | --frontends-only]
 
 Each ``--*-only`` argument stops after those kernels' checks and timings
 (``--kernels-only``: every kernel's; ``--telemetry-only``,
 ``--simulators-only``, ``--faults-only``, ``--train-only``,
-``--breadth-only`` and ``--frontends-only``: the build and that phase
-alone) and prints no result line. Needs one
+``--train-breadth-only``, ``--breadth-only`` and ``--frontends-only``:
+the build and that phase alone) and prints no result line. Needs one
 CUDA card (device 0), the CUDA toolkit's ``nvcc`` and ``nvidia-smi``;
 exits non-zero without them. Phases, each announced on its own
 ``[phase]`` line:
@@ -81,15 +81,23 @@ exits non-zero without them. Phases, each announced on its own
    ``reference``, and the multi-level sweep's gates; a ``{"faults":
    ...}`` JSON line;
 10. train: tinyllama-1.1b at full width trained 12 steps with ``quant=
-   "bnn"`` through ``repro_torch.train.train`` (async checkpoints, the
-   loss falls), resumed bit for bit after an injected fault and after a
-   SIGTERM, served from the trained weights on ``packed`` (110 fused
-   ``b1`` launches per tick) == ``reference``; then the paper MLP trained
-   300 steps and read out on four engines; a ``{"train": ...}`` JSON
-   line. The fused launches of its serve join row 1's count. The script
-   sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before CUDA starts, for the
-   deterministic cuBLAS the bitwise resume needs;
-11. breadth: the MoE, Mamba-2 and hybrid decoder stacks -- (a)
+   "bnn"`` through ``repro_torch.train.train`` (one async checkpoint, the
+   loss falls), served from the trained weights on ``packed`` (110 fused
+   ``b1`` launches per tick) == ``reference``; at 4 of its layers a clean
+   run resumed bit for bit after an injected fault and after a SIGTERM;
+   then the paper MLP trained 300 steps and read out on four engines; a
+   ``{"train": ...}`` JSON line. The fused launches of its serve join row
+   1's count. The script sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before
+   CUDA starts, for the deterministic cuBLAS the bitwise resume needs;
+11. train breadth: internvl2-1b (24 layers, 256 patches), seamless-m4t-
+   large-v2 (24 + 24 layers, 512 frames), mamba2-2.7b (8 of 64 layers)
+   and qwen3-moe-235b-a22b (1 of 94 layers, factored AdamW) trained at
+   full width, 4 steps of 8 x 128 tokens each (the loss falls), a second
+   run equal on every parameter and optimizer-state tensor, and the
+   trained weights served on ``packed`` == ``reference`` (fused ``b1``
+   for internvl2 and qwen3-moe, Hamming ``b1`` for seamless); a
+   ``{"train_breadth": ...}`` JSON line. Its launches join rows 1 and 2;
+12. breadth: the MoE, Mamba-2 and hybrid decoder stacks -- (a)
    qwen3-moe-235b-a22b at full width, depth cut to 2 layers, on both
    attention paths, (b) mamba2-2.7b at full width and depth, (c)
    jamba-1.5-large-398b's smoke config (a full-width repeat outgrows the
@@ -101,7 +109,7 @@ exits non-zero without them. Phases, each announced on its own
    no kernel; jamba refuses ``prefill_continue`` and serves a 2-replica
    fleet with no graft; a ``{"breadth": ...}`` JSON line. (a)'s fused
    ``b1`` and flash ``sm90`` launches join rows 1 and 3;
-12. frontends: (a) seamless-m4t-large-v2 at full width and depth (24 +
+13. frontends: (a) seamless-m4t-large-v2 at full width and depth (24 +
    24 layers, 512 source frames) served as the serve CLI serves it, every
    projection through the Hamming kernel (432 ``b1`` launches per
    prefill, 216 per tick) on both attention paths, packed == reference
@@ -115,8 +123,8 @@ exits non-zero without them. Phases, each announced on its own
    ``{"frontends": ...}`` JSON line. Its Hamming, fused and flash
    launches join rows 2, 1 and 3.
 
-Then one ``{"kernels": [...]}`` JSON line, the card line again, and last
-``{"ok": true, "device": {...}}``. Any failed check raises, so the
+Then the whole run's seconds, one ``{"kernels": [...]}`` JSON line, the
+card line again, and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits non-zero and prints no result.
 """
 
@@ -894,6 +902,12 @@ def _fused_variants() -> dict[str, int]:
     from repro_torch.kernels import fused_decode
 
     return dict(fused_decode.launches_by_variant)
+
+
+def _hamming_variants() -> dict[str, int]:
+    from repro_torch.kernels import xnor_matmul
+
+    return dict(xnor_matmul.launches_by_variant)
 
 
 def _release(res: dict) -> None:
@@ -2250,19 +2264,24 @@ def faults_phase(device: str = "cuda", smoke: bool = False) -> dict:
 
 TRAIN_STEPS, TRAIN_EVERY, TRAIN_LR, TRAIN_WARMUP = 12, 4, 3e-4, 2
 TRAIN_FAULT_STEP, TRAIN_PREEMPT_STEP = 6, 5
+# (b)'s depth: 4 of tinyllama's 22 layers at full width, so that its
+# checkpoints are ~3.7 GB, not 13.2 GB
+RESUME_LAYERS = 4
 TRAIN_TICKS = 16  # decode ticks served from the trained weights
 MLP_STEPS, MLP_BATCH, MLP_LR, MLP_EVAL = 300, 128, 1e-3, 512
 MLP_ENGINES = ("packed", "tacitmap", "wdm")  # each held to "reference"
 
 
 def _train_state(out) -> list:
-    """``(tree path, tensor)`` of a run's final parameters (the stacked
-    tree) and optimizer state."""
+    """``(tree path, host copy)`` of a run's final parameters (the
+    reference's stacked tree of its model family) and optimizer state."""
     from repro_torch import tree as tree_lib
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
 
-    return [(tree_lib.key(p), t) for p, t in tree_lib.leaves_with_paths(
-        (lm.param_tree(out["params"]), out["opt_state"]))]
+    model = out["params"]
+    params = (encdec if isinstance(model, encdec.EncDec) else lm).param_tree(model, device="cpu")
+    state = tree_lib.tree_map(lambda t: t.to("cpu", copy=True), out["opt_state"])
+    return [(tree_lib.key(p), t) for p, t in tree_lib.leaves_with_paths((params, state))]
 
 
 def _state_mismatches(out, want: dict) -> list[str]:
@@ -2273,7 +2292,7 @@ def _state_mismatches(out, want: dict) -> list[str]:
     got = _train_state(out)
     if [k for k, _ in got] != list(want):
         return ["<tree structure>"]
-    return [k for k, t in got if not torch.equal(t.cpu(), want[k])]
+    return [k for k, t in got if not torch.equal(t, want[k])]
 
 
 def _train_mlp(device: str, gen, steps: int) -> tuple[dict, float, list[float]]:
@@ -2314,16 +2333,17 @@ def train_phase(device: str = "cuda", smoke: bool = False) -> dict:
     8 x 128 tokens, peak lr 3e-4 after 2 warmup steps, ``OptConfig()``,
     through ``repro_torch.train.train``:
 
-    (a) 12 steps, an async checkpoint every 4 (``keep=1``: a checkpoint of
+    (a) 12 steps and one async checkpoint, at the last (a checkpoint of
         the parameters and AdamW moments is 13.2 GB): every loss finite,
         the mean of the last 3 below the mean of the first 3; the median
-        step ms, tokens/s, peak device GiB and the first async save's
-        host-blocking ms;
-    (b) resume == never-failed: the same run with a fault injected at
-        step 6 (one restart from the step-3 checkpoint; one restore's ms),
-        then a SIGTERM at step 5 (checkpoint and exit) and a resumed run;
-        each final parameter and optimizer-state tensor ``torch.equal`` to
-        (a)'s;
+        step ms, tokens/s, peak device GiB and the save's host-blocking
+        ms;
+    (b) resume == never-failed, at 4 of the 22 layers (full width): a
+        clean 12-step run with an async checkpoint every 4, then the same
+        run with a fault injected at step 6 (one restart from the step-3
+        checkpoint; one restore's ms), then a SIGTERM at step 5
+        (checkpoint and exit) and a resumed run; each final parameter and
+        optimizer-state tensor ``torch.equal`` to the clean run's;
     (c) train -> serve: (a)'s model compiled to ``packed`` and to
         ``reference``, 8 seeded 128-token prompts served for 16 decode
         ticks: tokens and prefill logits equal, 110 fused ``b1`` launches
@@ -2366,7 +2386,7 @@ def train_phase(device: str = "cuda", smoke: bool = False) -> dict:
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     loop = TrainLoopConfig(total_steps=TRAIN_STEPS, batch_size=batch, seq_len=seq,
                            peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-                           checkpoint_every=TRAIN_EVERY, keep=1, seed=SEED,
+                           checkpoint_every=TRAIN_STEPS, keep=1, seed=SEED,
                            checkpoint_dir=os.path.join(root, "a"))
     log = lambda line: print(line, flush=True)  # noqa: E731
     res: dict = {}
@@ -2378,7 +2398,7 @@ def train_phase(device: str = "cuda", smoke: bool = False) -> dict:
                                   device=device)
             init_loss = float(lm.loss_fn(init, held_out, cfg))
         del init
-        # (a) 12 steps with async checkpoints
+        # (a) 12 steps, an async checkpoint at the last
         _fresh_peak(on_card)
         held = torch.cuda.memory_allocated() / 2**30 if on_card else None
         a = train(cfg, loop, log=log, device=device)
@@ -2399,10 +2419,9 @@ def train_phase(device: str = "cuda", smoke: bool = False) -> dict:
               f"tokens: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 3 "
               f"{statistics.mean(losses[:3]):.4f}, last 3 {statistics.mean(losses[-3:]):.4f}); "
               f"median step {step_ms:.1f} ms ({res['a']['tok_s']:.0f} tokens/s), steps "
-              f"{', '.join(f'{v * 1e3:.0f}' for v in a['step_s'])} ms; {mem}; async saves "
-              f"block the host {', '.join(f'{v * 1e3:.0f}' for v in a['save_s'])} ms (the "
-              f"first alone: each later one first waits for the previous write)", flush=True)
-        want = {k: t.detach().cpu().clone() for k, t in _train_state(a)}
+              f"{', '.join(f'{v * 1e3:.0f}' for v in a['step_s'])} ms; {mem}; the async save "
+              f"blocks the host {', '.join(f'{v * 1e3:.0f}' for v in a['save_s'])} ms",
+              flush=True)
         model, opt_state = a["params"], a["opt_state"]
         del a
         shutil.rmtree(loop.checkpoint_dir, ignore_errors=True)
@@ -2449,7 +2468,15 @@ def train_phase(device: str = "cuda", smoke: bool = False) -> dict:
         del cms, model, opt_state, packed, ref
         _release({})
 
-        # (b) resume == never-failed: a fault, then a preemption
+        # (b) resume == never-failed at RESUME_LAYERS: a clean run, a fault, a preemption
+        short = dataclasses.replace(cfg, n_layers=min(RESUME_LAYERS, layers))
+        b_loop = dataclasses.replace(loop, checkpoint_every=TRAIN_EVERY,
+                                     checkpoint_dir=os.path.join(root, "b0"))
+        clean = train(short, b_loop, log=log, device=device)
+        want = dict(_train_state(clean))
+        clean_save_ms = [v * 1e3 for v in clean["save_s"]]
+        del clean
+        _release({})
         calls = {"n": 0}
 
         def fault(step):
@@ -2457,12 +2484,12 @@ def train_phase(device: str = "cuda", smoke: bool = False) -> dict:
             if step == TRAIN_FAULT_STEP and calls["n"] <= TRAIN_FAULT_STEP + 1:
                 raise RuntimeError("injected node failure")
 
-        b = train(cfg, dataclasses.replace(loop, checkpoint_dir=os.path.join(root, "b")),
+        b = train(short, dataclasses.replace(b_loop, checkpoint_dir=os.path.join(root, "b")),
                   fault_hook=fault, log=log, device=device)
         bad = _state_mismatches(b, want)
         if b["restarts"] != 1 or len(b["restore_s"]) != 1 or bad:
             raise AssertionError(f"fault run: restarts {b['restarts']}, restores "
-                                 f"{len(b['restore_s'])}, leaves != (a): {bad[:5]}")
+                                 f"{len(b['restore_s'])}, leaves != the clean run's: {bad[:5]}")
         restore_ms = b["restore_s"][0] * 1e3
         del b
         _release({})
@@ -2471,26 +2498,31 @@ def train_phase(device: str = "cuda", smoke: bool = False) -> dict:
             if step == TRAIN_PREEMPT_STEP:  # SIGTERM, as a scheduler sends it
                 os.kill(os.getpid(), signal.SIGTERM)
 
-        p_loop = dataclasses.replace(loop, checkpoint_dir=os.path.join(root, "p"))
-        p1 = train(cfg, p_loop, fault_hook=preempt, log=log, device=device)
+        p_loop = dataclasses.replace(b_loop, checkpoint_dir=os.path.join(root, "p"))
+        p1 = train(short, p_loop, fault_hook=preempt, log=log, device=device)
         if not p1["preempted"] or p1["final_step"] != TRAIN_PREEMPT_STEP:
             raise AssertionError(f"preemption: preempted={p1['preempted']} at {p1['final_step']}")
         del p1
         _release({})
-        p2 = train(cfg, p_loop, log=log, device=device)
+        p2 = train(short, p_loop, log=log, device=device)
         bad = _state_mismatches(p2, want)
         if p2["preempted"] or p2["final_step"] != TRAIN_STEPS - 1 or bad:
-            raise AssertionError(f"resumed run: final step {p2['final_step']}, leaves != (a): "
-                                 f"{bad[:5]}")
-        res["b"] = {"restore_ms": restore_ms, "leaves": len(want),
-                    "resumed_restore_ms": p2["restore_s"][0] * 1e3}
+            raise AssertionError(f"resumed run: final step {p2['final_step']}, leaves != the "
+                                 f"clean run's: {bad[:5]}")
+        res["b"] = {"layers": short.n_layers, "restore_ms": restore_ms, "leaves": len(want),
+                    "save_ms": clean_save_ms, "resumed_restore_ms": p2["restore_s"][0] * 1e3}
         del p2
+        for name in ("b0", "b", "p"):
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
         _release({})
-        print(f"[train] (b) fault at step {TRAIN_FAULT_STEP} -> 1 restart from the step-3 "
-              f"checkpoint, and SIGTERM at step {TRAIN_PREEMPT_STEP} -> checkpoint, exit, "
-              f"resume: all {len(want)} parameter and optimizer-state tensors torch.equal to "
-              f"(a)'s in both; a restore takes {restore_ms:.0f} ms "
-              f"({res['b']['resumed_restore_ms']:.0f} ms after the preemption)", flush=True)
+        print(f"[train] (b) {short.n_layers} of {layers} layers, {TRAIN_STEPS} steps with a "
+              f"checkpoint every {TRAIN_EVERY} (saves block the host "
+              f"{', '.join(f'{v:.0f}' for v in clean_save_ms)} ms): fault at step "
+              f"{TRAIN_FAULT_STEP} -> 1 restart from the step-3 checkpoint, and SIGTERM at step "
+              f"{TRAIN_PREEMPT_STEP} -> checkpoint, exit, resume: all {len(want)} parameter and "
+              f"optimizer-state tensors torch.equal to the clean run's in both; a restore takes "
+              f"{restore_ms:.0f} ms ({res['b']['resumed_restore_ms']:.0f} ms after the "
+              f"preemption)", flush=True)
 
         # (d) the paper MLP: trained on the card, read out on every engine
         gen = torch.Generator(device=device).manual_seed(SEED)
@@ -2522,7 +2554,198 @@ def train_phase(device: str = "cuda", smoke: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: breadth -- MoE FFNs, the Mamba-2 SSD mixer, the hybrid stack
+# phase 11: train breadth -- every other family trains at full width
+# ---------------------------------------------------------------------------
+
+# (family, arch, decoder layers kept (None: all), peak lr, OptConfig
+# fields). Depth is cut where memory or time force it: mamba2's 64
+# layers would take ~1.3-2.0 s per step each 8 (8 of 64 kept); a
+# qwen3-moe layer holds 2.42 B expert parameters, 47 GiB of training
+# state at one layer (1 of 94 kept), with the reference's factored second
+# moment. The peak lr is each model's, from a sweep of 1e-3, 3e-3 and
+# 1e-2 over these 4 steps on the card (tools/train_probe.py, PERF.md):
+# one at which the last loss lies below the first and the loss of a
+# held-out batch falls too (internvl2's last loss rose at 1e-3 and 1e-2,
+# qwen3-moe's at 3e-3 and 1e-2, seamless's held-out loss at 1e-2;
+# mamba2's gradient went NaN at every lr before the SSD's causal mask
+# moved ahead of its exp).
+TRAIN_BREADTH = (
+    ("VLM", "internvl2-1b", None, 3e-3, {}),
+    ("enc-dec", "seamless-m4t-large-v2", None, 3e-3, {}),
+    ("SSM", "mamba2-2.7b", 8, 1e-3, {}),
+    ("MoE", "qwen3-moe-235b-a22b", 1, 1e-3, {"factored": True}),
+)
+# 4 steps with no warmup, so that three updates land before the last
+# loss; then 8 served ticks. An Adam step moves a logit by about lr x
+# sum|h| ~ lr x d, so the smoke configs (d 56-64, a loss that moves ~0.1
+# from one 16-token batch to the next) rehearse at 1e-2
+BREADTH_STEPS, BREADTH_SMOKE_LR, BREADTH_TICKS = 4, 1e-2, 8
+
+
+def _served_equal(cfg, model, src, extra, device: str, what: str) -> dict:
+    """Train -> serve: ``packed`` against ``reference`` on the trained
+    weights, 8 seeded prompts and ``BREADTH_TICKS`` lockstep ticks. An LM
+    is compiled to each engine (fused ``b1`` on every programmed
+    projection); an enc-dec model serves through ``EncDecServing`` with
+    ``bnn_engine`` set to each (the Hamming kernel, ``b1``). Tokens and
+    prefill logits must be equal; returns packed's launches by kernel."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import FFN, Attention
+
+    prompts = serve.prompts(cfg, BATCH, PROMPT, SEED)
+    gen = BREADTH_TICKS + 1
+    runs, launches = {}, {}
+    for engine in ("packed", "reference"):
+        if cfg.is_encdec:
+            c = dataclasses.replace(cfg, bnn_engine=engine)
+            served = serve.EncDecServing(model, c, src, compiler.HardwareTarget(engine=engine),
+                                         torch.device(device))
+        else:
+            served = compiler.compile(cfg, model, compiler.HardwareTarget(engine=engine),
+                                      device=device)
+        _reset_counts()
+        runs[engine] = serve.lockstep(served, prompts, gen, extra)
+        launches[engine] = {**_counts(), "fused by variant": _fused_variants(),
+                            "hamming by variant": _hamming_variants()}
+        del served
+    if cfg.is_encdec:
+        prefill_n, tick_n = _hamming_per_step(cfg)
+        ham, fused = prefill_n + BREADTH_TICKS * tick_n, 0
+    else:
+        # fused [q|k|v] and o per attention mixer, w1, w3 and w2 per dense FFN
+        ham, fused = 0, gen * sum(2 * isinstance(blk.mixer, Attention)
+                                  + 3 * isinstance(blk.ffn, FFN) for blk in model.blocks)
+    _check_launches(device, launches["packed"],
+                    {"fused_bnn_matmul": fused, "hamming_matmul": ham,
+                     "fused by variant": {"popc": 0, "b1": fused},
+                     "hamming by variant": {"popc": 0, "b1": ham}}, f"{what} trained packed")
+    _check_launches(device, {k: launches["reference"][k] for k in ("fused_bnn_matmul",
+                                                                   "hamming_matmul")},
+                    {"fused_bnn_matmul": 0, "hamming_matmul": 0}, f"{what} trained reference")
+    packed, ref = runs["packed"], runs["reference"]
+    logits = packed["prefill_logits"]
+    if not torch.isfinite(logits[:, : cfg.vocab_size]).all():
+        raise AssertionError(f"{what}: trained prefill logits not finite")
+    if not np.array_equal(packed["generated"], ref["generated"]) or not torch.equal(
+            logits, ref["prefill_logits"]):
+        raise AssertionError(f"{what}: trained packed != trained reference (tokens or prefill "
+                             f"logits)")
+    return {"fused_bnn_matmul": launches["packed"]["fused_bnn_matmul"],
+            "hamming_matmul": launches["packed"]["hamming_matmul"],
+            "decode_tok_s": packed["decode_tok_s"], "ref_decode_tok_s": ref["decode_tok_s"]}
+
+
+def train_breadth_phase(device: str = "cuda", smoke: bool = False) -> dict:
+    """Training breadth on the card: internvl2-1b (24 layers, 256 patch
+    embeddings before each row), seamless-m4t-large-v2 (24 + 24 layers,
+    512 source frames per row), mamba2-2.7b (8 of 64 layers) and
+    qwen3-moe-235b-a22b (1 of 94 layers, ``OptConfig(factored=True)``),
+    each at full width with ``quant="bnn"``, jnp attention and per-layer
+    remat, through ``repro_torch.train.train`` on 8 x 128 tokens without
+    checkpoints (``checkpoint_every=0``: a qwen3-moe layer's state is 30
+    GB):
+
+    (a) 4 steps: every loss finite and the last below the first; the
+        median step ms, tokens/s (the 8 x 128 text tokens) and peak GiB;
+    (b) the same 4 steps again from the same seed in the loop's
+        deterministic mode: every parameter and optimizer-state tensor
+        ``torch.equal`` to (a)'s (the resume invariant, for the MoE
+        dispatch and the SSD scan's ops);
+    (c) train -> serve: ``packed`` == ``reference`` on the trained
+        weights (``_served_equal``): internvl2's 24 layers launch 120
+        fused ``b1`` per prefill or tick, qwen3-moe's layer 2, mamba2
+        none, seamless 432 Hamming ``b1`` per prefill and 216 per tick.
+
+    The peak lr is each model's (``TRAIN_BREADTH``). ``device="cpu",
+    smoke=True`` rehearses it on the smoke configs with 8 x 16 tokens at
+    lr 1e-2 (launch counts and device memory are then not read).
+    Returns the phase's numbers; ``fused_bnn_matmul`` and
+    ``hamming_matmul`` are (c)'s packed launches."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import frontend_embeds
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainLoopConfig, train
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    seq = 16 if smoke else PROMPT
+    res: dict = {"card": smi("name,power.limit") if on_card else None}
+    log = lambda line: print(line, flush=True)  # noqa: E731
+    for family, arch, layers, lr, opt_kw in TRAIN_BREADTH:
+        t_family = time.perf_counter()
+        base = get_smoke_config(arch) if smoke else get_config(arch)
+        cfg = dataclasses.replace(base, quant="bnn", attn_impl="jnp", remat=True,
+                                  n_layers=min(layers or base.n_layers, base.n_layers))
+        opt_cfg = OptConfig(**opt_kw)
+        loop = TrainLoopConfig(total_steps=BREADTH_STEPS, batch_size=BATCH, seq_len=seq,
+                               peak_lr=BREADTH_SMOKE_LR if smoke else lr,
+                               warmup_steps=0, checkpoint_every=0, seed=SEED)
+        what = (f"{family} {cfg.name}, {cfg.n_encoder_layers} + {cfg.n_layers}" if cfg.is_encdec
+                else f"{family} {cfg.name}, {cfg.n_layers} of {base.n_layers}") + " layers"
+        # (a)
+        _fresh_peak(on_card)
+        a = train(cfg, loop, opt_cfg, log=log, device=device)
+        peak = _peak_gib(on_card)
+        losses = a["losses"]
+        if len(losses) != BREADTH_STEPS or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{what}: losses {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{what}: the loss did not fall: {losses}")
+        step_ms = statistics.median(a["step_s"]) * 1e3
+        want = dict(_train_state(a))
+        model = a["params"]
+        del a
+        gc.collect()
+        # (b)
+        b = train(cfg, loop, opt_cfg, log=log, device=device)
+        bad = _state_mismatches(b, want)
+        if b["losses"] != losses or bad:
+            raise AssertionError(f"{what}: the second run differs: losses {b['losses']} vs "
+                                 f"{losses}; leaves {bad[:5]}")
+        del b, want
+        gc.collect()
+        # (c)
+        # source frames for an enc-dec model, patch embeddings for a VLM
+        embeds = (frontend_embeds(cfg, BATCH, generator=torch.Generator().manual_seed(SEED),
+                                  device=device)
+                  if cfg.is_encdec or cfg.frontend == "vision" else None)
+        src, extra = (embeds, None) if cfg.is_encdec else (None, embeds)
+        served = _served_equal(cfg, model.requires_grad_(False), src, extra, device, what)
+        del model, embeds, src, extra
+        _release({})
+        res[family] = {"arch": arch, "layers": [cfg.n_encoder_layers, cfg.n_layers],
+                       "peak_lr": loop.peak_lr, "losses": losses, "median_step_ms": step_ms,
+                       "tok_s": BATCH * seq / step_ms * 1e3, "peak_gib": peak, **served,
+                       "seconds": time.perf_counter() - t_family}
+        mem = "not measured (CPU)" if peak is None else f"{peak:.2f} GiB"
+        print(f"[train breadth] {what}, peak lr {loop.peak_lr:g}: loss "
+              f"{' -> '.join(f'{v:.4f}' for v in losses)}; "
+              f"median step {step_ms:.1f} ms ({res[family]['tok_s']:.0f} tokens/s); peak {mem}; "
+              f"a second run equal on every parameter and optimizer-state tensor; trained "
+              f"packed == reference over {BATCH} prompts x {BREADTH_TICKS} ticks "
+              f"({served['fused_bnn_matmul']} fused, {served['hamming_matmul']} Hamming "
+              f"launches); {res[family]['seconds']:.1f} s", flush=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    res["fused_bnn_matmul"] = sum(res[f]["fused_bnn_matmul"] for f, *_ in TRAIN_BREADTH)
+    res["hamming_matmul"] = sum(res[f]["hamming_matmul"] for f, *_ in TRAIN_BREADTH)
+    print(json.dumps({"train_breadth": res}), flush=True)
+    print(f"[train breadth] phase {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 12: breadth -- MoE FFNs, the Mamba-2 SSD mixer, the hybrid stack
 # ---------------------------------------------------------------------------
 
 BREADTH_MOE = "qwen3-moe-235b-a22b"
@@ -2815,7 +3038,7 @@ def breadth_phase(device: str = "cuda", smoke: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: frontends -- the encoder-decoder stack and the vision frontend
+# phase 13: frontends -- the encoder-decoder stack and the vision frontend
 # ---------------------------------------------------------------------------
 
 # full width and depth: 24 + 24 layers, d 1024, 16 heads of 64, d_ff
@@ -3186,7 +3409,8 @@ ONLY = {  # an argument that stops after some kernels' checks and times (no resu
 
 # a phase alone, after the build (no result line)
 ALONE = {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
-         "--faults-only": "faults", "--train-only": "train", "--breadth-only": "breadth",
+         "--faults-only": "faults", "--train-only": "train",
+         "--train-breadth-only": "train breadth", "--breadth-only": "breadth",
          "--frontends-only": "frontends"}
 
 
@@ -3194,6 +3418,7 @@ def main(argv: list[str]) -> int:
     if argv and (len(argv) > 1 or argv[0] not in (*ONLY, *ALONE)):
         print(f"usage: chip_smoke.py [{' | '.join((*ONLY, *ALONE))}]", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     # deterministic cuBLAS, which the train phase's bitwise resume needs,
     # is set before CUDA starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3208,8 +3433,8 @@ def main(argv: list[str]) -> int:
         name = ALONE[argv[0]]
         phase(name)
         {"telemetry": telemetry_phase, "simulators": simulators_phase,
-         "faults": faults_phase, "train": train_phase, "breadth": breadth_phase,
-         "frontends": frontends_phase}[name]()
+         "faults": faults_phase, "train": train_phase, "train breadth": train_breadth_phase,
+         "breadth": breadth_phase, "frontends": frontends_phase}[name]()
         print(card, flush=True)
         return 0
     phase("kernels")
@@ -3247,6 +3472,11 @@ def main(argv: list[str]) -> int:
     trained = train_phase()["fused_bnn_matmul"]
     launches["fused_bnn_matmul"] += trained
     BY_VARIANT["fused_bnn_matmul"]["b1"] += trained
+    phase("train breadth")
+    breadth_trained = train_breadth_phase()
+    for kname in ("fused_bnn_matmul", "hamming_matmul"):
+        launches[kname] += breadth_trained[kname]
+        BY_VARIANT[kname]["b1"] += breadth_trained[kname]
     phase("breadth")
     breadth = breadth_phase()
     launches["fused_bnn_matmul"] += breadth["fused_bnn_matmul"]
@@ -3260,6 +3490,7 @@ def main(argv: list[str]) -> int:
         launches[kname] += frontends[kname]
         BY_VARIANT[kname][variant] += frontends[kname]
     summary = kernel_summary(checked, launches) + launch_summary(flash, mma, launches)
+    print(f"[chip_smoke] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

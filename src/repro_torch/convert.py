@@ -22,8 +22,9 @@ reference.
 The other direction: :func:`params_to_jax` and :func:`grads_to_jax`
 give an ``LM``'s parameters and gradients as the reference's numpy tree
 (stacked over repeats, :func:`repro_torch.models.lm.param_tree`);
-:func:`encdec_to_jax` gives an ``EncDec``'s as the reference's enc-dec
-tree; and
+:func:`encdec_to_jax` and :func:`encdec_grads_to_jax` give an
+``EncDec``'s as the reference's enc-dec tree
+(:func:`repro_torch.models.encdec.param_tree`); and
 :func:`tree_to_jax` / :func:`tree_from_jax` carry a tree that already
 has the reference's layout, such as the optimizer state (``m``, ``v``
 or its factored ``vr`` / ``vc``, ``step``), leaf by leaf.
@@ -36,8 +37,16 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import lm as lm_lib
-from repro_torch.models.encdec import DecoderLayer, EncDec, EncoderLayer
+from repro_torch.models.encdec import (
+    DEC_LAYER,
+    ENC_LAYER,
+    PROJECTIONS,
+    DecoderLayer,
+    EncDec,
+    EncoderLayer,
+)
 from repro_torch.models.layers import FFN, Attention, BitLinear
 from repro_torch.models.lm import LM, Block
 from repro_torch.models.moe import MoE
@@ -99,13 +108,6 @@ def params_from_jax(tree: dict, *, device=None) -> LM:
     return LM(t(tree["embed"]), t(tree["final_norm"]), head, blocks, n_slots)
 
 
-# the reference's enc-dec layer subtrees: (name, kind) per child
-_ENC_LAYER = (("norm1", "norm"), ("attn", "attn"), ("norm2", "norm"), ("ffn", "ffn"))
-_DEC_LAYER = (("norm1", "norm"), ("self_attn", "attn"), ("norm_x", "norm"),
-              ("cross_attn", "attn"), ("norm2", "norm"), ("ffn", "ffn"))
-_PROJECTIONS = {"attn": ("q", "k", "v", "o"), "ffn": ("w1", "w3", "w2")}
-
-
 def encdec_from_jax(tree: dict, *, device=None) -> EncDec:
     """The reference's enc-dec parameter tree (numpy leaves; ``enc_blocks``
     and ``dec_blocks`` stacked over layers) -> an ``EncDec`` on ``device``
@@ -116,7 +118,7 @@ def encdec_from_jax(tree: dict, *, device=None) -> EncDec:
         if kind == "norm":
             return t(sub[i])
         projs = [BitLinear(t(sub[n]["w"][i]), t(sub[n]["b"][i]) if "b" in sub[n] else None)
-                 for n in _PROJECTIONS[kind]]
+                 for n in PROJECTIONS[kind]]
         return Attention(*projs) if kind == "attn" else FFN(*projs)
 
     def layers(stack: dict, spec, cls) -> list:
@@ -124,32 +126,22 @@ def encdec_from_jax(tree: dict, *, device=None) -> EncDec:
         return [cls(*(child(stack[name], kind, i) for name, kind in spec)) for i in range(n)]
 
     return EncDec(t(tree["embed"]), t(tree["head"]),
-                  layers(tree["enc_blocks"], _ENC_LAYER, EncoderLayer), t(tree["enc_norm"]),
-                  layers(tree["dec_blocks"], _DEC_LAYER, DecoderLayer), t(tree["final_norm"]))
+                  layers(tree["enc_blocks"], ENC_LAYER, EncoderLayer), t(tree["enc_norm"]),
+                  layers(tree["dec_blocks"], DEC_LAYER, DecoderLayer), t(tree["final_norm"]))
 
 
 def encdec_to_jax(model: EncDec) -> dict:
     """An ``EncDec`` -> the reference's enc-dec tree with numpy leaves,
     each layer leaf stacked over layers: the inverse of
     :func:`encdec_from_jax`."""
+    return tree_to_jax(encdec_lib.param_tree(model, device="cpu"))
 
-    def leaves(layer, spec) -> dict:
-        out = {}
-        for name, kind in spec:
-            c = getattr(layer, name)
-            out[name] = c if kind == "norm" else {
-                n: lm_lib._proj_leaves(getattr(c, n)) for n in _PROJECTIONS[kind]}
-        return out
 
-    def stacked(blocks, spec) -> dict:
-        per = [leaves(b, spec) for b in blocks]
-        return tree_lib.map_with_path(
-            lambda path, _: torch.stack([tree_lib.get(p, path) for p in per]), per[0])
-
-    tree = {"embed": model.embed, "head": model.head,
-            "enc_blocks": stacked(model.enc_blocks, _ENC_LAYER), "enc_norm": model.enc_norm,
-            "dec_blocks": stacked(model.dec_blocks, _DEC_LAYER), "final_norm": model.final_norm}
-    return tree_to_jax(tree)
+def encdec_grads_to_jax(model: EncDec) -> dict:
+    """The gradients held by an ``EncDec``'s parameters after a backward,
+    as the reference's enc-dec numpy tree (zeros where none arrived); the
+    ``.grad`` fields are cleared."""
+    return tree_to_jax(encdec_lib.take_grad_tree(model))
 
 
 def tree_to_jax(tree) -> dict:

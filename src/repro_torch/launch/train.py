@@ -8,11 +8,13 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --smoke --steps 8 --batch 2 --seq 16 --ckpt runs/smoke --device cpu
 
-The path is data -> step -> checkpoint -> resume: rerun with the same
-``--ckpt`` and it resumes from the latest checkpoint there. The driver
-sets ``CUBLAS_WORKSPACE_CONFIG`` (deterministic cuBLAS, which the bitwise
-resume on the card needs) before CUDA starts; the reference's TPU XLA
-flags have no counterpart.
+Every architecture trains (``--arch`` of any config: dense, MoE, Mamba,
+hybrid, the VLM with its stub patch embeddings, the enc-dec stack with
+its stub source frames). The path is data -> step -> checkpoint ->
+resume: rerun with the same ``--ckpt`` and it resumes from the latest
+checkpoint there. This launcher sets ``CUBLAS_WORKSPACE_CONFIG``
+(deterministic cuBLAS, which the bitwise resume on the card needs)
+before CUDA starts; the reference's TPU XLA flags have no counterpart.
 """
 
 from __future__ import annotations

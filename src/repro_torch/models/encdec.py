@@ -20,17 +20,28 @@ kernel, behind the engine's bounded weight cache. The reference's
 ``encode`` and ``_cross_kv`` call ``dense`` without an engine (the
 plain ±1 product); here they take the engine too, which gives the same
 values (the ±1 sums are exact integers either way) and puts the encoder
-on the kernel. Training (``loss_fn``) arrives with the training-breadth
-slice.
+on the kernel.
+
+Training (``loss_fn``) takes the reference's plain path: no engine, the
+straight-through estimator on every binarized projection, each encoder
+and decoder layer checkpointed under ``cfg.remat`` (saving only its
+bf16 input, as ``models/scan.py`` does for the LM), and the LM's
+chunked fp32 loss over the untied head. :func:`param_tree`,
+:func:`take_grad_tree`, :func:`load_param_tree_` and
+:func:`update_params_` give and take the parameters and gradients in the
+reference's tree, ``enc_blocks`` / ``dec_blocks`` stacked over layers,
+the layout the optimizer, the checkpoints and ``convert`` work in.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 from torch import nn
 
+from repro_torch import tree as tree_lib
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -48,7 +59,8 @@ from repro_torch.models.layers import (
     infer_engine,
     rms_norm,
 )
-from repro_torch.models.lm import _logits
+from repro_torch.models.lm import _logits, _proj_leaves, lm_loss, update_stacked_
+from repro_torch.models.scan import remat_scan
 
 # the cache entries: decoder self-attention rows by position, and the
 # cross-attention K/V over the whole encoder output (read-only in decode)
@@ -136,24 +148,132 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> EncDe
     return EncDec(embed, head, enc, ones(), dec, ones())
 
 
+# ---------------------------------------------------------------------------
+# The reference's stacked parameter tree
+# ---------------------------------------------------------------------------
+
+# the reference's layer subtrees: (name, kind) per child
+ENC_LAYER = (("norm1", "norm"), ("attn", "attn"), ("norm2", "norm"), ("ffn", "ffn"))
+DEC_LAYER = (("norm1", "norm"), ("self_attn", "attn"), ("norm_x", "norm"),
+             ("cross_attn", "attn"), ("norm2", "norm"), ("ffn", "ffn"))
+PROJECTIONS = {"attn": ("q", "k", "v", "o"), "ffn": ("w1", "w3", "w2")}
+TOP = ("embed", "head", "enc_norm", "final_norm")
+
+
+def _layer_leaves(layer: EncoderLayer | DecoderLayer, spec) -> dict:
+    """One layer's parameters in the reference's layout."""
+    out = {}
+    for name, kind in spec:
+        c = getattr(layer, name)
+        out[name] = c if kind == "norm" else {
+            n: _proj_leaves(getattr(c, n)) for n in PROJECTIONS[kind]}
+    return out
+
+
+def _stacks(model: EncDec):
+    return (("enc_blocks", model.enc_blocks, ENC_LAYER),
+            ("dec_blocks", model.dec_blocks, DEC_LAYER))
+
+
+def _stacked(model: EncDec, top, per_layer) -> dict:
+    """The reference's tree with ``top(t)`` at each top-level leaf and
+    ``torch.stack([per_layer(t) for each layer])`` at each layer leaf."""
+    tree = {name: top(getattr(model, name)) for name in TOP}
+    for key, blocks, spec in _stacks(model):
+        per = [_layer_leaves(b, spec) for b in blocks]
+        tree[key] = tree_lib.map_with_path(
+            lambda path, _: torch.stack([per_layer(tree_lib.get(t, path)) for t in per]), per[0])
+    return tree
+
+
+def param_tree(model: EncDec, device=None) -> dict:
+    """The parameters as the reference's tree: ``embed``, ``head``,
+    ``enc_norm``, ``final_norm`` and ``enc_blocks`` / ``dec_blocks``
+    (``norm1``, ``attn`` or ``self_attn`` / ``norm_x`` / ``cross_attn``
+    as ``<q|k|v|o>/{w, b}``, ``norm2``, ``ffn/<w1|w3|w2>/w``) stacked
+    over layers. Fresh detached tensors on ``device`` (default: the
+    model's; ``"meta"`` gives shapes and dtypes only), as
+    ``lm.param_tree``."""
+    return _stacked(model, lambda t: t.detach().to(device or t.device, copy=True),
+                    lambda t: t.detach().to(device or t.device))
+
+
+def take_grad_tree(model: EncDec) -> dict:
+    """The gradients as :func:`param_tree` lays out the parameters (zeros
+    where none arrived), clearing every ``.grad``."""
+
+    def grad(p: torch.Tensor) -> torch.Tensor:
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        p.grad = None
+        return g
+
+    return _stacked(model, grad, grad)
+
+
+@torch.no_grad()
+def update_params_(model: EncDec, update) -> EncDec:
+    """``lm.update_params_`` for an ``EncDec``: ``update(path, p)`` on
+    every leaf of :func:`param_tree`'s layout, in place, one layer leaf's
+    stack at a time."""
+    for name in TOP:
+        update((name,), getattr(model, name))
+    for key, blocks, spec in _stacks(model):
+        update_stacked_((key,), [_layer_leaves(b, spec) for b in blocks], update)
+    return model
+
+
+@torch.no_grad()
+def load_param_tree_(model: EncDec, tree: dict) -> EncDec:
+    """Copy a :func:`param_tree`-shaped tree into the model's parameters,
+    in place."""
+    for name in TOP:
+        getattr(model, name).copy_(tree[name])
+    for key, blocks, spec in _stacks(model):
+        for i, blk in enumerate(blocks):
+            tree_lib.map_with_path(
+                lambda path, t: t.copy_(tree_lib.get(tree[key], path)[i]),
+                _layer_leaves(blk, spec))
+    return model
+
+
 def _engine(cfg: ModelConfig, engine):
     return engine if engine is not None else infer_engine(cfg)
+
+
+def _layers(body, h, blocks, cfg: ModelConfig):
+    """``for blk in blocks: h = body(h, blk)``, each layer checkpointed
+    under ``cfg.remat`` when a gradient is being recorded (loss and
+    gradients equal the plain loop's bit for bit; serving runs plain)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return remat_scan(body, h, blocks)
+    for blk in blocks:
+        h = body(h, blk)
+    return h
+
+
+def _encoder_layer(blk: EncoderLayer, h, positions, cfg: ModelConfig, eng):
+    hn = rms_norm(h, blk.norm1, cfg.norm_eps)
+    mix, _ = attention_block(blk.attn, hn, positions, cfg, causal=False, quant=cfg.quant,
+                             engine=eng)
+    h = h + mix
+    hn = rms_norm(h, blk.norm2, cfg.norm_eps)
+    return h + ffn(blk.ffn, hn, cfg.quant, eng)
 
 
 def encode(model: EncDec, src_embeds: torch.Tensor, cfg: ModelConfig, engine=None) -> torch.Tensor:
     """Bidirectional encoder over (B, Ss, d) frontend embeddings -> the
     normed (B, Ss, d) bf16 encoder output. ``engine`` overrides
-    ``cfg.bnn_engine`` for the binarized projections."""
-    eng = _engine(cfg, engine)
+    ``cfg.bnn_engine`` for the binarized projections (serving)."""
+    return _encode(model, src_embeds, cfg, _engine(cfg, engine))
+
+
+def _encode(model: EncDec, src_embeds: torch.Tensor, cfg: ModelConfig, eng) -> torch.Tensor:
+    """The encoder on ``eng`` (``None``: the plain STE path training
+    takes, as the reference's ``encode``)."""
     h = src_embeds.to(device=model.embed.device).to(ACT_DTYPE)
     positions = torch.arange(h.shape[1], device=h.device)
-    for blk in model.enc_blocks:
-        hn = rms_norm(h, blk.norm1, cfg.norm_eps)
-        mix, _ = attention_block(blk.attn, hn, positions, cfg, causal=False, quant=cfg.quant,
-                                 engine=eng)
-        h = h + mix
-        hn = rms_norm(h, blk.norm2, cfg.norm_eps)
-        h = h + ffn(blk.ffn, hn, cfg.quant, eng)
+    h = _layers(lambda h, blk: _encoder_layer(blk, h, positions, cfg, eng), h, model.enc_blocks,
+                cfg)
     return rms_norm(h, model.enc_norm, cfg.norm_eps)
 
 
@@ -170,12 +290,13 @@ def decoder(model: EncDec, enc_out: torch.Tensor, tgt_tokens: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """The training decoder pass: (B, St) target tokens over the encoder
     output -> (B, St, d) final-normed hidden states. Every projection
-    runs the plain path (no engine), as in the reference."""
+    runs the plain path (no engine), as in the reference; each layer is
+    checkpointed under ``cfg.remat``."""
     tgt_tokens = tgt_tokens.to(device=model.embed.device, dtype=torch.int64)
     h = model.embed[tgt_tokens].to(ACT_DTYPE)
     positions = torch.arange(tgt_tokens.shape[1], device=h.device)
-    for blk in model.dec_blocks:
-        h = _decoder_layer(blk, h, enc_out, positions, cfg, None)[0]
+    h = _layers(lambda h, blk: _decoder_layer(blk, h, enc_out, positions, cfg, None)[0], h,
+                model.dec_blocks, cfg)
     return rms_norm(h, model.final_norm, cfg.norm_eps)
 
 
@@ -193,12 +314,17 @@ def _decoder_layer(blk: DecoderLayer, h, enc_out, positions, cfg: ModelConfig, e
     return h, (k, v, ck, cv)
 
 
-def loss_fn(model: EncDec, batch: dict, cfg: ModelConfig, aux_coef: float = 0.0):
-    """The reference's enc-dec training loss: not ported yet."""
-    raise NotImplementedError(
-        f"{cfg.name}: training enc-dec models (encdec.loss_fn) arrives with the "
-        "training-breadth slice"
-    )
+def loss_fn(model: EncDec, batch: dict, cfg: ModelConfig, aux_coef: float = 0.0) -> torch.Tensor:
+    """Next-token loss over ``{"src_embeds": (B, Ss, d), "tokens": (B,
+    St)}``: the encoder and decoder on the plain STE path (no engine, as
+    the reference's), then the LM's sequence-chunked fp32 loss over the
+    untied ``head``. ``aux_coef`` is the loop's common signature (an
+    enc-dec stack has no MoE aux loss)."""
+    enc_out = _encode(model, batch["src_embeds"], cfg, None)
+    tokens = batch["tokens"].to(device=model.embed.device, dtype=torch.int64)
+    hidden = decoder(model, enc_out, tokens, cfg)
+    targets = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
+    return lm_loss(model, hidden, targets, dataclasses.replace(cfg, tie_embeddings=False))
 
 
 def prefill(model: EncDec, src_embeds: torch.Tensor, tgt_tokens: torch.Tensor,

@@ -258,6 +258,35 @@ def take_grad_tree(model: LM) -> dict:
 
 
 @torch.no_grad()
+def update_stacked_(prefix: tuple[str, ...], per: list[dict], update) -> None:
+    """``update(prefix + path, stacked)`` for each leaf of the per-layer
+    trees ``per``, their tensors stacked over layers, each written back
+    after its update: one leaf's stack exists at a time (a view for a
+    single layer)."""
+    for path, _ in tree_lib.leaves_with_paths(per[0]):
+        parts = [tree_lib.get(t, path) for t in per]
+        stacked = parts[0].unsqueeze(0) if len(parts) == 1 else torch.stack(parts)
+        update(prefix + path, stacked)
+        if len(parts) > 1:
+            for r, t in enumerate(parts):
+                t.copy_(stacked[r])
+
+
+@torch.no_grad()
+def update_params_(model: LM, update) -> LM:
+    """Apply ``update(path, p)`` (``optim.adamw_begin``'s) to every leaf
+    of :func:`param_tree`'s layout, in place: a top-level leaf is the
+    model's own tensor, a block leaf is updated as a stack and written
+    back. The same values as updating ``param_tree(model)`` and loading
+    it back, without a copy of every parameter."""
+    for name, t in _top_leaves(model).items():
+        update((name,), t)
+    for i, blocks in enumerate(_slots(model)):
+        update_stacked_(("blocks", f"slot{i}"), [_block_leaves(b) for b in blocks], update)
+    return model
+
+
+@torch.no_grad()
 def load_param_tree_(model: LM, tree: dict) -> LM:
     """Copy a :func:`param_tree`-shaped tree into the model's parameters,
     in place (any device or float dtype; checkpoints restore through it)."""
@@ -339,23 +368,19 @@ def lm_loss(model: LM, hidden: torch.Tensor, targets: torch.Tensor, cfg: ModelCo
 
 
 def loss_fn(model: LM, batch: dict, cfg: ModelConfig, aux_coef: float = 0.01) -> torch.Tensor:
-    """Next-token loss over a ``{"tokens": (B, S)}`` batch (dense decoder
-    models; training with modality-frontend embeddings and training MoE
-    and Mamba stacks arrive with the training-breadth slice)."""
-    if "extra_embeds" in batch:
-        raise NotImplementedError(
-            f"{cfg.name}: training with modality-frontend embeddings (extra_embeds) "
-            "arrives with the training-breadth slice"
-        )
-    if cfg.has_mamba or any(kind.moe for kind in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: training MoE and Mamba stacks (the MoE aux loss, gradient "
-            "parity with the reference) arrives with the training-breadth slice"
-        )
+    """Next-token loss over a ``{"tokens": (B, S)}`` batch, plus
+    ``aux_coef`` times the MoE layers' summed load-balance loss. An
+    ``extra_embeds`` (B, L, d) entry (a VLM's patch embeddings) is
+    prepended to the token embeddings, positions run over all ``L + S``
+    rows, and the loss reads only the token rows."""
     tokens = batch["tokens"].to(device=model.embed.device, dtype=torch.int64)
     embeds = embed_tokens(model, tokens)
-    positions = torch.arange(tokens.shape[1], device=embeds.device)
+    if "extra_embeds" in batch:
+        extra = batch["extra_embeds"].to(device=embeds.device, dtype=embeds.dtype)
+        embeds = torch.cat([extra, embeds], dim=1)
+    positions = torch.arange(embeds.shape[1], device=embeds.device)
     hidden, aux = backbone(model, embeds, positions, cfg)
+    hidden = hidden[:, embeds.shape[1] - tokens.shape[1]:]
     targets = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
     return lm_loss(model, hidden, targets, cfg) + aux_coef * aux
 

@@ -94,9 +94,21 @@ def conv_step(state: torch.Tensor, xt: torch.Tensor, w: torch.Tensor, b: torch.T
 # ---------------------------------------------------------------------------
 
 
+def _groups_to_heads(t: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
+    """Repeat each group ``rep`` times along ``dim`` (groups -> heads, the
+    reference's ``jnp.repeat``) as a broadcast view: its backward is a
+    plain sum over the ``rep`` copies, with no index scatter."""
+    shape = t.shape
+    t = t.unsqueeze(dim + 1).expand(*shape[: dim + 1], rep, *shape[dim + 1 :])
+    return t.reshape(*shape[:dim], shape[dim] * rep, *shape[dim + 1 :])
+
+
 def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int = SSD_CHUNK):
     """Chunked SSD scan. Returns (y (B, S, H, P) in x's dtype, final
-    state (B, H, N, P) fp32)."""
+    state (B, H, N, P) fp32). Differentiable, and deterministic on the
+    card: groups reach heads by broadcast views, the chunk recurrence is
+    a loop of elementwise ops; its gradient stays finite whatever the
+    chunk's summed decay."""
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     rep = h // g
@@ -120,18 +132,21 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int = SSD_CHUNK):
 
     # intra-chunk (diagonal blocks): attention-like Q x Q products
     ci = cum.transpose(2, 3)  # (B, nc, H, Q)
-    l_mat = torch.exp(ci[..., :, None] - ci[..., None, :])
+    # the causal mask goes in before the exp (-inf -> 0), where the
+    # reference masks after it: the same values, but a masked entry's
+    # exponent grows with the chunk's summed decay, and past ~88 its exp
+    # is inf and its gradient 0 * inf = NaN (ROADMAP queue 3)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    l_mat = torch.where(tri, l_mat, 0.0)
+    l_mat = torch.exp(torch.where(tri, ci[..., :, None] - ci[..., None, :], -torch.inf))
     cb = torch.einsum("bnqgs,bnkgs->bngqk", cc, bc)
-    cb = cb.repeat_interleave(rep, dim=2)  # groups -> heads (B, nc, H, Q, Q)
+    cb = _groups_to_heads(cb, rep, 2)  # (B, nc, H, Q, Q)
     m = cb * l_mat * dtc.transpose(2, 3)[:, :, :, None, :]
     y_diag = torch.einsum("bnhqk,bnkhp->bnqhp", m, xc)
 
     # chunk end-states
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B, nc, Q, H)
     xw = xc * (dtc * decay_to_end)[..., None]
-    bh = bc.repeat_interleave(rep, dim=3)  # (B, nc, Q, H, N)
+    bh = _groups_to_heads(bc, rep, 3)  # (B, nc, Q, H, N)
     states = torch.einsum("bnkhs,bnkhp->bnhsp", bh, xw)
 
     # inter-chunk recurrence: the state entering each chunk
@@ -144,7 +159,7 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int = SSD_CHUNK):
     hprevs = torch.stack(entering, dim=1)  # (B, nc, H, N, P)
 
     # off-diagonal contribution
-    ch = cc.repeat_interleave(rep, dim=3)  # (B, nc, Q, H, N)
+    ch = _groups_to_heads(cc, rep, 3)  # (B, nc, Q, H, N)
     y_off = torch.einsum("bnqhs,bnhsp->bnqhp", ch, hprevs)
     y_off = y_off * torch.exp(cum)[..., None]
 
@@ -163,10 +178,10 @@ def ssd_step(state, xt, dtt, a, bt, ct):
     rep = xt.shape[1] // bt.shape[1]
     f32 = torch.float32
     decay = torch.exp(dtt.to(f32) * a)  # (B, H)
-    bh = bt.repeat_interleave(rep, dim=1).to(f32)  # (B, H, N)
+    bh = _groups_to_heads(bt, rep, 1).to(f32)  # (B, H, N)
     upd = bh[..., :, None] * (xt.to(f32) * dtt[..., None])[..., None, :]
     new_state = state * decay[..., None, None] + upd
-    ch = ct.repeat_interleave(rep, dim=1).to(f32)
+    ch = _groups_to_heads(ct, rep, 1).to(f32)
     yt = lane_blocks(_state_readout, ch, new_state)
     return new_state, yt.to(xt.dtype)
 

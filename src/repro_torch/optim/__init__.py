@@ -6,5 +6,11 @@
   schedule.py   warmup + cosine decay.
 """
 
-from repro_torch.optim.adamw import OptConfig, adamw_init, adamw_update, global_norm
+from repro_torch.optim.adamw import (
+    OptConfig,
+    adamw_begin,
+    adamw_init,
+    adamw_update,
+    global_norm,
+)
 from repro_torch.optim.schedule import cosine_schedule

@@ -13,11 +13,13 @@ leaf is factored when it has ndim >= 2 and at least
 factored statistics run over its trailing two dims.
 
 Unlike the reference's, the update is in place: ``params`` and ``state``
-are overwritten with the values the reference would return (each new
-value is computed out of place in the reference's fp32 order, then
-copied in). Every division is tensor by tensor: PyTorch turns a Python
-scalar divided by a tensor into a reciprocal multiply, and CUDA a tensor
-divided by a host scalar.
+are overwritten with the values the reference would return (the
+reference's fp32 operations in its order, each rounded once, several of
+them in place so that a leaf needs few leaf-sized temporaries).
+:func:`adamw_begin` takes the global norm and returns a per-leaf update,
+so a caller may hand it one parameter leaf at a time. Every division is
+tensor by tensor: PyTorch turns a Python scalar divided by a tensor into
+a reciprocal multiply, and CUDA a tensor divided by a host scalar.
 
 Factored mode (``cfg.factored=True``): tensors with ndim >= 2 keep only
 row/col second-moment statistics (Adafactor, Shazeer & Stern 2018) --
@@ -88,22 +90,30 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32))) for t in tree_lib.leaves(tree)))
 
 
-def _update_v(g2: torch.Tensor, v, cfg: OptConfig):
-    """Second-moment EMA; returns (new_v, the dense v estimate)."""
+def _update_v_(g2: torch.Tensor, v, cfg: OptConfig) -> torch.Tensor:
+    """The second-moment EMA, written into ``v`` (its ``vr`` / ``vc`` when
+    factored); returns the dense v estimate, a new tensor. ``g2`` is
+    consumed."""
     if isinstance(v, dict):  # factored
-        vr = cfg.b2 * v["vr"] + (1 - cfg.b2) * torch.mean(g2, dim=-1)
-        vc = cfg.b2 * v["vc"] + (1 - cfg.b2) * torch.mean(g2, dim=-2)
+        v["vr"].mul_(cfg.b2).add_((1 - cfg.b2) * torch.mean(g2, dim=-1))
+        v["vc"].mul_(cfg.b2).add_((1 - cfg.b2) * torch.mean(g2, dim=-2))
         # reconstruct: v_hat ~ vr (x) vc / mean(vr)
-        denom = torch.clamp_min(torch.mean(vr, dim=-1, keepdim=True), cfg.eps_factored)
-        vhat = vr[..., None] * vc[..., None, :] / denom[..., None]
-        return {"vr": vr, "vc": vc}, vhat
-    vnew = cfg.b2 * v + (1 - cfg.b2) * g2
-    return vnew, vnew
+        denom = torch.clamp_min(torch.mean(v["vr"], dim=-1, keepdim=True), cfg.eps_factored)
+        return (v["vr"][..., None] * v["vc"][..., None, :]).div_(denom[..., None])
+    v.mul_(cfg.b2).add_(g2.mul_(1 - cfg.b2))
+    return v.clone()
 
 
 @torch.no_grad()
-def adamw_update(grads: Any, params: Any, state: dict, lr, cfg: OptConfig) -> tuple[Any, dict]:
-    """One AdamW step, in place on ``params`` and ``state`` (returned)."""
+def adamw_begin(grads: Any, state: dict, lr, cfg: OptConfig):
+    """Start one AdamW step: take the global norm over every gradient and
+    advance ``state["step"]``. Returns ``update(path, p)``, which applies
+    the step to the parameter ``p`` at ``path`` (and to the state's
+    leaves there), in place; call it once per leaf of ``grads``, in any
+    order. Each leaf's arithmetic is the reference's fp32 sequence, one
+    rounding per operation as there, with at most a few leaf-sized
+    temporaries alive: a caller that holds one parameter leaf at a time
+    (``lm.update_params_``) needs no copy of the whole tree."""
     step = state["step"] + 1
     device = step.device
     one = torch.ones((), dtype=torch.float32, device=device)
@@ -115,29 +125,35 @@ def adamw_update(grads: Any, params: Any, state: dict, lr, cfg: OptConfig) -> tu
     bc2 = 1 - torch.pow(cfg.b2, stepf)
     lr = torch.as_tensor(lr, dtype=torch.float32).to(device)
     has_master = "master" in state
+    state["step"].copy_(step)
 
-    for path, g in tree_lib.leaves_with_paths(grads):
-        p = tree_lib.get(params, path)
+    @torch.no_grad()
+    def update(path: tuple[str, ...], p: torch.Tensor) -> None:
         m = tree_lib.get(state["m"], path)
         v = tree_lib.get(state["v"], path)
         w = tree_lib.get(state["master"], path) if has_master else p
-        g = g.to(torch.float32) * scale
-        m2 = cfg.b1 * m + (1 - cfg.b1) * g
-        v2, vhat = _update_v(g * g, v, cfg)
-        mhat = m2 / bc1
-        vhat = vhat / bc2
-        upd = mhat / (torch.sqrt(vhat) + cfg.eps)
+        g = tree_lib.get(grads, path).to(torch.float32) * scale
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)  # m2 = b1 * m + (1 - b1) * g
+        vhat = _update_v_(g.mul_(g), v, cfg).div_(bc2)
+        del g
+        upd = (m / bc1).div_(vhat.sqrt_().add_(cfg.eps))  # mhat / (sqrt(vhat) + eps)
+        del vhat
         if cfg.weight_decay and p.ndim >= 2:  # no decay on 1-D leaves (final_norm)
-            upd = upd + cfg.weight_decay * w.to(torch.float32)
-        w2 = w.to(torch.float32) - lr * upd
-        p.copy_(w2.to(p.dtype))
-        m.copy_(m2)
-        if isinstance(v, dict):
-            v["vr"].copy_(v2["vr"])
-            v["vc"].copy_(v2["vc"])
+            upd.add_(w.to(torch.float32) * cfg.weight_decay)
+        upd.mul_(lr)
+        if w.dtype == torch.float32:
+            w.sub_(upd)  # w2 = w - lr * upd
         else:
-            v.copy_(v2)
+            w.copy_(w.to(torch.float32).sub_(upd))
         if has_master:
-            w.copy_(w2)
-    state["step"].copy_(step)
+            p.copy_(w.to(p.dtype))
+
+    return update
+
+
+def adamw_update(grads: Any, params: Any, state: dict, lr, cfg: OptConfig) -> tuple[Any, dict]:
+    """One AdamW step, in place on ``params`` and ``state`` (returned)."""
+    update = adamw_begin(grads, state, lr, cfg)
+    for path, _ in tree_lib.leaves_with_paths(grads):
+        update(path, tree_lib.get(params, path))
     return params, state

@@ -25,6 +25,12 @@ Fault-tolerance invariants, the reference's (tests/test_torch_train_loop.py):
 5. **Device-agnostic restore**: checkpoints hold host arrays in the
    reference's layout and restore onto whatever device the restarted
    job has.
+
+One loop for every family, as the reference's: ``cfg.is_encdec``
+selects ``models/encdec.py``, else ``models/lm.py`` (dense, MoE, Mamba,
+hybrid and VLM stacks); each gives ``init_params``, ``loss_fn`` and the
+reference's stacked tree (``param_tree``, ``take_grad_tree``,
+``load_param_tree_``, ``update_params_``).
 """
 
 from __future__ import annotations
@@ -42,9 +48,10 @@ from repro_torch import tree as tree_lib
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import lm_batch
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim import OptConfig, adamw_init, adamw_update, cosine_schedule
+from repro_torch.optim import OptConfig, adamw_begin, adamw_init, cosine_schedule
 
 # the cuBLAS workspace settings under which its GEMMs are deterministic
 DETERMINISTIC_CUBLAS = (":4096:8", ":16:8")
@@ -57,7 +64,7 @@ class TrainLoopConfig:
     seq_len: int = 128
     peak_lr: float = 3e-4
     warmup_steps: int = 10
-    checkpoint_every: int = 25
+    checkpoint_every: int = 25  # 0: no checkpoints (no save, no restore)
     checkpoint_dir: str = dataclasses.field(
         default_factory=lambda: os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
     keep: int = 3
@@ -66,25 +73,31 @@ class TrainLoopConfig:
     max_restarts: int = 2
 
 
+def family(cfg: ModelConfig):
+    """The model module for ``cfg``, as the reference's loop switches
+    (its loop.py:59, :128): ``encdec`` for enc-dec configs, else ``lm``."""
+    return encdec_lib if cfg.is_encdec else lm_lib
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, loop: TrainLoopConfig):
     """Returns ``step_fn(model, opt_state, batch, step) -> metrics``, which
     updates ``model`` and ``opt_state`` in place (the reference's returns
     new ones). The optimizer works on the reference's stacked tree
-    (``lm.param_tree``): each name's per-block gradients are stacked, the
-    update runs on a stacked copy of the parameters, and the result is
-    written back block by block."""
+    (``param_tree``): each name's per-layer gradients are stacked, the
+    global norm is taken over all of them, then each parameter leaf is
+    updated as a stack and written back, one leaf at a time
+    (``update_params_``)."""
+    fam = family(cfg)
 
-    def step_fn(model: lm_lib.LM, opt_state: dict, batch: dict, step: int) -> dict:
-        loss = lm_lib.loss_fn(model, batch, cfg)
+    def step_fn(model, opt_state: dict, batch: dict, step: int) -> dict:
+        loss = fam.loss_fn(model, batch, cfg)
         loss.backward()
         lr = cosine_schedule(step, peak_lr=loop.peak_lr, warmup_steps=loop.warmup_steps,
                              total_steps=loop.total_steps)
-        grads = lm_lib.take_grad_tree(model)
+        grads = fam.take_grad_tree(model)
         ok = bool(torch.isfinite(loss))
         if ok:  # NaN guard: a non-finite loss skips the update whole
-            params = lm_lib.param_tree(model)
-            adamw_update(grads, params, opt_state, lr, opt_cfg)
-            lm_lib.load_param_tree_(model, params)
+            fam.update_params_(model, adamw_begin(grads, opt_state, lr, opt_cfg))
         return {"loss": float(loss.detach()), "lr": float(lr), "skipped": int(not ok)}
 
     return step_fn
@@ -121,9 +134,14 @@ def _require_deterministic_cublas(dev: torch.device) -> None:
         )
 
 
-def _init_model(cfg: ModelConfig, seed: int, dev: torch.device) -> lm_lib.LM:
+def _init_model(cfg: ModelConfig, seed: int, dev: torch.device):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return lm_lib.init_params(gen, cfg, device=dev).requires_grad_(True)
+    return family(cfg).init_params(gen, cfg, device=dev).requires_grad_(True)
+
+
+def _wait(mgr: CheckpointManager | None) -> None:
+    if mgr is not None:
+        mgr.wait()
 
 
 @torch.no_grad()
@@ -153,7 +171,8 @@ def train(
     dev = resolve_device(device)
     _require_deterministic_cublas(dev)
     opt_cfg = opt_cfg or OptConfig()
-    mgr = CheckpointManager(loop.checkpoint_dir, keep=loop.keep)
+    fam = family(cfg)
+    mgr = CheckpointManager(loop.checkpoint_dir, keep=loop.keep) if loop.checkpoint_every else None
     step_fn = make_train_step(cfg, opt_cfg, loop)
     preempt = _Preemption().install()
     was_deterministic = torch.are_deterministic_algorithms_enabled()
@@ -167,13 +186,13 @@ def train(
             model = opt_state = None  # a failed attempt's state goes first
             try:
                 model = _init_model(cfg, loop.seed, dev)
-                opt_state = adamw_init(lm_lib.param_tree(model), opt_cfg)
+                opt_state = adamw_init(fam.param_tree(model), opt_cfg)
                 start = 0
-                if mgr.latest_step() is not None:
+                if mgr is not None and mgr.latest_step() is not None:
                     t0 = time.perf_counter()
-                    like = (lm_lib.param_tree(model, device="meta"), opt_state)
+                    like = (fam.param_tree(model, device="meta"), opt_state)
                     (params, state), extra = mgr.restore(like, device="cpu")
-                    lm_lib.load_param_tree_(model, params)
+                    fam.load_param_tree_(model, params)
                     _copy_tree_(opt_state, state)
                     del params, state
                     synchronize(dev)
@@ -192,19 +211,20 @@ def train(
                     synchronize(dev)
                     timings["step_s"].append(time.perf_counter() - ts)
                     losses.append(metrics["loss"])
-                    boundary = (step + 1) % loop.checkpoint_every == 0
-                    if boundary or preempt.requested or step == loop.total_steps - 1:
+                    boundary = mgr is not None and (step + 1) % loop.checkpoint_every == 0
+                    last = preempt.requested or step == loop.total_steps - 1
+                    if boundary or (mgr is not None and last):
                         save = mgr.save_async if loop.async_checkpoint else mgr.save
                         ts = time.perf_counter()
-                        save(step, (lm_lib.param_tree(model), opt_state), {"step": step})
+                        save(step, (fam.param_tree(model), opt_state), {"step": step})
                         timings["save_s"].append(time.perf_counter() - ts)
                     if preempt.requested:
-                        mgr.wait()
+                        _wait(mgr)
                         log(f"[train] preempted at step {step}; checkpointed")
                         return {"params": model, "opt_state": opt_state, "final_step": step,
                                 "losses": losses, "preempted": True, "restarts": restarts,
                                 **timings}
-                mgr.wait()
+                _wait(mgr)
                 return {
                     "params": model,
                     "opt_state": opt_state,
@@ -220,7 +240,7 @@ def train(
                 if restarts > loop.max_restarts:
                     raise
                 log(f"[train] fault at restart {restarts}: {e}; resuming from checkpoint")
-                mgr.wait()
+                _wait(mgr)
     finally:
         preempt.uninstall()
         torch.use_deterministic_algorithms(was_deterministic)

@@ -323,8 +323,11 @@ def test_configs_batches_and_training_refusal(arch):
     batch = lm_batch(cfg, 2, 8, device="cpu")
     assert batch["tokens"].shape == (2, 8)
     model = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="training-breadth slice"):
-        lm.loss_fn(model, batch, cfg)
+    loss = lm.loss_fn(model.requires_grad_(True), batch, cfg)
+    assert torch.isfinite(loss)
+    loss.backward()
+    params = list(model.parameters())
+    assert params and all(p.grad is not None and torch.isfinite(p.grad).all() for p in params)
 
 
 def test_encdec_and_vision_name_the_next_slice():

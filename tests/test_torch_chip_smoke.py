@@ -326,7 +326,8 @@ def test_faults_only_runs_the_device_phase_first(capsys):
     cs = _chip_smoke()
     assert cs.ALONE == {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
                         "--faults-only": "faults", "--train-only": "train",
-                        "--breadth-only": "breadth", "--frontends-only": "frontends"}
+                        "--train-breadth-only": "train breadth", "--breadth-only": "breadth",
+                        "--frontends-only": "frontends"}
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
@@ -337,11 +338,11 @@ def test_faults_only_runs_the_device_phase_first(capsys):
 
 
 def test_train_phase_rehearses_on_cpu(capsys):
-    """The train phase at smoke size: 12 steps with async checkpoints and
-    a falling loss, resume == never-failed after a fault and after a
-    SIGTERM, the trained model served on packed == reference and left
-    alone by a later step, the paper MLP trained and read out on four
-    engines, and the JSON line."""
+    """The train phase at smoke size: 12 steps with one async checkpoint
+    and a falling loss; at (up to) 4 layers a clean run, and resume ==
+    that run after a fault and after a SIGTERM; the trained model served
+    on packed == reference and left alone by a later step, the paper MLP
+    trained and read out on four engines, and the JSON line."""
     import json
 
     res = _chip_smoke().train_phase(device="cpu", smoke=True)
@@ -350,7 +351,9 @@ def test_train_phase_rehearses_on_cpu(capsys):
     assert "[train] fault at restart 1: injected node failure; resuming from checkpoint" in out
     assert out.count("[train] resumed from step") == 2
     assert "[train] preempted at step 5; checkpointed" in out
-    assert "torch.equal to (a)'s in both" in out
+    assert "torch.equal to the clean run's in both" in out
+    assert len(res["a"]["save_ms"]) == 1 and len(res["b"]["save_ms"]) == 3
+    assert res["b"]["layers"] == 2  # the smoke config's, under RESUME_LAYERS
     assert "8 prompts x 16 ticks, tokens and prefill logits equal" in out
     assert "left both compiled models' prefill logits as they were" in out
     assert "reference == packed, tacitmap, wdm bit for bit" in out
@@ -482,5 +485,38 @@ def test_frontends_only_runs_the_device_phase_first(capsys):
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
         cs.main(["--frontends-only"])
+    assert e.value.code != 0
+    assert "usage" not in capsys.readouterr().err
+
+
+def test_train_breadth_phase_rehearses_on_cpu(capsys):
+    """The train breadth phase at smoke size: each family's 4 steps with a
+    falling loss, a second run equal on every tensor, trained packed ==
+    reference, and the JSON line."""
+    import json
+
+    cs = _chip_smoke()
+    res = cs.train_breadth_phase(device="cpu", smoke=True)
+    out = capsys.readouterr().out
+    for family, arch, *_ in cs.TRAIN_BREADTH:
+        assert res[family]["arch"] == arch and len(res[family]["losses"]) == cs.BREADTH_STEPS
+        assert res[family]["losses"][-1] < res[family]["losses"][0]
+        assert res[family]["peak_gib"] is None  # CPU: not read
+    assert res["enc-dec"]["layers"] == [2, 2] and res["MoE"]["layers"] == [0, 1]
+    assert out.count("a second run equal on every parameter and optimizer-state tensor") == 4
+    assert res["fused_bnn_matmul"] == res["hamming_matmul"] == 0  # CPU: not read
+    line = next(ln for ln in out.splitlines() if ln.startswith('{"train_breadth"'))
+    assert json.loads(line) == {"train_breadth": json.loads(json.dumps(res))}
+
+
+def test_train_breadth_only_runs_the_device_phase_first(capsys):
+    """``--train-breadth-only`` is a known argument: without a card it
+    gets as far as the device check (a SystemExit), not the usage error."""
+    cs = _chip_smoke()
+    assert cs.ALONE["--train-breadth-only"] == "train breadth"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        cs.main(["--train-breadth-only"])
     assert e.value.code != 0
     assert "usage" not in capsys.readouterr().err

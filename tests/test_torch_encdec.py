@@ -346,8 +346,11 @@ def test_configs_batches_and_training_refusal():
     assert embeds.dtype == torch.float32 and torch.equal(embeds, frontend_embeds(cfg, B,
                                                                                 device="cpu"))
     model = encdec.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="training-breadth slice"):
-        encdec.loss_fn(model, batch, cfg)
+    loss = encdec.loss_fn(model.requires_grad_(True), batch, cfg)
+    assert torch.isfinite(loss)
+    loss.backward()
+    params = list(model.parameters())
+    assert params and all(p.grad is not None and torch.isfinite(p.grad).all() for p in params)
 
 
 @pytest.mark.parametrize("engine", ["packed", "tiled"])

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import encdec as jax_encdec
 from repro.models import lm as jax_lm
 from repro.optim import OptConfig as JaxOptConfig
 from repro.optim import adamw_init as jax_adamw_init
@@ -34,7 +35,9 @@ torch.set_num_threads(1)
 
 
 def _smoke_tree(arch):
-    return jax.tree.map(np.asarray, jax_lm.init_params(jax.random.key(0), jax_smoke_config(arch)))
+    cfg = jax_smoke_config(arch)
+    init = jax_encdec.init_params if cfg.is_encdec else jax_lm.init_params
+    return jax.tree.map(np.asarray, init(jax.random.key(0), cfg))
 
 
 def _grads_like(tree, seed):
@@ -65,10 +68,13 @@ def _assert_trees_close(got, want):
 
 
 @pytest.mark.parametrize("factored", [False, True], ids=["dense", "factored"])
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen1.5-0.5b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen1.5-0.5b", "qwen3-moe-235b-a22b",
+                                  "jamba-1.5-large-398b", "seamless-m4t-large-v2"])
 def test_adamw_update_equals_the_reference_on_the_stacked_tree(arch, factored):
     """Two steps on the smoke tree with gradients whose global norm is
-    far above ``clip_norm`` (clipping active), weight decay on."""
+    far above ``clip_norm`` (clipping active), weight decay on: the dense
+    stacks, the (L, E, d, f) expert stacks and Mamba leaves of the MoE
+    and hybrid trees, and the enc-dec ``enc_blocks`` / ``dec_blocks``."""
     tree = _smoke_tree(arch)
     grads = _grads_like(tree, 1)
     assert float(global_norm(tree_from_jax(grads, device="cpu"))) > 100 * OptConfig().clip_norm

@@ -1,7 +1,7 @@
 """The port's training loop: the reference's fault-tolerance invariants
 (tests/test_train_loop.py) on the port, ``train()`` against the
-reference's ``train()`` from the same parameters and tokens, and the
-launcher.
+reference's ``train()`` from the same parameters and tokens, every
+architecture's smoke config through the loop, and the launcher.
 
 Resume == never-failed is held with ``torch.equal`` on every parameter
 and every optimizer-state tensor. Against the reference the losses of
@@ -28,11 +28,11 @@ from repro.models import lm as jax_lm
 from repro.train import TrainLoopConfig as JaxTrainLoopConfig
 from repro.train import train as jax_train
 from repro_torch import tree as tree_lib
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.data import lm_batch
 from repro_torch.launch import train as train_cli
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.optim import OptConfig, adamw_init
 from repro_torch.train import TrainLoopConfig, make_train_step, train
 from repro_torch.train import loop as loop_lib
@@ -211,3 +211,17 @@ def test_weight_cache_misses_after_an_in_place_update():
     after = paper.mlp_forward_infer(params, x, cfg, eng)
     assert torch.equal(after, paper.mlp_forward_infer(params, x, cfg, "packed"))
     assert not torch.equal(after, before)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCH_IDS))
+def test_every_architecture_trains_through_the_loop(arch, tmp_path):
+    """``train()`` picks each config's family (enc-dec or decoder-only)
+    and runs it with checkpoints: 3 finite steps on the smoke config,
+    the optimizer state in the family's stacked tree."""
+    cfg = dataclasses.replace(get_smoke_config(arch), quant="bnn")
+    out = train(cfg, _loop(tmp_path, total_steps=3), device="cpu")
+    assert out["final_step"] == 2 and np.isfinite(out["losses"]).all()
+    fam = loop_lib.family(cfg)
+    assert fam is (encdec if cfg.is_encdec else lm)
+    assert [p for p, _ in tree_lib.leaves_with_paths(fam.param_tree(out["params"]))] == [
+        p for p, _ in tree_lib.leaves_with_paths(out["opt_state"]["m"])]

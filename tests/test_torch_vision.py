@@ -176,8 +176,11 @@ def test_configs_and_batches():
     assert batch["extra_embeds"].shape == (B, cfg.frontend_len, cfg.d_model)
     assert "src_embeds" not in batch
     model = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="training-breadth slice"):
-        lm.loss_fn(model, batch, cfg)
+    loss = lm.loss_fn(model.requires_grad_(True), batch, cfg)
+    assert torch.isfinite(loss)
+    loss.backward()
+    params = list(model.parameters())
+    assert params and all(p.grad is not None and torch.isfinite(p.grad).all() for p in params)
 
 
 def test_serve_cli_prepends_the_patches(capsys):
