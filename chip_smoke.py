@@ -4,13 +4,14 @@
     python3 chip_smoke.py [--mma-only | --flash-only | --hamming-only | --fused-only |
                            --kernels-only | --telemetry-only | --simulators-only |
                            --faults-only | --train-only | --train-breadth-only |
-                           --breadth-only | --frontends-only]
+                           --breadth-only | --frontends-only | --distributed-only]
 
 Each ``--*-only`` argument stops after those kernels' checks and timings
 (``--kernels-only``: every kernel's; ``--telemetry-only``,
 ``--simulators-only``, ``--faults-only``, ``--train-only``,
-``--train-breadth-only``, ``--breadth-only`` and ``--frontends-only``:
-the build and that phase alone) and prints no result line. Needs one
+``--train-breadth-only``, ``--breadth-only``, ``--frontends-only`` and
+``--distributed-only``: the build and that phase alone) and prints no
+result line. Needs one
 CUDA card (device 0), the CUDA toolkit's ``nvcc`` and ``nvidia-smi``;
 exits non-zero without them. Phases, each announced on its own
 ``[phase]`` line:
@@ -99,8 +100,9 @@ exits non-zero without them. Phases, each announced on its own
    ``{"train_breadth": ...}`` JSON line. Its launches join rows 1 and 2;
 12. breadth: the MoE, Mamba-2 and hybrid decoder stacks -- (a)
    qwen3-moe-235b-a22b at full width, depth cut to 2 layers, on both
-   attention paths, (b) mamba2-2.7b at full width and depth, (c)
-   jamba-1.5-large-398b's smoke config (a full-width repeat outgrows the
+   attention paths, (b) mamba2-2.7b at full width, depth cut to 8 of
+   its 64 layers, (c) jamba-1.5-large-398b's smoke config (a full-width
+   repeat outgrows the
    card): lockstep packed == reference bit for bit, 8 slots == each
    request alone, evict/restore unchanged, with prefill ms, decode tok/s,
    launches per tick, a profiled tick and peak memory; (a)'s attention
@@ -121,7 +123,22 @@ exits non-zero without them. Phases, each announced on its own
    ``b1`` per prefill or tick, 24 flash ``sm90`` per prefill), packed ==
    reference, the request path with token prompts == alone; a
    ``{"frontends": ...}`` JSON line. Its Hamming, fused and flash
-   launches join rows 2, 1 and 3.
+   launches join rows 2, 1 and 3;
+14. distributed: ``repro_torch.distributed`` on ``torch.distributed``
+   -- (a) a one-rank NCCL group on the card: every collective and the
+   compressed all-reduce give their n = 1 identities; (b) two spawned
+   ranks sharing the card on gloo probe which collectives gloo runs on
+   CUDA tensors (the rest go through pinned host memory); in that
+   world (c) expert-parallel MoE at qwen3-moe-235b-a22b's full width,
+   one layer, 64 experts per rank: a prefill under the mesh context, the
+   EP layer == ``moe_ffn`` within the reference test's 3e-2 at
+   drop-free capacity and a planted fault beyond it, the drop share at
+   capacity 1.25; (d) GPipe of tinyllama-1.1b's 22 programmed layers in
+   2 stages, 4 microbatches, == the single-process run bit for bit; (e)
+   the int8 error-feedback all-reduce of tinyllama-1.1b's 1.1 B-entry
+   gradient tree, bit for bit against the reference's arithmetic; a
+   ``{"distributed": ...}`` JSON line. The ranks' fused launches ((c)
+   and (d)) join row 1.
 
 Then the whole run's seconds, one ``{"kernels": [...]}`` JSON line, the
 card line again, and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -2752,7 +2769,11 @@ BREADTH_MOE = "qwen3-moe-235b-a22b"
 # full width, depth cut to 2 of its 94 layers: 9.81 GB of fp32 latents
 # per layer plus 4.98 GB of embedding and untied head
 BREADTH_MOE_LAYERS = 2
-BREADTH_SSM = "mamba2-2.7b"  # full width and depth: 64 layers, 10.8 GB
+BREADTH_SSM = "mamba2-2.7b"
+# full width, depth cut to 8 of its 64 layers (the train breadth phase's
+# cut): at full depth this model took most of the phase's 177 s and runs
+# no kernel (time for the distributed phase)
+BREADTH_SSM_LAYERS = 8
 # at full width one 8-layer repeat holds ~176 GB of fp32 latents, which
 # no single card holds: its smoke config runs here
 BREADTH_HYBRID = "jamba-1.5-large-398b"
@@ -2926,7 +2947,7 @@ def breadth_phase(device: str = "cuda", smoke: bool = False) -> dict:
         o) == ``reference``, 8 slots == alone, evict/restore unchanged;
         one layer's attention at its prefill shape through the flash
         kernel == through the plain ops within ATTN_TOL;
-    (b) mamba2-2.7b at full width and depth: the same checks, with
+    (b) mamba2-2.7b at full width, 8 of 64 layers: the same checks, with
         request prompts of 1 to 96 tokens; it launches no kernel (no
         projection of a Mamba stack is a BitLinear, in the reference
         either), and its profiled tick gives its device time;
@@ -2987,6 +3008,8 @@ def breadth_phase(device: str = "cuda", smoke: bool = False) -> dict:
           f"{logit_diff:.4g}, tokens equal in {same} of {BATCH * GEN}", flush=True)
 
     ssm_cfg = config(BREADTH_SSM)
+    if not smoke:
+        ssm_cfg = dataclasses.replace(ssm_cfg, n_layers=BREADTH_SSM_LAYERS)
     res["b"] = _breadth_model(ssm_cfg, seeded(ssm_cfg), _breadth_requests(ssm_cfg, SSM_PROMPTS),
                               device, f"(b) {ssm_cfg.name} {ssm_cfg.n_layers} layers")
     launched = res["b"]["launches"], res["b"]["request_launches"]
@@ -3329,6 +3352,507 @@ def frontends_phase(device: str = "cuda", smoke: bool = False) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: distributed -- torch.distributed on the card
+# ---------------------------------------------------------------------------
+
+DIST_TIMEOUT_S = 420  # one spawned world's deadline (init included)
+DIST_RANKS = 2  # the ranks of (c), (d) and (e), sharing the card
+PROBE_TIMEOUT_S = 120
+# (c): qwen3-moe-235b-a22b at full width, one layer; 8 x 128 prompt
+# tokens, 4 rows per rank. At capacity factor 16 moe_ffn's per-sequence
+# capacity is 128 (drop-free) and EP's per (src, dst) 32768
+EP_ARCH = "qwen3-moe-235b-a22b"
+EP_DROPFREE = 16.0
+EP_TOL = 3e-2  # the reference's own test of EP against moe_ffn (test_multidevice.py)
+# (d): tinyllama-1.1b, one stage of 11 layers per rank, 4 microbatches of 2 x 128
+PIPE_MICRO = 4
+# (e): each rank's training batch, 2 x 128 tokens, for the gradient tree
+CAR_ROWS = 2
+
+
+def _one_rank_group(device: str, workdir: str) -> dict:
+    """(a) a one-rank group in this process (NCCL on the card, gloo in a
+    CPU rehearsal) through a 1-D mesh: every collective and the
+    compressed all-reduce give their n = 1 identities."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.compression import (
+        _dequantize,
+        _quantize,
+        compressed_all_reduce_mean,
+        ef_init,
+    )
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+
+    backend = init_distributed(0, 1, store=dist.FileStore(os.path.join(workdir, "store"), 1),
+                               device=device, timeout_s=120)
+    try:
+        mesh = make_test_mesh((1,), ("data",), device=device)
+        axis = (mesh, "data")
+        x = torch.randn((1024, 512), generator=torch.Generator().manual_seed(SEED)).to(device)
+        got = {
+            "ring_all_reduce_mean": col.ring_all_reduce_mean(x, axis),
+            "reduce_scatter_mean": col.reduce_scatter_mean(x, axis, scatter_dim=1),
+            "all_gather_dim": col.all_gather_dim(x, axis, dim=1),
+            "ppermute_shift": col.ppermute_shift(x, axis, 1),
+            "all_to_all": col.all_to_all(x[None], axis)[0],
+        }
+        bad = [k for k, v in got.items() if not torch.equal(v, x)]
+        red, ef = compressed_all_reduce_mean({"w": x}, ef_init({"w": x}), axis)
+        payload = _dequantize(*_quantize(x))
+        if not (torch.equal(red["w"], payload) and torch.equal(ef["w"], x - payload)):
+            bad.append("compressed_all_reduce_mean")
+        if bad:
+            raise AssertionError(f"(a) one-rank {backend} group: not the identity: {bad}")
+    finally:
+        dist.destroy_process_group()
+    print(f"[distributed] (a) one-rank {backend} group on {device}: {', '.join(got)} and "
+          "compressed_all_reduce_mean (== dequantize(quantize(x)), residual x - it) give "
+          "their n = 1 identities", flush=True)
+    return {"backend": backend, "identities": [*got, "compressed_all_reduce_mean"]}
+
+
+def _probe_op(op: str, rank: int, dev) -> list[float]:
+    """One collective straight on gloo (never through ``collectives``'
+    staging), on two ranks, with tensors on ``dev``; returns what the
+    rank got, and what it should have got."""
+    import torch
+    import torch.distributed as dist
+
+    n, other = 4, 1 - rank
+    me = torch.full((n,), float(rank + 1), device=dev)
+    if op == "all_reduce":
+        out = me.clone()
+        dist.all_reduce(out)
+        want = [3.0] * n
+    elif op == "all_gather_into_tensor":
+        out = torch.empty(2 * n, device=dev)
+        dist.all_gather_into_tensor(out, me)
+        want = [1.0] * n + [2.0] * n
+    elif op == "reduce_scatter_tensor":
+        out = torch.empty(n, device=dev)
+        dist.reduce_scatter_tensor(out, torch.cat([me, me]))
+        want = [3.0] * n
+    elif op == "all_to_all_single":
+        out = torch.empty(2, device=dev)
+        dist.all_to_all_single(out, torch.tensor([10.0 * rank, 10.0 * rank + 1], device=dev))
+        want = [float(rank), 10.0 + rank]
+    else:  # send_recv
+        out = torch.empty(n, device=dev)
+        for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, me, other),
+                                            dist.P2POp(dist.irecv, out, other)]):
+            work.wait()
+        want = [float(other + 1)] * n
+    return out.cpu().tolist(), want
+
+
+def _probe_rank(rank: int, world: int, progress: str) -> dict:
+    """Each op of ``collectives.OPS`` probed in turn on this rank's device;
+    rank 0 writes the answers after each op, so a world that dies on one
+    leaves the others'."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import OPS
+
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    out: dict = {}
+    for op in OPS:
+        try:
+            got, want = _probe_op(op, rank, dev)
+            out[op] = "device" if got == want else f"wrong values {got}, expected {want}"
+        except Exception as e:  # the probe's answer: gloo does not run this op on such tensors
+            out[op] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        dist.barrier()
+        if rank == 0:
+            with open(progress, "w") as f:
+                json.dump(out, f)
+    return out
+
+
+def _probe_gloo(device: str, workdir: str) -> dict:
+    """(b) which collectives gloo runs on this device's tensors: a
+    two-rank world probes each op; an op that failed, or that a rank died
+    or hung in, goes through pinned host memory
+    (``collectives.GLOO_CUDA_OPS`` must name exactly the ones that ran)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import WorldError, run_local_world
+
+    progress = os.path.join(workdir, "probe0.json")
+    try:
+        answers = run_local_world(_probe_rank, 2, workdir=workdir, payload=progress,
+                                  device=device, backend="gloo", timeout_s=PROBE_TIMEOUT_S)[0]
+    except WorldError as e:
+        answers = json.load(open(progress)) if os.path.exists(progress) else {}
+        died = next((op for op in collectives.OPS if op not in answers), None)
+        if died is None:
+            raise
+        answers[died] = f"the world died or hung: {str(e)[:200]}"
+        for op in collectives.OPS:
+            answers.setdefault(op, "not probed (an earlier op's world died)")
+    direct = {op for op, a in answers.items() if a == "device"}
+    if device == "cuda" and direct != collectives.GLOO_CUDA_OPS:
+        raise AssertionError(f"(b) gloo ran {sorted(direct)} on CUDA tensors directly, but "
+                             f"collectives.GLOO_CUDA_OPS says {sorted(collectives.GLOO_CUDA_OPS)}: "
+                             f"{answers}")
+    if device == "cpu" and direct != set(collectives.OPS):
+        raise AssertionError(f"(b) gloo refused CPU tensors: {answers}")
+    transport = {op: "device" if op in direct else "pinned host" for op in collectives.OPS}
+    print(f"[distributed] (b) gloo on {device} tensors, probed on 2 ranks: {answers}; "
+          f"transport {transport}", flush=True)
+    return {"probe": answers, "transport": transport}
+
+
+def _ep_part(rank: int, world: int, device: str, smoke: bool) -> dict:
+    """(c) on this rank: qwen3-moe's layer with this rank's experts, its
+    rows through the EP layer against ``moe_ffn`` with every expert, a
+    planted fault, the prefill under the mesh context (fused launches
+    counted), and the drop share at the default capacity."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.device import synchronize
+    from repro_torch.distributed import ep
+    from repro_torch.distributed.hints import activation_hints
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.layers import ACT_DTYPE, rms_norm, row_matmul
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    base = get_smoke_config(EP_ARCH) if smoke else get_config(EP_ARCH)
+    cfg = dataclasses.replace(base, n_layers=1, moe_impl="ep_shard_map",
+                              moe_capacity_factor=EP_DROPFREE)
+    mesh = make_test_mesh((world,), ("model",), device=device, backend="gloo")
+    _fresh_peak(on_card)
+    params = lm.init_params(torch.Generator(device=device).manual_seed(SEED), cfg, device=device)
+    model = compiler.compile(cfg, params, compiler.HardwareTarget(engine="packed"), device=device)
+    del params
+    cfg = model.cfg  # quant "bnn" on packed
+    rows = BATCH // world
+    tokens = torch.as_tensor(serve.prompts(cfg, BATCH, PROMPT, SEED))[rank * rows:(rank + 1) * rows]
+    tokens = tokens.to(dev)
+    # the MoE layer's input, as prefill computes it
+    blk = model.params.blocks[0]
+    h = model.params.embed[tokens].to(ACT_DTYPE)
+    positions = torch.arange(PROMPT, device=dev)
+    with torch.no_grad():
+        mix, _ = lm._mix(blk, rms_norm(h, blk.norm1, cfg.norm_eps), positions, cfg,
+                         model.executor(rows))
+        hn = rms_norm(h + mix, blk.norm2, cfg.norm_eps)
+        single = moe_lib.moe_ffn(blk.ffn, hn, cfg)[0].float()
+        single_logits = model.prefill(tokens)[0]
+    peak_all_experts = _peak_gib(on_card)
+    ep.shard_experts_(model.params, mesh)
+    _fresh_peak(on_card)
+    bound = EP_TOL + EP_TOL * single.abs()
+
+    def timed(fn):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        ep.ep_moe_ffn(blk.ffn, hn, cfg, mesh)  # warm-up
+        (y, aux), ep_ms = timed(lambda: ep.ep_moe_ffn(blk.ffn, hn, cfg, mesh))
+        err = (y.float() - single).abs()
+        # a planted fault: the received buckets rolled by one rank
+        real = ep.all_to_all
+        ep.all_to_all = lambda t, axis=None: torch.roll(real(t, axis), 1, dims=0)
+        try:
+            y_fault = ep.ep_moe_ffn(blk.ffn, hn, cfg, mesh)[0]
+        finally:
+            ep.all_to_all = real
+        fault_err = (y_fault.float() - single).abs()
+        with activation_hints(mesh):
+            model.prefill(tokens)  # warm-up
+            _reset_counts()
+            (logits, _), prefill_ms = timed(lambda: model.prefill(tokens))
+            counts = _counts()
+        cfg125 = dataclasses.replace(cfg, moe_capacity_factor=base.moe_capacity_factor)
+        cap = ep.capacity(rows * PROMPT, cfg125, world)
+        x2d = hn.reshape(-1, cfg.d_model)
+        keep = ep._local_dispatch(x2d, row_matmul(x2d.float(), blk.ffn.router), world,
+                                  cfg.moe_experts // world, cfg.moe_top_k, cap)[-1]
+        (y125, _), ep125_ms = timed(lambda: ep.ep_moe_ffn(blk.ffn, hn, cfg125, mesh))
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"(c) rank {rank}: EP vs moe_ffn max |diff| {err.max().item()} "
+                             f"beyond {EP_TOL} + {EP_TOL}|ref|")
+    if bool((fault_err <= bound).all()):
+        raise AssertionError(f"(c) rank {rank}: the planted fault stayed within the bound")
+    if not (torch.isfinite(logits).all() and torch.isfinite(y125).all()):
+        raise AssertionError(f"(c) rank {rank}: non-finite EP prefill logits or output")
+    _check_launches(device, counts, {"fused_bnn_matmul": _fused_per_step(cfg),
+                                     "hamming_matmul": 0}, f"(c) rank {rank} EP prefill")
+    return {
+        "rows": rows, "experts_local": cfg.moe_experts // world,
+        "cap_dropfree": ep.capacity(rows * PROMPT, cfg, world), "cap_default": cap,
+        "ep_vs_moe_ffn_max_abs": err.max().item(), "ref_max_abs": single.abs().max().item(),
+        "fault_max_abs": fault_err.max().item(),
+        "fault_beyond_bound": (fault_err - bound).max().item(),
+        "prefill_logits_vs_single_max_abs": (logits - single_logits).abs().max().item(),
+        "ep_layer_ms": ep_ms, "ep_layer_default_cap_ms": ep125_ms, "prefill_ms": prefill_ms,
+        "drop_share_default_cap": 1.0 - keep.float().mean().item(), "aux": aux.item(),
+        "fused_bnn_matmul": counts["fused_bnn_matmul"], "peak_gib": _peak_gib(on_card),
+        "peak_gib_all_experts": peak_all_experts,
+    }
+
+
+def _pipe_part(rank: int, world: int, device: str, smoke: bool) -> dict:
+    """(d) on this rank: tinyllama's stage ``rank`` (its blocks only,
+    programmed on ``packed``) in GPipe; the last stage's hidden state
+    against the single-process run of every block."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.device import synchronize
+    from repro_torch.distributed.pipeline import bubble_fraction, gpipe, stage_split
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.layers import ACT_DTYPE
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    cfg = dataclasses.replace(get_smoke_config(ARCH) if smoke else get_config(ARCH), quant="bnn")
+    _fresh_peak(on_card)
+    params = lm.init_params(torch.Generator(device=device).manual_seed(SEED), cfg, device=device)
+    compiled = compiler.compile(cfg, params, compiler.HardwareTarget(engine="packed"),
+                                device=device)
+    del params
+    engine = compiled.engine
+    tokens = torch.as_tensor(serve.prompts(cfg, BATCH, PROMPT, SEED)).to(dev)
+    positions = torch.arange(PROMPT, device=dev)
+    blocks = list(compiled.params.blocks)
+    with torch.no_grad():
+        h = compiled.params.embed[tokens].to(ACT_DTYPE)
+        synchronize(dev)
+        t0 = time.perf_counter()
+        seq = lm.run_blocks(blocks, h, positions, cfg, engine)
+        synchronize(dev)
+        seq_ms = (time.perf_counter() - t0) * 1e3
+    lo, hi = stage_split(cfg.n_layers, world)[rank]
+    stage = blocks[lo:hi]
+    del compiled, blocks  # this rank keeps its stage's blocks only
+
+    def stage_fn(stage_blocks, x):
+        return lm.run_blocks(stage_blocks, x, positions, cfg, engine)
+
+    pipe = gpipe(stage_fn, None, n_microbatches=PIPE_MICRO)
+    with torch.no_grad():
+        pipe(stage, h)  # warm-up
+        _reset_counts()
+        synchronize(dev)
+        t0 = time.perf_counter()
+        y = pipe(stage, h)
+        synchronize(dev)
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+    equal = torch.equal(y, seq)
+    ticks = world - 1 + PIPE_MICRO
+    per_layer = _fused_per_step(cfg) // cfg.n_layers
+    _check_launches(device, counts, {"fused_bnn_matmul": ticks * (hi - lo) * per_layer,
+                                     "hamming_matmul": 0}, f"(d) rank {rank} GPipe")
+    diff = (y.float() - seq.float()).abs().max().item()
+    return {"layers": [lo, hi], "equal": equal, "max_abs_diff": diff,
+            "pipe_ms": pipe_ms, "sequential_ms": seq_ms,
+            "bubble": bubble_fraction(world, PIPE_MICRO), "ticks": ticks,
+            "fused_bnn_matmul": counts["fused_bnn_matmul"], "peak_gib": _peak_gib(on_card)}
+
+
+def _car_part(rank: int, world: int, device: str, smoke: bool) -> dict:
+    """(e) on this rank: tinyllama's full gradient tree from one training
+    step on the rank's own batch, compressed-all-reduced twice; the mean
+    against the two ranks' dequantized payloads bit for bit, the residual
+    against x - dequantize(quantize(x)) bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import lm_batch
+    from repro_torch.device import synchronize
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.compression import (
+        _dequantize,
+        _quantize,
+        compressed_all_reduce_mean,
+        ef_init,
+    )
+    from repro_torch.models import lm
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    cfg = dataclasses.replace(get_smoke_config(ARCH) if smoke else get_config(ARCH), quant="bnn")
+    _fresh_peak(on_card)
+    model = lm.init_params(torch.Generator(device=device).manual_seed(SEED), cfg, device=device)
+    model.requires_grad_(True)
+    batch = lm_batch(cfg, CAR_ROWS, PROMPT, seed=SEED, step=rank, device=device)
+    loss = lm.loss_fn(model, batch, cfg)
+    loss.backward()
+    grads = lm.take_grad_tree(model)
+    loss = float(loss.detach())
+    del model
+    _fresh_peak(on_card)
+    n = sum(g.numel() for g in tree_lib.leaves(grads))
+    group = col.group_of(None)
+
+    def call(ef):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        out = compressed_all_reduce_mean(grads, ef, None)
+        synchronize(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        (red, ef1), ms1 = call(ef_init(grads))
+        mean_ok = resid_ok = True
+        for path, g in tree_lib.leaves_with_paths(grads):
+            payload = _dequantize(*_quantize(g.float()))
+            other = col.ppermute_shift(payload, None, 1)
+            pair = (payload, other) if rank == 0 else (other, payload)
+            want = (pair[0] + pair[1]) / torch.tensor(2.0, device=dev)
+            mean_ok &= torch.equal(tree_lib.get(red, path), want)
+            resid_ok &= torch.equal(tree_lib.get(ef1, path), g.float() - payload)
+        del red
+        (red2, ef2), ms2 = call(ef1)
+        carried_ok = True
+        for path, g in tree_lib.leaves_with_paths(grads):
+            x = g.float() + tree_lib.get(ef1, path)
+            carried_ok &= torch.equal(tree_lib.get(ef2, path), x - _dequantize(*_quantize(x)))
+    if not (mean_ok and resid_ok and carried_ok):
+        raise AssertionError(f"(e) rank {rank}: mean bit for bit {mean_ok}, residual {resid_ok}, "
+                             f"carried residual {carried_ok}")
+    leaf = tree_lib.leaves(grads)[0]
+    return {"params": n, "loss": loss, "ms": [ms1, ms2],
+            "gb_s": [n * 4 / (ms / 1e3) / 1e9 for ms in (ms1, ms2)],
+            "transport": col.transport("all_reduce", leaf, group),
+            "peak_gib": _peak_gib(on_card)}
+
+
+def _dist_rank(rank: int, world: int, payload: dict) -> dict:
+    """(c), (d) and (e) on one rank of the two sharing the card."""
+    import torch
+
+    device, smoke = payload["device"], payload["smoke"]
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for part, fn in (("c", _ep_part), ("d", _pipe_part), ("e", _car_part)):
+        t0 = time.perf_counter()
+        out[part] = fn(rank, world, device, smoke)
+        out[part]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def distributed_phase(device: str = "cuda", smoke: bool = False) -> dict:
+    """The distribution layer (``repro_torch.distributed``) on
+    ``torch.distributed``:
+
+    (a) a one-rank NCCL group on cuda:0: every collective and the
+        compressed all-reduce on device tensors give their n = 1
+        identities (the only NCCL run: NCCL refuses two ranks on one
+        card);
+    (b) two ranks sharing the card on gloo (spawned, a FileStore in a
+        temp dir, a deadline on the init and the join): which collectives
+        gloo runs on CUDA tensors, each probed; the rest go through
+        pinned host memory, and ``collectives.GLOO_CUDA_OPS`` must say so;
+    (c) expert-parallel MoE at qwen3-moe-235b-a22b's full width (d 4096,
+        128 experts top-8, d_ff 1536), one layer, 64 experts per rank:
+        ``lm.prefill`` of 4 of 8 x 128 prompt rows per rank with
+        ``moe_impl="ep_shard_map"`` under the mesh context (the attention
+        projections on the fused ``b1`` kernel, counted); at drop-free
+        capacity the EP layer within ``EP_TOL`` (+ ``EP_TOL`` |ref|) of
+        ``moe_ffn`` with every expert on the same rows, a planted fault
+        (the received buckets rolled by one rank) beyond it; the drop
+        share at the default capacity 1.25;
+    (d) GPipe at tinyllama-1.1b full width and depth: 2 stages of 11
+        layers on programmed ``packed`` weights (fused ``b1``), 4
+        microbatches of 2 x 128 rows, the last stage's hidden state
+        ``torch.equal`` to the single-process run;
+    (e) the compressed all-reduce of tinyllama-1.1b's full gradient tree
+        (1.1 B fp32 per rank, one training step on each rank's batch):
+        the mean equal bit for bit to the two ranks' dequantized payloads'
+        (p0 + p1) / 2, the residual to x - dequantize(quantize(x)), a
+        second call carrying it; ms and GB/s per all-reduce.
+
+    The ranks' kernel launches are counted in the ranks (reset before,
+    read after each measured run) and returned. ``device="cpu",
+    smoke=True`` rehearses it on gloo at the smoke configs' size."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    from repro_torch.launch.mesh import run_local_world
+
+    _fresh_peak(device == "cuda")
+    res: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["a"] = _one_rank_group(device, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        res["b"] = _probe_gloo(device, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_local_world(_dist_rank, DIST_RANKS, workdir=tmp,
+                                payload={"device": device, "smoke": smoke}, device=device,
+                                backend="gloo", timeout_s=DIST_TIMEOUT_S)
+    c = [r["c"] for r in ranks]
+    res["c"] = {"ranks": c, "ep_vs_moe_ffn_max_abs": max(r["ep_vs_moe_ffn_max_abs"] for r in c),
+                "fault_max_abs": min(r["fault_max_abs"] for r in c),
+                "drop_share_default_cap": sum(r["drop_share_default_cap"] for r in c) / len(c)}
+    print(f"[distributed] (c) EP, {c[0]['experts_local']} experts and {c[0]['rows']} x {PROMPT} "
+          f"rows per rank, capacity {c[0]['cap_dropfree']} per (src, dst): EP layer vs moe_ffn "
+          f"max |diff| {res['c']['ep_vs_moe_ffn_max_abs']:.4g} (bound {EP_TOL} + {EP_TOL}|ref|, "
+          f"|ref| <= {max(r['ref_max_abs'] for r in c):.4g}); planted fault max |diff| "
+          f"{res['c']['fault_max_abs']:.4g}, beyond the bound by "
+          f"{min(r['fault_beyond_bound'] for r in c):.4g}; EP layer "
+          f"{[round(r['ep_layer_ms'], 2) for r in c]} ms, prefill under the mesh "
+          f"{[round(r['prefill_ms'], 2) for r in c]} ms ({[r['fused_bnn_matmul'] for r in c]} "
+          f"fused launches), logits vs single-process max |diff| "
+          f"{max(r['prefill_logits_vs_single_max_abs'] for r in c):.4g}; at capacity "
+          f"{c[0]['cap_default']} (factor 1.25) drop share "
+          f"{res['c']['drop_share_default_cap']:.4f}, EP layer "
+          f"{[round(r['ep_layer_default_cap_ms'], 2) for r in c]} ms; peak "
+          f"{[r['peak_gib_all_experts'] for r in c]} GiB with every expert, "
+          f"{[r['peak_gib'] for r in c]} GiB with 1/{len(c)}", flush=True)
+    d = [r["d"] for r in ranks]
+    if not all(r["equal"] for r in d):
+        raise AssertionError(f"(d) GPipe != the single-process run: max |diff| "
+                             f"{[r['max_abs_diff'] for r in d]}")
+    res["d"] = {"ranks": d, "equal": True}
+    print(f"[distributed] (d) GPipe {len(d)} stages {[r['layers'] for r in d]}, "
+          f"{PIPE_MICRO} microbatches of {BATCH // PIPE_MICRO} x {PROMPT}: last stage == "
+          f"single-process run bit for bit; {[round(r['pipe_ms'], 2) for r in d]} ms against "
+          f"{d[0]['sequential_ms']:.2f} ms in one process, bubble {d[0]['bubble']:.2f} "
+          f"({d[0]['ticks']} ticks); fused launches {[r['fused_bnn_matmul'] for r in d]}; peak "
+          f"{[r['peak_gib'] for r in d]} GiB", flush=True)
+    e = [r["e"] for r in ranks]
+    res["e"] = {"ranks": e}
+    print(f"[distributed] (e) compressed all-reduce of {e[0]['params']} fp32 gradients per rank "
+          f"(transport {e[0]['transport']}): mean == (p0 + p1) / 2 and residual == x - "
+          f"dequantize(quantize(x)) bit for bit, the second call's residual carried; "
+          f"{[[round(m, 1) for m in r['ms']] for r in e]} ms, "
+          f"{[[round(g, 3) for g in r['gb_s']] for r in e]} GB/s; peak "
+          f"{[r['peak_gib'] for r in e]} GiB", flush=True)
+    res["fused_bnn_matmul"] = sum(r["fused_bnn_matmul"] for r in (*c, *d))
+    res["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"distributed": res}), flush=True)
+    print(f"[distributed] phase {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def kernel_summary(checked: dict, launches: dict) -> list[dict]:
     """One entry per kernel: the sums over one tinyllama-1.1b layer's
     launches in a decode tick of 8 slots."""
@@ -3411,7 +3935,7 @@ ONLY = {  # an argument that stops after some kernels' checks and times (no resu
 ALONE = {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
          "--faults-only": "faults", "--train-only": "train",
          "--train-breadth-only": "train breadth", "--breadth-only": "breadth",
-         "--frontends-only": "frontends"}
+         "--frontends-only": "frontends", "--distributed-only": "distributed"}
 
 
 def main(argv: list[str]) -> int:
@@ -3434,7 +3958,8 @@ def main(argv: list[str]) -> int:
         phase(name)
         {"telemetry": telemetry_phase, "simulators": simulators_phase,
          "faults": faults_phase, "train": train_phase, "train breadth": train_breadth_phase,
-         "breadth": breadth_phase, "frontends": frontends_phase}[name]()
+         "breadth": breadth_phase, "frontends": frontends_phase,
+         "distributed": distributed_phase}[name]()
         print(card, flush=True)
         return 0
     phase("kernels")
@@ -3489,6 +4014,10 @@ def main(argv: list[str]) -> int:
                            ("flash_attention", "sm90")):
         launches[kname] += frontends[kname]
         BY_VARIANT[kname][variant] += frontends[kname]
+    phase("distributed")
+    distributed = distributed_phase()
+    launches["fused_bnn_matmul"] += distributed["fused_bnn_matmul"]
+    BY_VARIANT["fused_bnn_matmul"]["b1"] += distributed["fused_bnn_matmul"]
     summary = kernel_summary(checked, launches) + launch_summary(flash, mma, launches)
     print(f"[chip_smoke] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

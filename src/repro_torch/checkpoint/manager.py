@@ -14,8 +14,13 @@ restores with ``repro.checkpoint.restore_tree`` and the reverse.
   place, and a writer sharing their storage would race the next step)
   and writes to disk on a daemon thread; ``wait()`` joins it.
 * **Device-agnostic restore**: leaves come back as tensors in the
-  dtypes of a ``like`` tree, on the device asked for (in place of the
-  reference's shardings).
+  dtypes of a ``like`` tree, on the device asked for, or -- given a
+  ``DeviceMesh`` and placements, in place of the reference's shardings
+  -- as DTensors on that mesh, so a checkpoint written from one mesh
+  restores onto another (elastic scaling).
+* **Sharded saves**: a tree of DTensors is gathered whole on every rank
+  (each rank must save the same tree) and written by rank 0 alone; a
+  synchronous save then waits at a barrier for the write.
 * **Retention**: keep the newest ``keep`` snapshots.
 """
 
@@ -29,6 +34,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch import tree as tree_lib
 
@@ -43,10 +50,22 @@ class CorruptCheckpointError(RuntimeError):
 
 
 def _host(leaf) -> np.ndarray:
-    """A host copy of one leaf that shares no storage with it."""
+    """A host copy of one leaf that shares no storage with it (a DTensor
+    gathered whole: a collective over its mesh)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf, copy=True)
+
+
+def _sharded(tree: Any) -> bool:
+    return any(isinstance(leaf, DTensor) for leaf in tree_lib.leaves(tree))
+
+
+def _writes(sharded: bool) -> bool:
+    """Whether this process writes: always, but for a sharded tree rank 0 only."""
+    return not sharded or dist.get_rank() == 0
 
 
 def _flatten(tree: Any) -> dict[str, np.ndarray]:
@@ -54,10 +73,19 @@ def _flatten(tree: Any) -> dict[str, np.ndarray]:
 
 
 def save_tree(path: str, tree: Any, extra: dict | None = None) -> None:
-    """Atomic snapshot of a tree (tensor or numpy leaves) into ``path``."""
+    """Atomic snapshot of a tree (tensor, DTensor or numpy leaves) into
+    ``path``."""
+    sharded = _sharded(tree)
+    flat = {k: v if isinstance(v, np.ndarray) else _host(v) for k, v in _flatten(tree).items()}
+    if _writes(sharded):
+        _write(path, flat, extra)
+    if sharded:
+        dist.barrier()
+
+
+def _write(path: str, flat: dict[str, np.ndarray], extra: dict | None) -> None:
     tmp = f"{path}.tmp-{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
-    flat = {k: v if isinstance(v, np.ndarray) else _host(v) for k, v in _flatten(tree).items()}
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump({"keys": list(flat), "extra": extra or {}}, f)
@@ -73,10 +101,17 @@ def save_tree(path: str, tree: Any, extra: dict | None = None) -> None:
     shutil.rmtree(old, ignore_errors=True)
 
 
-def restore_tree(path: str, like: Any, device=None) -> tuple[Any, dict]:
+def restore_tree(path: str, like: Any, device=None, *, placements=None,
+                 mesh=None) -> tuple[Any, dict]:
     """Restore into the structure, shapes and dtypes of ``like`` (a tree
     of tensors; ``meta`` ones say shapes and dtypes only). Leaves land on
-    ``device``, or else on the ``like`` leaf's device."""
+    ``device``, or else on the ``like`` leaf's device -- or, given a
+    ``DeviceMesh`` ``mesh``, as DTensors on it with ``placements`` (one
+    sequence of placements for every leaf, or a tree of them shaped as
+    ``like``; ``distributed.to_placements`` makes them from specs), on
+    the mesh's device type."""
+    if mesh is not None:
+        device = torch.device(mesh.device_type)
     if not os.path.exists(os.path.join(path, _MARKER)):
         raise FileNotFoundError(f"no complete checkpoint at {path}")
     manifest_path = os.path.join(path, "manifest.json")
@@ -104,11 +139,20 @@ def restore_tree(path: str, like: Any, device=None) -> tuple[Any, dict]:
         arr = data[key]
         if tuple(arr.shape) != tuple(like_leaf.shape):
             raise ValueError(f"{key}: shape {arr.shape} != expected {tuple(like_leaf.shape)}")
-        return torch.from_numpy(arr).to(device=device or like_leaf.device, dtype=like_leaf.dtype)
+        t = torch.from_numpy(arr).to(device=device or like_leaf.device, dtype=like_leaf.dtype)
+        if mesh is None:
+            return t
+        return distribute_tensor(t, mesh, _leaf_placements(placements, path_keys))
 
     with data:
         tree = tree_lib.map_with_path(leaf, like)
     return tree, manifest["extra"]
+
+
+def _leaf_placements(placements, path: tuple[str, ...]):
+    if isinstance(placements, dict):
+        return tree_lib.get(placements, path)
+    return placements
 
 
 class CheckpointManager:
@@ -143,13 +187,17 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, extra: dict | None = None) -> None:
         self.wait()
         save_tree(self._dir(step), tree, dict(extra or {}, step=step))
-        self._gc()
+        if _writes(_sharded(tree)):
+            self._gc()
 
     def save_async(self, step: int, tree: Any, extra: dict | None = None) -> None:
         """Copy every leaf to host memory now, write to disk on a daemon
         thread."""
         self.wait()
+        sharded = _sharded(tree)
         host_tree = tree_lib.tree_map(_host, tree)
+        if not _writes(sharded):
+            return
 
         def _work():
             try:
@@ -171,12 +219,14 @@ class CheckpointManager:
             raise err
 
     # -- restore -------------------------------------------------------------
-    def restore(self, like: Any, step: int | None = None, device=None) -> tuple[Any, dict]:
+    def restore(self, like: Any, step: int | None = None, device=None, *, placements=None,
+                mesh=None) -> tuple[Any, dict]:
+        """The newest (or ``step``'s) snapshot, as :func:`restore_tree`."""
         if step is None:
             step = self.latest_step()
             if step is None:
                 raise FileNotFoundError(f"no checkpoints under {self.root}")
-        return restore_tree(self._dir(step), like, device)
+        return restore_tree(self._dir(step), like, device, placements=placements, mesh=mesh)
 
     # -- retention -----------------------------------------------------------
     def _gc(self) -> None:

@@ -493,9 +493,10 @@ class TiledEngine(_EngineBase):
     the index tensors an execute gathers with are built once per
     (m, n, device), not on every call.
 
-    ``mesh_axis`` names the mesh axis the tile axis shards over in the
-    reference; the port has no distribution yet, so it is recorded and
-    the tile stack stays on one device.
+    ``mesh_axis`` names the mesh axis the tile axis shards over: inside
+    ``distributed.activation_hints`` a DTensor tile stack and its
+    partial sums are redistributed to shard it (``distributed.hints``);
+    a plain tensor stays on its device.
 
     Construction: ``get_engine("tiled", plan=plan)`` executes per a
     compiled plan (and inherits its tile spec); without a plan, each
@@ -614,6 +615,8 @@ class TiledEngine(_EngineBase):
         return hit[1], hit[2]
 
     def _vmm_prepared(self, a_signs: torch.Tensor, pw: PreparedWeights) -> torch.Tensor:
+        from repro_torch.distributed.hints import hint
+
         _, _, _, RT, CT, R, C = pw.aux
         if (R, C) != (self.spec.rows, self.spec.cols):
             raise ValueError(
@@ -627,6 +630,7 @@ class TiledEngine(_EngineBase):
         pad_r, pad_c = RT * R - 2 * m, CT * C - n
         cells = F.pad(pw.data, (0, pad_c, 0, pad_r)) if pad_r or pad_c else pw.data
         tiles = cells.reshape(RT, R, CT, C)[row_t, :, col_t, :]  # (T, R, C)
+        tiles = hint(tiles, self.mesh_axis)  # shard the tile axis when a mesh is active
 
         # inputs: complement drive, cut into the row blocks each tile sees
         lead = a_signs.shape[:-1]
@@ -638,6 +642,7 @@ class TiledEngine(_EngineBase):
 
         # one crossbar activation per placed tile: analog MAC + that tile's ADC
         partial = adc_quantize(torch.bmm(drive_t, tiles), self.spec, active_rows=R)
+        partial = hint(partial, self.mesh_axis)
         # digital partial-sum accumulation: row-block partials of each
         # output column group add up, in whatever order the plan placed them
         summed = partial.new_zeros((CT, *partial.shape[1:])).index_add_(0, col_t, partial)

@@ -6,4 +6,10 @@ Restart safety is structural: batch(step) is a pure function of
 no data-loader state in checkpoints.
 """
 
-from repro_torch.data.synthetic import bnn_image_batch, frontend_embeds, lm_batch
+from repro_torch.data.synthetic import (
+    bnn_image_batch,
+    frontend_embeds,
+    lm_batch,
+    make_input_specs,
+    token_count,
+)

@@ -5,8 +5,8 @@ Every draw comes from a CPU ``torch.Generator`` seeded from
 ``(seed, step)`` and then moves to the device, so the CPU and the card
 see the same batch. The values follow the reference's formulas but not
 ``jax.random``'s bits (parity tests feed the reference's own batches).
-The dry-run input specs (``make_input_specs``, ``token_count``) arrive
-with the distribution slice.
+The dry-run's input specs (``make_input_specs``, ``token_count``) are
+``meta`` tensors: shapes and dtypes, no storage.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 
 
 def _generator(*entropy: int) -> torch.Generator:
@@ -71,3 +71,44 @@ def bnn_image_batch(
     templates = torch.randn((classes, *shape), generator=_generator(seed + 999))
     x = templates[labels] + 0.5 * torch.randn((n, *shape), generator=gen)
     return x.to(dev), labels.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# Dry-run input specs (meta tensors; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def make_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The inputs of one (arch x shape) cell as ``meta`` tensors, in the
+    reference's shapes and dtypes: ``{"tokens": (B, S) int32}`` (plus
+    the frontend's fp32 ``extra_embeds`` or ``src_embeds``) for train and
+    prefill; ``{"token": (B,), "pos": (), "caches": ...}`` for decode,
+    the caches those of ``lm.init_cache`` / ``encdec.init_cache`` on
+    ``meta`` (``long_500k``'s allocate nothing)."""
+    from repro_torch.models import encdec, lm
+
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": _spec((b, s), torch.int32)}
+        if cfg.frontend == "vision":
+            specs["extra_embeds"] = _spec((b, cfg.frontend_len, cfg.d_model), torch.float32)
+        elif cfg.is_encdec:
+            specs["src_embeds"] = _spec((b, cfg.frontend_len, cfg.d_model), torch.float32)
+        return specs
+    # decode: one new token against a seq_len-deep cache
+    if cfg.is_encdec:
+        caches = encdec.init_cache(cfg, b, s, src_len=cfg.frontend_len, device="meta")
+    else:
+        caches = lm.init_cache(cfg, b, s, device="meta")
+    return {"token": _spec((b,), torch.int32), "pos": _spec((), torch.int32), "caches": caches}
+
+
+def token_count(shape: ShapeConfig) -> int:
+    """Tokens processed by one step of the cell (a decode step processes B)."""
+    if shape.kind == "decode":
+        return shape.global_batch
+    return shape.global_batch * shape.seq_len

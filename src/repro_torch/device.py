@@ -17,10 +17,15 @@ class CudaUnavailableError(RuntimeError):
     """A CUDA device was wanted (the default) but none is available."""
 
 
-def resolve_device(device: str | torch.device | None = None) -> torch.device:
+def resolve_device(device: str | torch.device | None = None, *,
+                   meta: bool = False) -> torch.device:
     """``None`` means ``cuda``; a CUDA device must exist, else
-    :class:`CudaUnavailableError`. ``"cpu"`` is honoured as asked."""
+    :class:`CudaUnavailableError`. ``"cpu"`` is honoured as asked, and
+    ``"meta"`` (shapes and dtypes, no storage) where the caller allows it
+    (``meta=True``: the initializers, for the dry-run)."""
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if meta and dev.type == "meta":
+        return dev
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise CudaUnavailableError(
             f"device {str(dev)!r} requested (the default) but torch.cuda."

@@ -1,6 +1,6 @@
 """Model configuration (own copy of ``repro/models/config.py``'s
-``LayerKind`` / ``ModelConfig`` schema, so the port imports nothing of
-``repro``).
+``LayerKind`` / ``ModelConfig`` schema and its dry-run cells,
+``ShapeConfig`` / ``SHAPES``, so the port imports nothing of ``repro``).
 
 One frozen dataclass covers every family of the reference's pool: the
 decoder patterns (attention or Mamba mixers, dense or MoE FFNs), the
@@ -161,3 +161,29 @@ class ModelConfig:
         )
         return self.param_count() - n_moe_layers * (full_ffn - active_ffn)
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One benchmark cell's input geometry."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES: dict[str, ShapeConfig] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """The dry-run's skip rules; returns (runs?, reason)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "pure full-attention arch: O(s^2) attention at 524k skipped (DESIGN.md §5)"
+    return True, ""

@@ -115,10 +115,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> EncDe
     """Random parameters with the reference's shapes and distributions:
     N(0, 0.02^2) embedding, N(0, 1/d_in) projections and head, unit norm
     scales, zero biases. Drawn from ``gen`` on its device, then placed on
-    ``device`` (default ``cuda``)."""
-    dev = resolve_device(device)
+    ``device`` (default ``cuda``; ``"meta"`` draws nothing)."""
+    dev = resolve_device(device, meta=True)
 
     def normal(shape, std: float) -> torch.Tensor:
+        if dev.type == "meta":  # shapes only: nothing drawn, nothing allocated
+            return torch.empty(shape, dtype=torch.float32, device=dev)
         x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
         return (x * std).to(dev)
 

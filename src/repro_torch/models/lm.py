@@ -99,12 +99,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> LM:
     head, N(0, 1/K) conv taps, zero biases, unit norm scales and Mamba's
     ``A_log`` / ``D`` / ``dt_bias`` as the reference sets them; layer
     ``r * P + i`` takes pattern slot ``i``'s kind. Drawn from ``gen`` on
-    its device, then placed on ``device`` (default ``cuda``). The
+    its device, then placed on ``device`` (default ``cuda``; ``"meta"``
+    draws nothing and gives shapes and dtypes only). The
     parameters require no grad until a trainer asks
     (``model.requires_grad_(True)``)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
 
     def normal(shape, std: float) -> torch.Tensor:
+        if dev.type == "meta":  # shapes only: nothing drawn, nothing allocated
+            return torch.empty(shape, dtype=torch.float32, device=dev)
         x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
         return (x * std).to(dev)
 
@@ -555,9 +558,41 @@ def _ffn_residual(blk: Block, h: torch.Tensor, cfg: ModelConfig, eng):
         return h, None
     hn = rms_norm(h, blk.norm2, cfg.norm_eps)
     if isinstance(blk.ffn, moe_lib.MoE):
-        y, aux = moe_lib.moe_ffn(blk.ffn, hn, cfg)
+        y, aux = _moe(blk.ffn, hn, cfg)
         return h + y, aux
     return h + ffn(blk.ffn, hn, cfg.quant, eng), None
+
+
+def _moe(p: moe_lib.MoE, hn: torch.Tensor, cfg: ModelConfig):
+    """MoE with selectable dispatch (``cfg.moe_impl``), as the reference's
+    ``lm._moe``: with ``"ep_shard_map"`` under ``activation_hints(mesh)``
+    whose ``model`` axis divides the experts, the expert-parallel
+    dispatch (``hn`` is this rank's rows, ``p`` its experts); otherwise
+    ``moe_ffn``. The reference also asks that the global rows divide by
+    the axis: each rank holding an equal share of them, as the port's
+    ranks do, is that condition."""
+    if cfg.moe_impl == "ep_shard_map":
+        from repro_torch.distributed.ep import ep_moe_ffn
+        from repro_torch.distributed.hints import current_mesh
+        from repro_torch.distributed.partitioner import mesh_shape
+
+        mesh = current_mesh()
+        if mesh is not None:
+            sizes = mesh_shape(mesh).shape
+            if "model" in sizes and cfg.moe_experts % sizes["model"] == 0:
+                return ep_moe_ffn(p, hn, cfg, mesh)
+    return moe_lib.moe_ffn(p, hn, cfg)
+
+
+def run_blocks(blocks, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, engine=None):
+    """The prefill's layer loop over ``blocks`` (a slice of ``model.blocks``)
+    without caches: hidden (B, S, d) in, hidden out (no final norm) -- a
+    pipeline stage's forward (``distributed.pipeline.gpipe``)."""
+    eng = engine if engine is not None else infer_engine(cfg)
+    for blk in blocks:
+        mix, _ = _mix(blk, rms_norm(h, blk.norm1, cfg.norm_eps), positions, cfg, eng)
+        h, _ = _ffn_residual(blk, h + mix, cfg, eng)
+    return h
 
 
 def _stack_caches(per_slot: list[dict[str, list[torch.Tensor]]]) -> dict:

@@ -18,9 +18,9 @@ unrolled. Top-k is a stable descending sort, so ties keep the lower
 expert index first, as ``jax.lax.top_k`` does. Kept (expert, slot)
 pairs never collide, so the scatter is a plain index write.
 
-The expert-parallel ``shard_map`` dispatch of the reference needs a
-device mesh; without one the reference runs :func:`moe_ffn`, and so does
-the port.
+The expert-parallel dispatch (``distributed/ep.py``) runs instead under
+a mesh with ``moe_impl="ep_shard_map"`` (``lm``'s MoE residual), as in
+the reference.
 """
 
 from __future__ import annotations
@@ -67,11 +67,14 @@ def _sum_k(t: torch.Tensor) -> torch.Tensor:
 def route(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     """(B, S, d) -> (probs (B, S, E) fp32, gates (B, S, k) fp32, top_idx
     (B, S, k) int64)."""
-    logits = row_matmul(x.to(torch.float32), p.router)
+    return route_logits(row_matmul(x.to(torch.float32), p.router), cfg.moe_top_k)
+
+
+def route_logits(logits: torch.Tensor, k: int):
+    """:func:`route` from the router's fp32 logits (B, S, E)."""
     ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     probs = ex / row_sum(ex)
     gates, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    k = cfg.moe_top_k
     gates, top_idx = gates[..., :k], top_idx[..., :k]
     total = _sum_k(gates.unsqueeze(-1))  # (B, S, 1)
     return probs, gates / torch.clamp_min(total, 1e-9), top_idx

@@ -3,7 +3,8 @@
 The training state (stacked parameters, gradients, optimizer state)
 keeps the reference's tree layout: nested dicts, tuples and lists whose
 leaves are tensors (or numpy arrays). Dict keys are visited in sorted
-order and ``None`` is an empty subtree, as ``jax.tree_util`` does, so a
+order, ``None`` is an empty subtree and a tuple subclass (a
+``distributed.PartitionSpec``) is a leaf, as ``jax.tree_util`` does, so a
 leaf's path joined by ``/`` is the key the reference's checkpoint gives
 it (``blocks/slot0/attn/q/w``).
 """
@@ -20,7 +21,7 @@ def leaves_with_paths(tree: Any, prefix: tuple[str, ...] = ()) -> Iterator[tuple
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from leaves_with_paths(tree[k], prefix + (str(k),))
-    elif isinstance(tree, (tuple, list)):
+    elif type(tree) in (tuple, list):
         for i, x in enumerate(tree):
             yield from leaves_with_paths(x, prefix + (str(i),))
     elif tree is not None:
@@ -40,7 +41,7 @@ def map_with_path(fn: Callable[[tuple[str, ...], Any], Any], tree: Any,
     """A tree of the same structure with ``fn(path, leaf)`` at each leaf."""
     if isinstance(tree, dict):
         return {k: map_with_path(fn, v, prefix + (str(k),)) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
+    if type(tree) in (tuple, list):
         return type(tree)(map_with_path(fn, x, prefix + (str(i),)) for i, x in enumerate(tree))
     if tree is None:
         return None

@@ -327,7 +327,7 @@ def test_faults_only_runs_the_device_phase_first(capsys):
     assert cs.ALONE == {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
                         "--faults-only": "faults", "--train-only": "train",
                         "--train-breadth-only": "train breadth", "--breadth-only": "breadth",
-                        "--frontends-only": "frontends"}
+                        "--frontends-only": "frontends", "--distributed-only": "distributed"}
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
@@ -518,5 +518,45 @@ def test_train_breadth_only_runs_the_device_phase_first(capsys):
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
         cs.main(["--train-breadth-only"])
+    assert e.value.code != 0
+    assert "usage" not in capsys.readouterr().err
+
+
+def test_distributed_phase_rehearses_on_cpu(capsys, monkeypatch):
+    """The distributed phase at smoke size on gloo: (a) a one-rank group's
+    identities, (b) the probe (gloo runs every op on CPU tensors), and in
+    a two-rank world (c) EP == moe_ffn within its bound and the planted
+    fault beyond it, (d) GPipe == the single-process run bit for bit,
+    (e) the compressed all-reduce bit for bit; and the JSON line. The
+    ranks import this script by name, so it is registered as a module."""
+    import json
+
+    cs = _chip_smoke()
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the ranks share the host with other tests
+    res = cs.distributed_phase(device="cpu", smoke=True)
+    out = capsys.readouterr().out
+    assert res["a"]["backend"] == "gloo" and len(res["a"]["identities"]) == 6
+    assert set(res["b"]["transport"].values()) == {"device"}
+    assert res["c"]["ep_vs_moe_ffn_max_abs"] <= cs.EP_TOL < res["c"]["fault_max_abs"]
+    assert all(r["fault_beyond_bound"] > 0 for r in res["c"]["ranks"])
+    assert 0 <= res["c"]["drop_share_default_cap"] < 1
+    assert res["d"]["equal"] and [r["layers"] for r in res["d"]["ranks"]] == [[0, 1], [1, 2]]
+    assert res["d"]["ranks"][0]["bubble"] == 0.2
+    assert all(len(r["ms"]) == 2 for r in res["e"]["ranks"])
+    assert res["fused_bnn_matmul"] == 0  # CPU: no kernel launch
+    assert "[distributed] (d) GPipe 2 stages" in out and "bit for bit" in out
+    line = next(ln for ln in out.splitlines() if ln.startswith('{"distributed"'))
+    assert json.loads(line) == {"distributed": json.loads(json.dumps(res))}
+
+
+def test_distributed_only_runs_the_device_phase_first(capsys):
+    cs = _chip_smoke()
+    assert cs.ALONE["--distributed-only"] == "distributed"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        cs.main(["--distributed-only"])
     assert e.value.code != 0
     assert "usage" not in capsys.readouterr().err

@@ -66,7 +66,10 @@ def test_importing_the_serve_driver_loads_no_jax():
         "repro_torch.core.einsteinbarrier, repro_torch.faults, repro_torch.core.model, "
         "repro_torch.core.multilevel, repro_torch.optim, repro_torch.train, "
         "repro_torch.checkpoint, repro_torch.data, repro_torch.launch.train, "
-        "repro_torch.models.scan, repro_torch.tree; "
+        "repro_torch.models.scan, repro_torch.tree, repro_torch.distributed, "
+        "repro_torch.distributed.ep, repro_torch.distributed.pipeline, "
+        "repro_torch.distributed.compression, repro_torch.launch.mesh, "
+        "repro_torch.launch.steps, repro_torch.launch.dryrun; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -164,7 +167,11 @@ NEW_MODULES = ("fleet/pool.py", "fleet/replica.py", "fleet/router.py", "kernels/
                "data/synthetic.py", "checkpoint/__init__.py", "checkpoint/manager.py",
                "train/__init__.py", "train/loop.py", "launch/train.py", "models/moe.py",
                "models/ssm.py", "configs/qwen3_moe_235b_a22b.py", "configs/grok_1_314b.py",
-               "configs/mamba2_2_7b.py", "configs/jamba_1_5_large_398b.py")
+               "configs/mamba2_2_7b.py", "configs/jamba_1_5_large_398b.py",
+               "distributed/__init__.py", "distributed/partitioner.py", "distributed/hints.py",
+               "distributed/collectives.py", "distributed/compression.py", "distributed/ep.py",
+               "distributed/pipeline.py", "launch/mesh.py", "launch/steps.py",
+               "launch/dryrun.py")
 
 
 def test_import_scan_covers_the_new_modules():
@@ -321,3 +328,44 @@ def test_training_entry_points_default_to_cuda(tmp_path):
     assert list(tmp_path.iterdir()) == []  # nothing ran
     assert lm_batch(cfg, 1, 8, device="cpu")["tokens"].device.type == "cpu"
     assert train(cfg, loop, device="cpu", log=lambda s: None)["final_step"] == 0
+
+
+def test_distribution_entry_points_default_to_cuda(tmp_path):
+    """The distribution slice's entry points: meshes and process groups
+    default to ``cuda``, raise without a card, and never switch backend
+    in silence (NCCL refuses two ranks on one device: gloo must be
+    asked for); the CPU takes gloo only."""
+    _needs_no_cuda()
+    from repro_torch.launch import mesh
+
+    with pytest.raises(CudaUnavailableError):
+        mesh.choose_backend()
+    with pytest.raises(CudaUnavailableError):
+        mesh.make_test_mesh((2,), ("data",))
+    with pytest.raises(CudaUnavailableError):
+        mesh.init_distributed(0, 1, init_method=f"file://{tmp_path}/store")
+    with pytest.raises(CudaUnavailableError):
+        mesh.run_local_world(print, 2, workdir=tmp_path / "world")
+    assert mesh.choose_backend("cpu", 4) == "gloo"
+    with pytest.raises(ValueError, match="only gloo"):
+        mesh.choose_backend("cpu", 2, "nccl")
+    with pytest.raises(mesh.MeshSizeError, match="no process group"):
+        mesh.make_test_mesh((2,), ("data",), device="cpu")
+    assert list(tmp_path.iterdir()) == []  # nothing started
+
+
+def test_backend_choice_on_cards(monkeypatch):
+    """With CUDA present: nccl when each rank has its own device, a named
+    error when ranks outnumber the devices unless gloo is asked for."""
+    from repro_torch.launch import mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert mesh.choose_backend("cuda", 1) == "nccl"
+    with pytest.raises(mesh.SharedDeviceError, match="backend='gloo'"):
+        mesh.choose_backend("cuda", 2)
+    with pytest.raises(mesh.SharedDeviceError):
+        mesh.choose_backend("cuda", 2, "nccl")
+    assert mesh.choose_backend("cuda", 2, "gloo") == "gloo"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert mesh.choose_backend("cuda", 4) == "nccl"
