@@ -4,13 +4,15 @@
     python3 chip_smoke.py [--mma-only | --flash-only | --hamming-only | --fused-only |
                            --kernels-only | --telemetry-only | --simulators-only |
                            --faults-only | --train-only | --train-breadth-only |
-                           --breadth-only | --frontends-only | --distributed-only]
+                           --breadth-only | --frontends-only | --distributed-only |
+                           --dryrun-only]
 
 Each ``--*-only`` argument stops after those kernels' checks and timings
 (``--kernels-only``: every kernel's; ``--telemetry-only``,
 ``--simulators-only``, ``--faults-only``, ``--train-only``,
-``--train-breadth-only``, ``--breadth-only``, ``--frontends-only`` and
-``--distributed-only``: the build and that phase alone) and prints no
+``--train-breadth-only``, ``--breadth-only``, ``--frontends-only``,
+``--distributed-only`` and ``--dryrun-only``: the build and that phase
+alone) and prints no
 result line. Needs one
 CUDA card (device 0), the CUDA toolkit's ``nvcc`` and ``nvidia-smi``;
 exits non-zero without them. Phases, each announced on its own
@@ -138,7 +140,25 @@ exits non-zero without them. Phases, each announced on its own
    the int8 error-feedback all-reduce of tinyllama-1.1b's 1.1 B-entry
    gradient tree, bit for bit against the reference's arithmetic; a
    ``{"distributed": ...}`` JSON line. The ranks' fused launches ((c)
-   and (d)) join row 1.
+   and (d)) join row 1;
+15. dryrun: the dry-run's step analysis (``launch/hlo_analysis.py``,
+   ``steps.trace_cell``) against the card -- tinyllama-1.1b at full width,
+   the train phase's step (8 x 128 tokens, plain-ops attention, remat,
+   one rank, fp32 parameters): (b) its product FLOPs equal
+   ``torch.profiler(with_flops=True)``'s over mm / addmm / bmm / baddbmm
+   for one real step on the card; (c) its predicted peak is within
+   ``DRYRUN_PEAK_TOL`` of ``torch.cuda.max_memory_allocated()`` over that
+   step; (d) its three roofline seconds printed beside the measured
+   median step and device-busy ms; (e) the EP layer at
+   qwen3-moe-235b-a22b's full width on two ranks: the traced all-to-all
+   bytes per rank equal what a real gloo run moved; (f) the production
+   cell tinyllama-1.1b ``train_4k`` on (16, 16) traced on the card's host,
+   its record and ``trace_s`` printed (a failed trace is printed as the
+   reference's ``status: "error"`` record, then fails the phase); (a) the
+   same cell traced meanwhile in a child process that sees no card
+   (``CUDA_VISIBLE_DEVICES=''``) gives (f)'s record field for field: the
+   record does not depend on the tracing host; a ``{"dryrun": ...}``
+   JSON line. No kernel runs in it.
 
 Then the whole run's seconds, one ``{"kernels": [...]}`` JSON line, the
 card line again, and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -3853,6 +3873,286 @@ def distributed_phase(device: str = "cuda", smoke: bool = False) -> dict:
     return res
 
 
+DRYRUN_ARCH = "tinyllama-1.1b"
+DRYRUN_PEAK_TOL = 0.10  # predicted vs measured peak memory of one training step
+PROFILED_PRODUCTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+DRYRUN_CELL, DRYRUN_MESH = "train_4k", (16, 16)  # (f)'s production cell
+DRYRUN_CHILD_TIMEOUT_S = 300
+# (a): (f)'s record from a process with no card (run with CUDA_VISIBLE_DEVICES='')
+DRYRUN_CHILD = ("import json, sys; sys.path[:0] = [{src!r}, {root!r}]; import chip_smoke; "
+                "rec, s = chip_smoke._production_record({smoke!r}); "
+                "print(json.dumps({{'record': rec, 'trace_s': s}}))")
+
+
+def _ep_bytes_rank(rank: int, world: int, payload: dict) -> dict:
+    """(e) on one rank: qwen3-moe's MoE layer at full width with this
+    rank's experts (seeded random weights), its rows through the EP
+    layer once; returns the bytes it handed to the all-to-alls."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed import ep
+    from repro_torch.launch.mesh import make_test_mesh
+
+    device = payload["device"]
+    cfg = get_smoke_config(EP_ARCH) if payload["smoke"] else get_config(EP_ARCH)
+    mesh = make_test_mesh((world,), ("model",), device=device, backend="gloo")
+    layer, x = _ep_inputs(cfg, world, payload["rows"], device, rank)
+    moved = {"bytes": 0, "calls": 0}
+    real = (ep.all_to_all, ep.all_to_all0)
+
+    def counted(fn):
+        def call(t, axis=None):
+            moved["bytes"] += t.numel() * t.element_size()
+            moved["calls"] += 1
+            return fn(t, axis)
+        return call
+
+    ep.all_to_all, ep.all_to_all0 = (counted(f) for f in real)
+    try:
+        with torch.no_grad():
+            y = ep.ep_moe_ffn(layer, x, cfg, mesh)[0]
+    finally:
+        ep.all_to_all, ep.all_to_all0 = real
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"(e) rank {rank}: non-finite EP output")
+    return moved
+
+
+def _ep_inputs(cfg, world: int, rows: int, device, rank: int = 0):
+    """This rank's MoE layer (its E / world experts, the whole router)
+    and its (rows, PROMPT, d) bf16 input, seeded; ``meta`` shapes only
+    for ``device="meta"``."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+
+    e, d, f = cfg.moe_experts // world, cfg.d_model, cfg.d_ff
+    meta = device == "meta"
+    gen = None if meta else torch.Generator(device=device).manual_seed(SEED + rank)
+
+    def draw(*shape, dtype=torch.float32, scale=1.0):
+        if meta:
+            return torch.empty(shape, dtype=dtype, device="meta")
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    layer = moe_lib.MoE(draw(d, cfg.moe_experts, scale=d ** -0.5), draw(e, d, f, scale=d ** -0.5),
+                        draw(e, d, f, scale=d ** -0.5), draw(e, f, d, scale=f ** -0.5))
+    return layer, draw(rows, PROMPT, d, dtype=torch.bfloat16)
+
+
+def dryrun_phase(device: str = "cuda", smoke: bool = False) -> dict:
+    """(a)-(f) of the dry-run's step analysis (see the module docstring).
+    ``device="cpu", smoke=True`` rehearses it at the smoke config's size
+    ((c) needs the card's allocator and is left out there)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed.partitioner import MeshShape
+    from repro_torch.models.config import ShapeConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_smoke_config(DRYRUN_ARCH) if smoke else get_config(DRYRUN_ARCH)
+    shape = ShapeConfig("train_8x128", PROMPT, BATCH, "train")
+    one = MeshShape(("data", "model"), (1, 1))
+    res: dict = {"arch": cfg.name, "tokens": BATCH * PROMPT}
+
+    # (a) starts here: (f)'s cell traced in a process that sees no card,
+    # alongside (b)-(f); compared with (f) at the end
+    child = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD.format(src=str(ROOT / "src"), root=str(ROOT),
+                                                   smoke=smoke)],
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        res.update(_dryrun_checks(cfg, shape, one, device, smoke))
+        out, err = child.communicate(timeout=DRYRUN_CHILD_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"(a) the trace without a card failed (rc {child.returncode}): "
+                             f"{err[-2000:]}")
+    other = json.loads(out.strip().splitlines()[-1])
+    f_rec = {k: v for k, v in res["f"].items() if k in other["record"]}
+    equal = json.loads(json.dumps(f_rec)) == other["record"]
+    res["a"] = {"equal": equal, "trace_s": {"with card" if device == "cuda" else "this process":
+                                            res["f"]["trace_s"], "no card": other["trace_s"]}}
+    print(f"[dryrun] (a) {cfg.name} {res['f']['shape']} on {tuple(res['f']['mesh'])}: the record "
+          f"traced in this process {'==' if equal else '!='} the one traced in a process that "
+          f"sees no card (CUDA_VISIBLE_DEVICES=''), field for field ({len(f_rec)} keys; traced in "
+          f"{res['f']['trace_s']:.2f} s here, {other['trace_s']:.2f} s there)", flush=True)
+    if not equal:
+        diff = [k for k in f_rec if json.loads(json.dumps(f_rec[k])) != other["record"].get(k)]
+        raise AssertionError(f"(a) the record depends on the tracing host: {diff}")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"dryrun": res}, default=str), flush=True)
+    print(f"[dryrun] phase {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def _dryrun_checks(cfg, shape, one, device: str, smoke: bool) -> dict:
+    """(b)-(f) of :func:`dryrun_phase`; returns their entries."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import lm_batch
+    from repro_torch.device import synchronize
+    from repro_torch.distributed import ep
+    from repro_torch.distributed.partitioner import MeshShape
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import run_local_world
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import TrainLoopConfig, make_train_step
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    res = {}
+    rec = H.analyze_trace(steps.trace_cell(cfg, shape, one, compute_dtype=False), 1)
+
+    # (b)-(d): the same step for real
+    opt_cfg = steps.default_opt_cfg(cfg)
+    step_fn = make_train_step(cfg, opt_cfg, TrainLoopConfig(total_steps=10_000, warmup_steps=100))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model = lm.init_params(gen, cfg, device=device).requires_grad_(True)
+    opt_state = adamw_init(lm.param_tree(model), opt_cfg)
+    batch = lm_batch(cfg, BATCH, PROMPT, seed=SEED, step=0, device=dev)
+    step_fn(model, opt_state, batch, 0)  # warm-up: the library handles, the allocator
+    synchronize(dev)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    step_fn(model, opt_state, batch, 1)
+    synchronize(dev)
+    if on_card:
+        measured = torch.cuda.max_memory_allocated()
+        predicted = rec["memory"]["peak_per_device_bytes"]
+        rel = abs(predicted - measured) / measured
+        res["c"] = {"predicted_peak": predicted, "measured_peak": measured, "rel": rel,
+                    "argument_bytes": rec["memory"]["argument_bytes"], "allocated_before": base}
+        print(f"[dryrun] (c) peak memory of one step: predicted {predicted / 2**30:.3f} GiB "
+              f"(arguments {rec['memory']['argument_bytes'] / 2**30:.3f}), measured "
+              f"{measured / 2**30:.3f} GiB (allocated before the step {base / 2**30:.3f}); "
+              f"|diff| {rel:.2%} (bound {DRYRUN_PEAK_TOL:.0%})", flush=True)
+        if rel > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"(c) predicted peak {predicted} vs measured {measured}: "
+                                 f"{rel:.2%} > {DRYRUN_PEAK_TOL:.0%}")
+    # under torch.profiler a checkpoint's recomputation does not stop
+    # early (it recomputes the layer's last product too), so the step is
+    # traced and profiled with early stopping off alike
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with set_checkpoint_early_stop(False):
+        rec_b = H.analyze_trace(steps.trace_cell(cfg, shape, one, compute_dtype=False), 1)
+        with torch.profiler.profile(activities=acts, with_flops=True) as prof:
+            step_fn(model, opt_state, batch, 2)
+            synchronize(dev)
+    events = prof.key_averages()
+    profiled = sum(e.flops for e in events if e.key in PROFILED_PRODUCTS)
+    traced = rec_b["flops_per_dev"] + rec_b["row_pad_flops_per_dev"]
+    res["b"] = {"traced_flops": rec_b["flops_per_dev"], "traced_row_pad_flops":
+                rec_b["row_pad_flops_per_dev"], "profiled_flops": profiled,
+                "traced_flops_early_stop": rec["flops_per_dev"]}
+    print(f"[dryrun] (b) product FLOPs of one step, recomputation not stopped early: traced "
+          f"{traced:.6e} (of them {rec_b['row_pad_flops_per_dev']:.6e} 16-row padding), "
+          f"torch.profiler over {'/'.join(k.split('::')[1] for k in PROFILED_PRODUCTS)} "
+          f"{profiled:.6e}; with early stopping (the record) {rec['flops_per_dev']:.6e}",
+          flush=True)
+    if traced != profiled:
+        raise AssertionError(f"(b) traced product FLOPs {traced} != profiled {profiled}")
+    busy_ms = (sum(e.self_device_time_total for e in events) / 1e3 if on_card else None)
+    times = []
+    for i in range(3):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        step_fn(model, opt_state, batch, 3 + i)
+        synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    r = rec["roofline"]
+    res["d"] = {"roofline": r, "step_ms_median": statistics.median(times),
+                "device_busy_ms": busy_ms, "bytes_per_dev": rec["bytes_per_dev"],
+                "bytes_raw_per_dev": rec["bytes_raw_per_dev"]}
+    print(f"[dryrun] (d) roofline (H100 constants) compute {r['compute_s'] * 1e3:.2f} ms, "
+          f"memory {r['memory_s'] * 1e3:.2f} ms, collective {r['collective_s'] * 1e3:.2f} ms "
+          f"-> {r['dominant']}; measured median step {res['d']['step_ms_median']:.1f} ms, device "
+          f"busy {busy_ms if busy_ms is None else round(busy_ms, 1)} ms (profiled step)",
+          flush=True)
+    del model, opt_state, batch, prof, events
+    _fresh_peak(on_card)
+
+    # (e) the EP layer's all-to-all bytes, traced against a real gloo world
+    ep_cfg = dataclasses.replace(get_smoke_config(EP_ARCH) if smoke else get_config(EP_ARCH),
+                                 n_layers=1, moe_impl="ep_shard_map")
+    rows = BATCH // DIST_RANKS
+    with steps.fake_world(MeshShape(("model",), (DIST_RANKS,))) as mesh:
+        layer, x = _ep_inputs(ep_cfg, DIST_RANKS, rows, "meta")
+        an = H.StepAnalysis()
+        with H.analysing(an):
+            ep.ep_moe_ffn(layer, x, ep_cfg, mesh)
+        a2a = an.finish().coll["all-to-all"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_local_world(_ep_bytes_rank, DIST_RANKS, workdir=tmp,
+                                payload={"device": device, "smoke": smoke, "rows": rows},
+                                device=device, backend="gloo", timeout_s=DIST_TIMEOUT_S)
+    res["e"] = {"traced_bytes": a2a["operand_bytes"], "traced_calls": a2a["count"],
+                "moved_bytes": [r["bytes"] for r in ranks], "calls": [r["calls"] for r in ranks]}
+    print(f"[dryrun] (e) EP layer, {ep_cfg.name} full width, {DIST_RANKS} ranks, {rows} x "
+          f"{PROMPT} rows each: traced all-to-all {a2a['operand_bytes']} B in {a2a['count']} "
+          f"calls per rank, the gloo run moved {res['e']['moved_bytes']} B in "
+          f"{res['e']['calls']} calls", flush=True)
+    if any(b != a2a["operand_bytes"] for b in res["e"]["moved_bytes"]):
+        raise AssertionError(f"(e) traced all-to-all bytes {a2a['operand_bytes']} != moved "
+                             f"{res['e']['moved_bytes']}")
+
+    res["f"] = _dryrun_cell(cfg.name, smoke)
+    return res
+
+
+def _dryrun_cell(arch: str, smoke: bool) -> dict:
+    """(f): one production cell, whole, traced on the card's host; its
+    record printed, a failed trace as the reference's ``status: "error"``
+    record, which then fails the phase."""
+    t0 = time.perf_counter()
+    try:
+        cell, _ = _production_record(smoke)
+        cell["status"] = "ok"
+    except Exception as e:
+        cell = {"status": "error", "error": f"{type(e).__name__}: {e}"[:500]}
+    cell["trace_s"] = time.perf_counter() - t0
+    rec = {"arch": arch, "shape": DRYRUN_CELL, "mesh": list(DRYRUN_MESH), **cell}
+    print(f"[dryrun] (f) {arch} {DRYRUN_CELL} on {DRYRUN_MESH}: "
+          f"{json.dumps(rec, sort_keys=True)}", flush=True)
+    if cell["status"] != "ok":
+        raise AssertionError(f"(f) the production cell's trace failed: {cell['error']}")
+    return rec
+
+
+def _production_record(smoke: bool) -> tuple[dict, float]:
+    """(f)'s cell traced on this host: ``analyze_trace``'s record and the
+    seconds the trace took. (a) runs it again in a process that sees no
+    card (``DRYRUN_CHILD``)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import production_mesh_shape
+    from repro_torch.models.config import SHAPES as CELL_SHAPES
+
+    cfg = get_smoke_config(DRYRUN_ARCH) if smoke else get_config(DRYRUN_ARCH)
+    mesh = production_mesh_shape(multi_pod=False)
+    if tuple(mesh.sizes) != DRYRUN_MESH:
+        raise AssertionError(f"the production mesh is {mesh.sizes}, expected {DRYRUN_MESH}")
+    t0 = time.perf_counter()
+    rec = H.analyze_trace(steps.trace_cell(cfg, CELL_SHAPES[DRYRUN_CELL], mesh), mesh.size)
+    return rec, time.perf_counter() - t0
+
+
 def kernel_summary(checked: dict, launches: dict) -> list[dict]:
     """One entry per kernel: the sums over one tinyllama-1.1b layer's
     launches in a decode tick of 8 slots."""
@@ -3935,7 +4235,8 @@ ONLY = {  # an argument that stops after some kernels' checks and times (no resu
 ALONE = {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
          "--faults-only": "faults", "--train-only": "train",
          "--train-breadth-only": "train breadth", "--breadth-only": "breadth",
-         "--frontends-only": "frontends", "--distributed-only": "distributed"}
+         "--frontends-only": "frontends", "--distributed-only": "distributed",
+         "--dryrun-only": "dryrun"}
 
 
 def main(argv: list[str]) -> int:
@@ -3959,7 +4260,7 @@ def main(argv: list[str]) -> int:
         {"telemetry": telemetry_phase, "simulators": simulators_phase,
          "faults": faults_phase, "train": train_phase, "train breadth": train_breadth_phase,
          "breadth": breadth_phase, "frontends": frontends_phase,
-         "distributed": distributed_phase}[name]()
+         "distributed": distributed_phase, "dryrun": dryrun_phase}[name]()
         print(card, flush=True)
         return 0
     phase("kernels")
@@ -4018,6 +4319,8 @@ def main(argv: list[str]) -> int:
     distributed = distributed_phase()
     launches["fused_bnn_matmul"] += distributed["fused_bnn_matmul"]
     BY_VARIANT["fused_bnn_matmul"]["b1"] += distributed["fused_bnn_matmul"]
+    phase("dryrun")
+    dryrun_phase()
     summary = kernel_summary(checked, launches) + launch_summary(flash, mma, launches)
     print(f"[chip_smoke] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

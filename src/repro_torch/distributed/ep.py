@@ -44,6 +44,7 @@ from repro_torch.distributed.collectives import (
     axis_size,
     group_of,
 )
+from repro_torch.kernels import trips
 from repro_torch.kernels.flash_attention import rowblock_matmul
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
@@ -103,13 +104,17 @@ def _local_dispatch(x2d: torch.Tensor, logits: torch.Tensor, n_ranks: int, e_loc
     slot = ((onehot.cumsum(dim=0) - onehot) * onehot).sum(dim=-1)  # position within dest
     keep = slot < cap
     tok = torch.arange(t, device=x2d.device).repeat_interleave(k)
-    kd, ks = dest[keep], slot[keep]
-    send = x2d.new_zeros((n_ranks, cap, d)).index_put((kd, ks), x2d[tok[keep]])
-    send_eid = torch.full((n_ranks, cap), -1, dtype=torch.int64, device=x2d.device)
-    send_eid[kd, ks] = (flat_e % e_local)[keep]
-    send_tok = torch.full((n_ranks, cap), -1, dtype=torch.int64, device=x2d.device)
-    send_tok[kd, ks] = tok[keep]
-    return send, send_eid, send_tok, gates, top_idx, dest, slot, keep
+    # one flat row per (rank, slot), the dropped assignments all to a spare
+    # last row that is cut off: no shape depends on the routing (no host
+    # sync), and a step analysis traces this same path
+    rows = n_ranks * cap
+    at = (torch.where(keep, dest * cap + slot, rows),)
+    send = x2d.new_zeros((rows + 1, d)).index_put(at, x2d[tok])[:rows].view(n_ranks, cap, d)
+    full = dict(dtype=torch.int64, device=x2d.device)
+    send_eid = torch.full((rows + 1,), -1, **full).index_put(at, flat_e % e_local)
+    send_tok = torch.full((rows + 1,), -1, **full).index_put(at, tok)
+    return (send, send_eid[:rows].view(n_ranks, cap), send_tok[:rows].view(n_ranks, cap),
+            gates, top_idx, dest, slot, keep)
 
 
 def _expert_ffn(recv: torch.Tensor, recv_eid: torch.Tensor, w1: torch.Tensor,
@@ -123,7 +128,10 @@ def _expert_ffn(recv: torch.Tensor, recv_eid: torch.Tensor, w1: torch.Tensor,
     e_local = w1.shape[0]
     key = torch.where(recv_eid >= 0, recv_eid, e_local)
     order = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=e_local + 1).tolist()
+    if trips.ACTIVE is not None:  # a trace holds no values: the rows split evenly
+        counts = [n // e_local + (e < n % e_local) for e in range(e_local)]
+    else:
+        counts = torch.bincount(key, minlength=e_local + 1).tolist()
     rows = recv[order]
     outs, start = [], 0
     for e in range(e_local):

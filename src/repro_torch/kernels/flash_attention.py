@@ -51,9 +51,8 @@ import ctypes
 import math
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, trips
 
 # launches of the CUDA kernel since the last reset (the plain version
 # does not count), in all and per variant
@@ -83,15 +82,8 @@ def rowblock_matmul(a: torch.Tensor, b: torch.Tensor, first_row: int) -> torch.T
     continuation's rows equal the full pass's, a lane's equal its solo
     run's.
     """
-    m = a.shape[-2]
-    front = first_row % ROW_BLOCK
-    back = (-(front + m)) % ROW_BLOCK
-    a = F.pad(a, (0, 0, front, back))
-    out = torch.cat([
-        torch.matmul(a[..., i : i + ROW_BLOCK, :].contiguous(), b)
-        for i in range(0, a.shape[-2], ROW_BLOCK)
-    ], dim=-2)
-    return out[..., front : front + m, :]
+    return trips.row_blocks(lambda a, b: torch.matmul(a.contiguous(), b), (a,), (b,),
+                            dim=-2, front=first_row % ROW_BLOCK)
 
 
 def split_bf16x3(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

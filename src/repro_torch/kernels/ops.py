@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import bitlinear as _bitlinear_kernel
+from repro_torch.kernels import trips
 from repro_torch.kernels import fused_decode as _fused_kernel
 from repro_torch.kernels import wdm_mmm as _wdm_kernel
 from repro_torch.kernels import xnor_matmul as _xnor_kernel
@@ -37,6 +38,8 @@ MEAN_ROWS = 16
 
 
 def _row_reduce(x: torch.Tensor, reduce) -> torch.Tensor:
+    if trips.ACTIVE is not None and trips.is_sharded(x):  # a step analysis: no flattening
+        return reduce(x).unsqueeze(-1)                      # of a sharded dim
     x2 = x.reshape(-1, x.shape[-1])
     rows = x2.shape[0]
     if rows < MEAN_ROWS:

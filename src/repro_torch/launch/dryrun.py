@@ -1,23 +1,29 @@
-"""Multi-pod dry-run at the spec level (counterpart of
-``repro/launch/dryrun.py``).
+"""Multi-pod dry-run (counterpart of ``repro/launch/dryrun.py``).
 
 For every (architecture x input shape) cell on the production meshes
 ((16, 16) and (2, 16, 16): 256 and 512 ranks) it builds the cell
-(``launch/steps.py``: ``meta`` tensors, no process group, no
-allocation), applies the skip rules, checks that every spec divides its
-leaf (``validate_specs``), and records the bytes each rank holds of the
-step's arguments and outputs under the specs -- parameters, optimizer
-state, batch and caches -- with the cell's analytic model FLOPs and
-token count. The memory figure is named ``spec_bytes_per_device``: it
-counts those tensors only (no activations, no workspace), so it is not
-the reference's compiled ``peak_per_device_bytes``; torch has no
-counterpart of the reference's lowering, compile and HLO analysis.
+(``launch/steps.py``), applies the skip rules, checks that every spec
+divides its leaf (``validate_specs``), and traces one rank of the cell's
+step on a fake world of the mesh's ranks (``steps.trace_cell``: DTensors
+of ``meta`` shards, nothing allocated), the counterpart of the
+reference's lower + compile. ``launch/hlo_analysis.py`` turns the trace
+into the reference's record: per-device FLOPs, HBM bytes (fusion-aware
+and raw), collectives per kind, memory (arguments, outputs, temporaries,
+peak) and the three-term roofline on H100 constants, plus
+``useful_flop_ratio`` (analytic model FLOPs over traced FLOPs). The
+record also keeps ``spec_bytes_per_device`` -- the bytes each rank holds
+of the step's arguments and outputs under the specs -- and ``trace_s``
+where the reference has ``lower_s`` / ``compile_s``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun                  # all cells, both meshes
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --multi-pod      # (2,16,16) mesh only
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --out runs/dryrun_torch
+
+The fake world's mesh is a CUDA one on any host, a CPU-only torch
+included (``steps.fake_world``): its shards are ``meta``, so nothing
+runs on a device, and DTensor plans the collectives as it would over
+NCCL. The record does not depend on the host.
 
 Each cell's record is cached as JSON under ``--out``; reruns skip
 completed cells (delete the file to force).
@@ -37,7 +43,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import token_count
 from repro_torch.distributed.partitioner import shard_factor, validate_specs
 from repro_torch.launch.mesh import production_mesh_shape
-from repro_torch.launch.steps import build_cell
+from repro_torch.launch import hlo_analysis
+from repro_torch.launch.steps import build_cell, trace_cell
 from repro_torch.models.config import SHAPES, shape_applicable
 
 
@@ -57,7 +64,9 @@ def spec_bytes(tree: Any, specs: Any, mesh) -> int:
     return total
 
 
-def run_cell(arch: str, shape_name: str, *, multi_pod: bool, quant: str = "none") -> dict:
+def cell_specs(arch: str, shape_name: str, *, multi_pod: bool, quant: str = "none") -> dict:
+    """One cell's spec-level record: the skip rules, spec violations,
+    ``spec_bytes_per_device``, analytic model FLOPs (no trace)."""
     cfg = get_config(arch, quant=quant)
     shape = SHAPES[shape_name]
     runs, why = shape_applicable(cfg, shape)
@@ -86,6 +95,22 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, quant: str = "none"
         "model_flops": mf, "model_flops_per_device": mf / mesh.size,
         "tokens": token_count(shape), "build_s": round(t1 - t0, 3),
     }
+
+
+def run_cell(arch: str, shape_name: str, *, multi_pod: bool, quant: str = "none") -> dict:
+    """One cell's record: :func:`cell_specs` and the traced step's
+    analysis (``analyze_trace``'s keys, ``useful_flop_ratio``,
+    ``trace_s``)."""
+    rec = cell_specs(arch, shape_name, multi_pod=multi_pod, quant=quant)
+    if rec["status"] == "skipped":
+        return rec
+    mesh = production_mesh_shape(multi_pod=multi_pod)
+    t0 = time.perf_counter()
+    trace = trace_cell(get_config(arch, quant=quant), SHAPES[shape_name], mesh)
+    rec.update(hlo_analysis.analyze_trace(trace, mesh.size),
+               trace_s=round(time.perf_counter() - t0, 2))
+    rec["useful_flop_ratio"] = rec["model_flops"] / rec["flops"] if rec["flops"] else None
+    return rec
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -133,10 +158,13 @@ def main(argv: list[str] | None = None) -> int:
                 elif rec["status"] == "skipped":
                     print(f"[dryrun] {tag}: skipped ({rec['reason']})", flush=True)
                 else:
-                    b = rec["spec_bytes_per_device"]
-                    print(f"[dryrun] {tag}: ok  spec_bytes/dev={b['total'] / 2**30:.2f}GiB "
-                          f"(params {b['params'] / 2**30:.2f}) model_flops/dev="
-                          f"{rec['model_flops_per_device']:.3e} fsdp={rec['fsdp']}", flush=True)
+                    r = rec["roofline"]
+                    mem = rec["memory"]["peak_per_device_bytes"] / 2**30
+                    print(f"[dryrun] {tag}: ok  flops={rec['flops']:.3e} mem/dev={mem:.2f}GiB "
+                          f"coll={rec['collectives']['operand_bytes']:.3e}B "
+                          f"dominant={r['dominant']} (c={r['compute_s']:.2e}s "
+                          f"m={r['memory_s']:.2e}s x={r['collective_s']:.2e}s) "
+                          f"trace={rec['trace_s']}s", flush=True)
                 with open(path, "w") as f:
                     json.dump(rec, f, indent=1)
                 if failures and args.fail_fast:

@@ -54,10 +54,14 @@ from repro_torch.models.layers import (
     cross_attention_block,
     decode_attention,
     dense,
+    embed_rows,
     ffn,
     frozen_parameter,
+    hinted,
     infer_engine,
+    merge_heads,
     rms_norm,
+    split_heads,
 )
 from repro_torch.models.lm import _logits, _proj_leaves, lm_loss, update_stacked_
 from repro_torch.models.scan import remat_scan
@@ -257,9 +261,9 @@ def _encoder_layer(blk: EncoderLayer, h, positions, cfg: ModelConfig, eng):
     hn = rms_norm(h, blk.norm1, cfg.norm_eps)
     mix, _ = attention_block(blk.attn, hn, positions, cfg, causal=False, quant=cfg.quant,
                              engine=eng)
-    h = h + mix
+    h = hinted(h + mix, "dp", None, None)  # (the residual sums: see lm._ffn_residual)
     hn = rms_norm(h, blk.norm2, cfg.norm_eps)
-    return h + ffn(blk.ffn, hn, cfg.quant, eng)
+    return hinted(h + ffn(blk.ffn, hn, cfg.quant, eng), "dp", None, None)
 
 
 def encode(model: EncDec, src_embeds: torch.Tensor, cfg: ModelConfig, engine=None) -> torch.Tensor:
@@ -283,8 +287,8 @@ def _cross_kv(blk: DecoderLayer, enc_out: torch.Tensor, cfg: ModelConfig, eng):
     """One decoder layer's cross-attention K/V (B, Ss, KV, D) over the
     encoder output (no RoPE)."""
     b, ss, _ = enc_out.shape
-    k = dense(blk.cross_attn.k, enc_out, cfg.quant, eng).reshape(b, ss, cfg.n_kv_heads, cfg.hd)
-    v = dense(blk.cross_attn.v, enc_out, cfg.quant, eng).reshape(b, ss, cfg.n_kv_heads, cfg.hd)
+    k = split_heads(dense(blk.cross_attn.k, enc_out, cfg.quant, eng), b, ss, cfg.n_kv_heads, cfg.hd)
+    v = split_heads(dense(blk.cross_attn.v, enc_out, cfg.quant, eng), b, ss, cfg.n_kv_heads, cfg.hd)
     return k, v
 
 
@@ -295,7 +299,7 @@ def decoder(model: EncDec, enc_out: torch.Tensor, tgt_tokens: torch.Tensor,
     runs the plain path (no engine), as in the reference; each layer is
     checkpointed under ``cfg.remat``."""
     tgt_tokens = tgt_tokens.to(device=model.embed.device, dtype=torch.int64)
-    h = model.embed[tgt_tokens].to(ACT_DTYPE)
+    h = embed_rows(model.embed, tgt_tokens).to(ACT_DTYPE)
     positions = torch.arange(tgt_tokens.shape[1], device=h.device)
     h = _layers(lambda h, blk: _decoder_layer(blk, h, enc_out, positions, cfg, None)[0], h,
                 model.dec_blocks, cfg)
@@ -307,12 +311,13 @@ def _decoder_layer(blk: DecoderLayer, h, enc_out, positions, cfg: ModelConfig, e
     and this layer's caches (bf16)."""
     hn = rms_norm(h, blk.norm1, cfg.norm_eps)
     mix, (k, v) = attention_block(blk.self_attn, hn, positions, cfg, quant=cfg.quant, engine=eng)
-    h = h + mix
+    h = hinted(h + mix, "dp", None, None)
     hn = rms_norm(h, blk.norm_x, cfg.norm_eps)
     ck, cv = _cross_kv(blk, enc_out, cfg, eng)
-    h = h + cross_attention_block(blk.cross_attn, hn, (ck, cv), positions, cfg, cfg.quant, eng)
+    h = hinted(h + cross_attention_block(blk.cross_attn, hn, (ck, cv), positions, cfg, cfg.quant,
+                                         eng), "dp", None, None)
     hn = rms_norm(h, blk.norm2, cfg.norm_eps)
-    h = h + ffn(blk.ffn, hn, cfg.quant, eng)
+    h = hinted(h + ffn(blk.ffn, hn, cfg.quant, eng), "dp", None, None)
     return h, (k, v, ck, cv)
 
 
@@ -339,7 +344,7 @@ def prefill(model: EncDec, src_embeds: torch.Tensor, tgt_tokens: torch.Tensor,
     eng = _engine(cfg, engine)
     enc_out = encode(model, src_embeds, cfg, eng)
     tgt_tokens = tgt_tokens.to(device=model.embed.device, dtype=torch.int64)
-    h = model.embed[tgt_tokens].to(ACT_DTYPE)
+    h = embed_rows(model.embed, tgt_tokens).to(ACT_DTYPE)
     positions = torch.arange(tgt_tokens.shape[1], device=h.device)
     per_key: dict[str, list[torch.Tensor]] = {key: [] for key in (*SELF_KEYS, *CROSS_KEYS)}
     for blk in model.dec_blocks:
@@ -381,19 +386,19 @@ def decode_step(model: EncDec, token: torch.Tensor, pos, caches: dict, cfg: Mode
     ``layers.decode_attention``."""
     token = token.to(device=model.embed.device, dtype=torch.int64)
     b = token.shape[0]
-    h = model.embed[token[:, None]].to(ACT_DTYPE)  # (B, 1, d)
+    h = embed_rows(model.embed, token[:, None]).to(ACT_DTYPE)  # (B, 1, d)
     eng = _engine(cfg, engine)
     src_len = torch.full((b,), caches["cross_k"].shape[2], dtype=torch.int64, device=h.device)
     for layer, blk in enumerate(model.dec_blocks):
         hn = rms_norm(h, blk.norm1, cfg.norm_eps)
         mix, _, _ = attention_decode_step(blk.self_attn, hn, pos, caches["self_k"][layer],
                                           caches["self_v"][layer], cfg, cfg.quant, eng)
-        h = h + mix
+        h = hinted(h + mix, "dp", None, None)
         hn = rms_norm(h, blk.norm_x, cfg.norm_eps)
-        q = dense(blk.cross_attn.q, hn, cfg.quant, eng).reshape(b, 1, cfg.n_heads, cfg.hd)
+        q = split_heads(dense(blk.cross_attn.q, hn, cfg.quant, eng), b, 1, cfg.n_heads, cfg.hd)
         cross = decode_attention(q, caches["cross_k"][layer], caches["cross_v"][layer], src_len)
-        h = h + dense(blk.cross_attn.o, cross.reshape(b, 1, cfg.n_heads * cfg.hd), cfg.quant,
-                      eng)
+        h = hinted(h + dense(blk.cross_attn.o, merge_heads(cross, b, 1, cfg.n_heads * cfg.hd),
+                             cfg.quant, eng), "dp", None, None)
         hn = rms_norm(h, blk.norm2, cfg.norm_eps)
-        h = h + ffn(blk.ffn, hn, cfg.quant, eng)
+        h = hinted(h + ffn(blk.ffn, hn, cfg.quant, eng), "dp", None, None)
     return _logits(model, h, cfg), caches

@@ -22,6 +22,7 @@ from torch import nn
 from repro_torch.core import bnn
 from repro_torch.core.engine import PreparedWeights
 from repro_torch.kernels.flash_attention import ROW_BLOCK, flash_attention, rowblock_matmul
+from repro_torch.kernels import trips
 from repro_torch.kernels.ops import row_mean
 from repro_torch.models.config import ModelConfig
 
@@ -107,6 +108,71 @@ class FFN(nn.Module):
     def __init__(self, w1: BitLinear, w3: BitLinear, w2: BitLinear):
         super().__init__()
         self.w1, self.w3, self.w2 = w1, w3, w2
+
+
+# ---------------------------------------------------------------------------
+# Placement on a sharded mesh (DTensors; identity for plain tensors)
+# ---------------------------------------------------------------------------
+
+_PLAIN = (torch.Tensor, nn.Parameter)
+
+
+def gathered(w: torch.Tensor, axis: str = "dp") -> torch.Tensor:
+    """A weight as a product uses it (``distributed.hints.weight``: a
+    DTensor gathered over the axes ``axis`` resolves to). One type check
+    for a plain tensor, which is returned as is."""
+    if type(w) in _PLAIN:
+        return w
+    from repro_torch.distributed.hints import weight
+
+    return weight(w, axis)
+
+
+def hinted(x: torch.Tensor, *axes, force: bool = False) -> torch.Tensor:
+    """``distributed.hints.hint(x, *axes)`` for a DTensor; a plain tensor
+    (one type check) is returned as is."""
+    if type(x) in _PLAIN:
+        return x
+    from repro_torch.distributed.hints import hint
+
+    return hint(x, *axes, force=force)
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; on a mesh the vocab-parallel lookup (the table's
+    rows stay on the model axis, the rows each rank misses are summed in)
+    with the batch pinned to the data axes."""
+    if type(table) in _PLAIN:
+        return table[ids]
+    from repro_torch.distributed.hints import reduced
+
+    out = reduced(F.embedding(ids, gathered(table)))
+    return hinted(out, "dp", *([None] * (out.ndim - 1)))
+
+
+def split_heads(x: torch.Tensor, b: int, s: int, n: int, hd: int) -> torch.Tensor:
+    """(b, s, n * hd) -> (b, s, n, hd) with the reference's hint
+    ``("dp", None, "model", None)``: on a mesh whose model axis does not
+    divide ``n`` the heads are gathered first (a view cannot split a
+    head across ranks)."""
+    if type(x) not in _PLAIN:
+        from repro_torch.distributed.hints import hint_heads
+
+        x = hint_heads(x, n)
+    return x.reshape(b, s, n, hd)
+
+
+def merge_heads(x: torch.Tensor, b: int, s: int, width: int) -> torch.Tensor:
+    """(b, s, n, hd) -> (b, s, n * hd), placed as :func:`split_heads`
+    places its input, so that the gradient's way back through the view
+    is even too."""
+    n = x.shape[2]
+    x = x.reshape(b, s, width)
+    if type(x) not in _PLAIN:
+        from repro_torch.distributed.hints import hint_heads
+
+        x = hint_heads(x, n)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +287,7 @@ def dense(p: BitLinear, x: torch.Tensor, quant: str = "none", engine=None) -> to
                 dot = engine.binary_vmm(xb, pw).to(torch.float32)
             else:
                 _require_latent(p, engine)
-                w = p.w
+                w = gathered(p.w)
                 # the weight side of a latent projection, named for the
                 # profiler: alpha and, on a weight-cache miss, the
                 # binarize + pack
@@ -239,7 +305,7 @@ def dense(p: BitLinear, x: torch.Tensor, quant: str = "none", engine=None) -> to
             out = (dot * (alpha * beta)).to(ACT_DTYPE)
     else:
         _require_latent(p, engine)
-        out = torch.matmul(x, p.w.to(x.dtype))
+        out = torch.matmul(x, gathered(p.w.to(x.dtype)))
     if p.b is not None:
         out = out + p.b.to(out.dtype)
     return out
@@ -367,8 +433,8 @@ def multi_head_attention(
     qf = q.to(torch.float32).transpose(1, 2)  # (B, H, Sq, D)
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
-        kh = k[:, sl][:, :, head_map].to(torch.float32)  # (B, C, H, D)
-        vh = v[:, sl][:, :, head_map]
+        kh = _expand_heads(k[:, sl], head_map, g).to(torch.float32)  # (B, C, H, D)
+        vh = _expand_heads(v[:, sl], head_map, g)
         s = rowblock_matmul(qf, kh.permute(0, 2, 3, 1), first_row) * scale  # (B, H, Sq, C)
         if causal:
             mask = kv_positions[sl][None, :] <= q_positions[:, None]  # (Sq, C)
@@ -390,6 +456,18 @@ def multi_head_attention(
     return out.transpose(1, 2).to(q.dtype)
 
 
+def _expand_heads(t: torch.Tensor, head_map: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, C, KV, D) -> (B, C, H, D), head ``h`` reading KV head ``h //
+    g``. On a mesh, as a broadcast view (an index's backward is an
+    ``index_put`` some DTensor versions cannot place) whose heads then
+    follow q's over the model axis."""
+    if type(t) in _PLAIN:
+        return t[:, :, head_map]
+    b, c, kvh, d = t.shape
+    t = t.unsqueeze(3).expand(b, c, kvh, g, d).reshape(b, c, kvh * g, d)
+    return hinted(t, "dp", None, "model", None)
+
+
 def lane_blocks(fn, *ts: torch.Tensor) -> torch.Tensor:
     """``fn(*ts)`` computed on blocks of ``ROW_BLOCK`` lanes along dim 0
     (the last block zero-padded), so every call has one shape whatever
@@ -397,12 +475,7 @@ def lane_blocks(fn, *ts: torch.Tensor) -> torch.Tensor:
     lane's result must not depend on how many slots share the tick
     (batched == solo). ``fn`` keeps lanes apart and returns them on
     dim 0."""
-    b = ts[0].shape[0]
-    pad = (-b) % ROW_BLOCK
-    if pad:
-        ts = tuple(F.pad(t, (0, 0) * (t.ndim - 1) + (0, pad)) for t in ts)
-    out = torch.cat([fn(*(t[i : i + ROW_BLOCK] for t in ts)) for i in range(0, b + pad, ROW_BLOCK)])
-    return out[:b]
+    return trips.row_blocks(fn, ts, dim=0)
 
 
 def row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -425,7 +498,10 @@ def decode_attention(
     The lanes run in blocks of ``ROW_BLOCK`` (the last one padded), so
     every product has one shape whatever the lane count: a GEMM picks
     its algorithm by shape, and a lane's result must not depend on how
-    many slots share the tick (batched == solo)."""
+    many slots share the tick (batched == solo). On a mesh the query's
+    heads are gathered: the grouped view splits them by KV head, and the
+    cache's time axis holds the model axis."""
+    q = hinted(q, "dp", None, None, None, force=True)
     return lane_blocks(_decode_block, q, k_cache, v_cache, cache_len)
 
 
@@ -457,14 +533,15 @@ def attention_block(
     b, s, _ = x.shape
     hd = cfg.hd
     qkv = _qkv(attn, x, cfg, quant, engine)
-    q = rope(qkv[0].reshape(b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
-    k = rope(qkv[1].reshape(b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
-    v = qkv[2].reshape(b, s, cfg.n_kv_heads, hd)
+    q = rope(split_heads(qkv[0], b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
+    k = rope(split_heads(qkv[1], b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+    v = split_heads(qkv[2], b, s, cfg.n_kv_heads, hd)
     out = multi_head_attention(
         q, k, v, positions, positions, causal=causal, chunk=cfg.attn_chunk,
         impl=cfg.attn_impl,
     )
-    out = dense(attn.o, out.reshape(b, s, cfg.n_heads * hd), quant, engine)
+    out = hinted(out, "dp", None, "model", None)
+    out = dense(attn.o, merge_heads(out, b, s, cfg.n_heads * hd), quant, engine)
     return out, (k, v)
 
 
@@ -482,13 +559,13 @@ def cross_attention_block(
     b, s, _ = x.shape
     hd = cfg.hd
     k, v = kv
-    q = dense(attn.q, x, quant, engine).reshape(b, s, cfg.n_heads, hd)
+    q = split_heads(dense(attn.q, x, quant, engine), b, s, cfg.n_heads, hd)
     src_pos = torch.arange(k.shape[1], device=x.device)
     out = multi_head_attention(
         q, k, v, positions, src_pos, causal=False, chunk=cfg.attn_chunk,
         impl=cfg.attn_impl,
     )
-    return dense(attn.o, out.reshape(b, s, cfg.n_heads * hd), quant, engine)
+    return dense(attn.o, merge_heads(out, b, s, cfg.n_heads * hd), quant, engine)
 
 
 def attention_continue(
@@ -520,9 +597,9 @@ def attention_continue(
     b, s, _ = x.shape
     hd = cfg.hd
     qkv = _qkv(attn, x, cfg, quant, engine)
-    q = rope(qkv[0].reshape(b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
-    k = rope(qkv[1].reshape(b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
-    v = qkv[2].reshape(b, s, cfg.n_kv_heads, hd)
+    q = rope(split_heads(qkv[0], b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
+    k = rope(split_heads(qkv[1], b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+    v = split_heads(qkv[2], b, s, cfg.n_kv_heads, hd)
     k_full = torch.cat([prefix_k.to(k.dtype), k], dim=1)
     v_full = torch.cat([prefix_v.to(v.dtype), v], dim=1)
     kv_positions = torch.arange(k_full.shape[1], device=x.device)
@@ -530,7 +607,8 @@ def attention_continue(
         q, k_full, v_full, positions, kv_positions, causal=True,
         chunk=cfg.attn_chunk, impl=cfg.attn_impl,
     )
-    out = dense(attn.o, out.reshape(b, s, cfg.n_heads * hd), quant, engine)
+    out = hinted(out, "dp", None, "model", None)
+    out = dense(attn.o, merge_heads(out, b, s, cfg.n_heads * hd), quant, engine)
     return out, (k, v)
 
 
@@ -553,14 +631,20 @@ def attention_decode_step(
     qkv = _qkv(attn, x, cfg, quant, engine)
     pos_vec = torch.as_tensor(pos, device=x.device).to(torch.int64).expand(b)
     posb = pos_vec[:, None]
-    q = rope(qkv[0].reshape(b, 1, cfg.n_heads, hd), posb, cfg.rope_theta)
-    k = rope(qkv[1].reshape(b, 1, cfg.n_kv_heads, hd), posb, cfg.rope_theta)
-    v = qkv[2].reshape(b, 1, cfg.n_kv_heads, hd)
+    q = rope(split_heads(qkv[0], b, 1, cfg.n_heads, hd), posb, cfg.rope_theta)
+    k = rope(split_heads(qkv[1], b, 1, cfg.n_kv_heads, hd), posb, cfg.rope_theta)
+    v = split_heads(qkv[2], b, 1, cfg.n_kv_heads, hd)
     rows = torch.arange(b, device=x.device)
-    cache_k[rows, pos_vec] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, pos_vec] = v[:, 0].to(cache_v.dtype)
+    if type(cache_k) in _PLAIN:
+        cache_k[rows, pos_vec] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, pos_vec] = v[:, 0].to(cache_v.dtype)
+    else:  # a sharded cache: each rank writes its own rows
+        from repro_torch.distributed.hints import write_positions_
+
+        write_positions_(cache_k, pos_vec, k[:, 0])
+        write_positions_(cache_v, pos_vec, v[:, 0])
     out = decode_attention(q, cache_k, cache_v, pos_vec + 1)
-    out = dense(attn.o, out.reshape(b, 1, cfg.n_heads * hd), quant, engine)
+    out = dense(attn.o, merge_heads(out, b, 1, cfg.n_heads * hd), quant, engine)
     return out, cache_k, cache_v
 
 
@@ -572,5 +656,5 @@ def attention_decode_step(
 def ffn(p: FFN, x: torch.Tensor, quant: str = "none", engine=None) -> torch.Tensor:
     h = dense(p.w1, x, quant, engine).to(torch.float32)
     h = (h * torch.sigmoid(h)).to(x.dtype)  # silu, as x * sigmoid(x)
-    h = h * dense(p.w3, x, quant, engine)
+    h = hinted(h * dense(p.w3, x, quant, engine), "dp", None, "model")
     return dense(p.w2, h, quant, engine)

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as tree_lib
 from repro_torch.core import bnn
 from repro_torch.device import resolve_device
+from repro_torch.kernels import trips
 from repro_torch.kernels.flash_attention import rowblock_matmul
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -45,7 +46,10 @@ from repro_torch.models.layers import (
     attention_continue,
     attention_decode_step,
     ffn,
+    embed_rows,
     frozen_parameter,
+    gathered,
+    hinted,
     infer_engine,
     rms_norm,
 )
@@ -310,14 +314,15 @@ def load_param_tree_(model: LM, tree: dict) -> LM:
 
 
 def embed_tokens(model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    return model.embed[tokens]
+    return embed_rows(model.embed, tokens)
 
 
 def _apply_block(carry, blk: Block, positions: torch.Tensor, cfg: ModelConfig):
     h, aux = carry
+    h = hinted(h, "dp", None, None)  # re-pin the batch sharding in the remat replay
     mix, _ = _mix(blk, rms_norm(h, blk.norm1, cfg.norm_eps), positions, cfg, None)
     h, a = _ffn_residual(blk, h + mix, cfg, None)
-    return h, aux if a is None else aux + a
+    return hinted(h, "dp", None, None), aux if a is None else aux + a
 
 
 def backbone(model: LM, embeds: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
@@ -325,7 +330,7 @@ def backbone(model: LM, embeds: torch.Tensor, positions: torch.Tensor, cfg: Mode
     an fp32 scalar). ``cfg.remat`` checkpoints each block, saving only
     its bf16 input (:func:`~repro_torch.models.scan.remat_scan`); either
     way the loss and gradients are the same bit for bit."""
-    h = embeds.to(ACT_DTYPE)
+    h = hinted(embeds.to(ACT_DTYPE), "dp", None, None)
     carry = (h, torch.zeros((), dtype=torch.float32, device=h.device))
 
     def body(carry, blk):
@@ -341,11 +346,15 @@ def backbone(model: LM, embeds: torch.Tensor, positions: torch.Tensor, cfg: Mode
 
 
 def _loss_chunk(hc: torch.Tensor, tc: torch.Tensor, w: torch.Tensor, cfg: ModelConfig):
-    logits = _mask_padded_vocab(torch.matmul(hc.to(torch.float32), w), cfg)
+    hc = hinted(hc, "dp_strict", None, None)
+    logits = torch.matmul(hc.to(torch.float32), gathered(w, "dp_strict"))
+    logits = hinted(_mask_padded_vocab(logits, cfg), "dp_strict", None, "model_strict")
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, tc.clamp_min(0)[..., None], dim=-1)[..., 0]
+    # the gathered target logit keeps its dim until the difference (a
+    # vocab-sharded DTensor's masked gather reduces there)
+    ll = torch.take_along_dim(logits, tc.clamp_min(0)[..., None], dim=-1)
     mask = (tc >= 0).to(torch.float32)
-    return mask.sum(), ((lse - ll) * mask).sum()
+    return mask.sum(), ((lse[..., None] - ll)[..., 0] * mask).sum()
 
 
 def lm_loss(model: LM, hidden: torch.Tensor, targets: torch.Tensor, cfg: ModelConfig):
@@ -364,7 +373,7 @@ def lm_loss(model: LM, hidden: torch.Tensor, targets: torch.Tensor, cfg: ModelCo
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(0, hidden.shape[1], ck):
         n, t = checkpoint(_loss_chunk, hidden[:, c : c + ck], targets[:, c : c + ck], w, cfg,
-                          use_reentrant=False, preserve_rng_state=False)
+                          use_reentrant=False, preserve_rng_state=False, **trips.checkpoint_kw())
         n_tok = n_tok + n
         total = total + t
     return total / torch.clamp_min(n_tok, 1.0)
@@ -553,14 +562,18 @@ def _mix_step(blk: Block, hn: torch.Tensor, pos, cache: dict, cfg: ModelConfig, 
 def _ffn_residual(blk: Block, h: torch.Tensor, cfg: ModelConfig, eng):
     """``(h + the block's FFN of its normed input, the MoE aux or None)``;
     ``(h, None)`` for a mixer-only block. Serving drops the aux, as the
-    reference does."""
+    reference does. On a mesh each residual sum is pinned to the batch
+    axes, replicated over the model axis: DTensor would otherwise carry
+    the TP products' partial sums on into the next products, which then
+    run unsharded (the reference's XLA reduces at the add)."""
+    h = hinted(h, "dp", None, None)
     if blk.ffn is None:
         return h, None
     hn = rms_norm(h, blk.norm2, cfg.norm_eps)
     if isinstance(blk.ffn, moe_lib.MoE):
         y, aux = _moe(blk.ffn, hn, cfg)
-        return h + y, aux
-    return h + ffn(blk.ffn, hn, cfg.quant, eng), None
+        return hinted(h + y, "dp", None, None), aux
+    return hinted(h + ffn(blk.ffn, hn, cfg.quant, eng), "dp", None, None), None
 
 
 def _moe(p: moe_lib.MoE, hn: torch.Tensor, cfg: ModelConfig):
@@ -613,7 +626,7 @@ def prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
     binarized projections (serving passes its K-group
     ``GroupedEngine``)."""
     tokens = tokens.to(device=model.embed.device, dtype=torch.int64)
-    embeds = model.embed[tokens]
+    embeds = embed_rows(model.embed, tokens)
     if extra_embeds is not None:
         extra = extra_embeds.to(device=embeds.device, dtype=embeds.dtype)
         embeds = torch.cat([extra, embeds], dim=1)
@@ -662,7 +675,7 @@ def prefill_continue(model: LM, tokens: torch.Tensor, prefix_caches: dict, cfg: 
         )
     tokens = tokens.to(device=model.embed.device, dtype=torch.int64)
     start = next(iter(prefix_caches.values()))["k"].shape[2]
-    h = model.embed[tokens].to(ACT_DTYPE)
+    h = embed_rows(model.embed, tokens).to(ACT_DTYPE)
     positions = torch.arange(start, start + tokens.shape[1], device=h.device)
     eng = engine if engine is not None else infer_engine(cfg)
     n_slots = len(cfg.pattern)
@@ -727,7 +740,7 @@ def decode_step(model: LM, token: torch.Tensor, pos, caches: dict, cfg: ModelCon
     reference donates its caches to the same effect) and returns (logits
     (B, V), caches)."""
     token = token.to(device=model.embed.device, dtype=torch.int64)
-    h = model.embed[token[:, None]].to(ACT_DTYPE)  # (B, 1, d)
+    h = embed_rows(model.embed, token[:, None]).to(ACT_DTYPE)  # (B, 1, d)
     eng = engine if engine is not None else infer_engine(cfg)
     n_slots = len(cfg.pattern)
     for layer, blk in enumerate(model.blocks):

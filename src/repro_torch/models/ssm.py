@@ -31,6 +31,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     ACT_DTYPE,
     frozen_parameter,
+    gathered,
+    hinted,
     lane_blocks,
     rms_norm,
     row_matmul,
@@ -103,12 +105,22 @@ def _groups_to_heads(t: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
     return t.reshape(*shape[:dim], shape[dim] * rep, *shape[dim + 1 :])
 
 
-def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int = SSD_CHUNK):
+def _chunked(t: torch.Tensor, q: int) -> torch.Tensor:
+    """(B, S, ...) -> (B, nc, q, ...) fp32, the sequence zero-padded to
+    whole chunks."""
+    pad = (-t.shape[1]) % q
+    if pad:
+        t = F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+    return t.reshape(t.shape[0], t.shape[1] // q, q, *t.shape[2:]).to(torch.float32)
+
+
+def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int = SSD_CHUNK, cb=None):
     """Chunked SSD scan. Returns (y (B, S, H, P) in x's dtype, final
     state (B, H, N, P) fp32). Differentiable, and deterministic on the
     card: groups reach heads by broadcast views, the chunk recurrence is
     a loop of elementwise ops; its gradient stays finite whatever the
-    chunk's summed decay."""
+    chunk's summed decay. ``cb`` is the chunks' C.B products (B, nc, G,
+    Q, Q), when the caller has them (:func:`ssd_sharded`)."""
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     rep = h // g
@@ -138,7 +150,8 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int = SSD_CHUNK):
     # is inf and its gradient 0 * inf = NaN (ROADMAP queue 3)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     l_mat = torch.exp(torch.where(tri, ci[..., :, None] - ci[..., None, :], -torch.inf))
-    cb = torch.einsum("bnqgs,bnkgs->bngqk", cc, bc)
+    if cb is None:
+        cb = torch.einsum("bnqgs,bnkgs->bngqk", cc, bc)
     cb = _groups_to_heads(cb, rep, 2)  # (B, nc, H, Q, Q)
     m = cb * l_mat * dtc.transpose(2, 3)[:, :, :, None, :]
     y_diag = torch.einsum("bnhqk,bnkhp->bnqhp", m, xc)
@@ -167,6 +180,54 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int = SSD_CHUNK):
     return y.to(x.dtype), hprev
 
 
+def ssd_sharded(x, dt, a, b_mat, c_mat):
+    """:func:`ssd_chunked` of DTensors, each rank on its own rows and
+    heads (the scan is independent per batch row and head): x (B, S, H,
+    P) as placed, dt and ``a`` placed to match its heads, B and C
+    (B, S, G, N) to match its rows, each rank taking the groups its heads
+    read. DTensor cannot keep the heads' sharding through the einsums'
+    flattened batch dims and would gather them."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, pl = x.device_mesh, x.placements
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl]
+    dt = dt.redistribute(mesh, pl)
+    a = a.redistribute(mesh, [Shard(0) if isinstance(p, Shard) and p.dim == 2 else Replicate()
+                              for p in pl])
+    b_mat, c_mat = (t.redistribute(mesh, rows) for t in (b_mat, c_mat))
+    # C.B is per group, not per head: its query rows go over the heads'
+    # mesh dims, then it is gathered for the local scan
+    # (serving; the reference's training step computes it whole on every
+    # model rank, as the local scan does)
+    cb = None
+    if not _training(x):
+        q = min(SSD_CHUNK, x.shape[1])
+        cc = _chunked(c_mat, q)
+        cc = cc.redistribute(mesh, [Shard(2) if isinstance(p, Shard) and p.dim == 2 else r
+                                    for p, r in zip(pl, rows)])
+        cb = torch.einsum("bnqgs,bnkgs->bngqk", cc, _chunked(b_mat, q)).redistribute(mesh, rows)
+    xl = x.to_local()
+    h, hl, g = x.shape[2], xl.shape[2], b_mat.shape[2]
+    h0 = 0
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == 2:
+            h0 = h0 * mesh.shape[i] + mesh.get_local_rank(i)
+    h0 *= hl
+    rep = h // g
+    g0, g1 = h0 // rep, (h0 + hl - 1) // rep + 1
+    bl, cl = (t.to_local()[:, :, g0:g1] for t in (b_mat, c_mat))
+    if hl % (g1 - g0):  # a group split across ranks: give each head its own
+        idx = torch.arange(h0, h0 + hl, device=bl.device) // rep - g0
+        bl, cl = bl[:, :, idx], cl[:, :, idx]
+    cbl = None if cb is None else cb.to_local()[:, :, g0:g1]
+    if cbl is not None and hl % (g1 - g0):
+        cbl = cbl[:, :, idx]
+    y, final = ssd_chunked(xl, dt.to_local(), a.to_local(), bl, cl, cb=cbl)
+    state_pl = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else p for p in pl]
+    return (DTensor.from_local(y, mesh, pl, run_check=False),
+            DTensor.from_local(final, mesh, state_pl, run_check=False))
+
+
 def _state_readout(ch: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
     """(B, H, N) x (B, H, N, P) -> (B, H, P): the sum over N."""
     return torch.matmul(ch[:, :, None, :], state)[:, :, 0]
@@ -182,6 +243,12 @@ def ssd_step(state, xt, dtt, a, bt, ct):
     upd = bh[..., :, None] * (xt.to(f32) * dtt[..., None])[..., None, :]
     new_state = state * decay[..., None, None] + upd
     ch = _groups_to_heads(ct, rep, 1).to(f32)
+    if type(new_state) not in (torch.Tensor, nn.Parameter):
+        # a mesh: C's rows and heads placed as the state's, so that the
+        # readout's batched product is each rank's own
+        from repro_torch.distributed.hints import placed_like
+
+        ch = placed_like(ch, new_state, 2)
     yt = lane_blocks(_state_readout, ch, new_state)
     return new_state, yt.to(xt.dtype)
 
@@ -202,13 +269,28 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _project(p: Mamba, u: torch.Tensor, name: str) -> torch.Tensor:
-    return row_matmul(u, getattr(p, name).to(u.dtype))
+    w = getattr(p, name).to(u.dtype)
+    if name in ("b_proj", "c_proj") and not _training(u):
+        # serving: B and C (replicated over the model axis) are left to
+        # DTensor, which splits their rows over it, as the reference's
+        # compiled prefill and decode do; its training step computes them
+        # whole on every model rank, and so does the port's
+        return row_matmul(u, w)
+    return row_matmul(u, gathered(w))
+
+
+def _training(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
 
 
 def _ssm_inputs(p: Mamba, xc, bcv, ccv, dt, cfg: ModelConfig):
     """Post-conv activations -> (x, dt, A, B, C) of the SSD, shaped by the
     leading dims of ``xc``."""
     lead = xc.shape[:-1]
+    if type(xc) not in (torch.Tensor, nn.Parameter):  # a mesh: no head split across ranks
+        from repro_torch.distributed.hints import hint_heads
+
+        xc = hint_heads(xc, cfg.ssm_heads)
     x = _silu_act(xc).reshape(*lead, cfg.ssm_heads, cfg.ssm_head_dim)
     b_mat = _silu_act(bcv).reshape(*lead, cfg.ssm_groups, cfg.ssm_state)
     c_mat = _silu_act(ccv).reshape(*lead, cfg.ssm_groups, cfg.ssm_state)
@@ -230,11 +312,13 @@ def mamba_block(p: Mamba, u: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
     ``{conv_x, conv_b, conv_c}`` (B, K-1, C) bf16 tails of the pre-conv
     streams, left-padded with zeros below K-1 tokens, and ``ssm`` (B, H,
     N, P) fp32)."""
-    z = _project(p, u, "z_proj")
-    x_pre = _project(p, u, "x_proj")
+    # the reference's hints (its ssm.py mamba_block): z, x and dt over
+    # the model axis, B and C replicated
+    z = hinted(_project(p, u, "z_proj"), "dp", None, "model")
+    x_pre = hinted(_project(p, u, "x_proj"), "dp", None, "model")
     b_pre = _project(p, u, "b_proj")
     c_pre = _project(p, u, "c_proj")
-    dt = _project(p, u, "dt_proj")
+    dt = hinted(_project(p, u, "dt_proj"), "dp", None, "model")
     x, dt, a, b_mat, c_mat = _ssm_inputs(
         p,
         causal_conv1d(x_pre, p.conv_x, p.conv_bias_x),
@@ -242,8 +326,10 @@ def mamba_block(p: Mamba, u: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
         causal_conv1d(c_pre, p.conv_c, p.conv_bias_c),
         dt, cfg,
     )
-    y, final = ssd_chunked(x, dt, a, b_mat, c_mat)
-    out = _output(p, y, x, z, cfg)
+    x = hinted(x, "dp", None, "model", None)
+    ssd = ssd_chunked if type(x) in (torch.Tensor, nn.Parameter) else ssd_sharded
+    y, final = ssd(x, dt, a, b_mat, c_mat)
+    out = _output(p, hinted(y, "dp", None, "model", None), x, z, cfg)
     tail = cfg.ssm_conv - 1
 
     def _tail(t: torch.Tensor) -> torch.Tensor:

@@ -79,14 +79,17 @@ def family(cfg: ModelConfig):
     return encdec_lib if cfg.is_encdec else lm_lib
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, loop: TrainLoopConfig):
+def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, loop: TrainLoopConfig, *,
+                    host_sync: bool = True):
     """Returns ``step_fn(model, opt_state, batch, step) -> metrics``, which
     updates ``model`` and ``opt_state`` in place (the reference's returns
     new ones). The optimizer works on the reference's stacked tree
     (``param_tree``): each name's per-layer gradients are stacked, the
     global norm is taken over all of them, then each parameter leaf is
     updated as a stack and written back, one leaf at a time
-    (``update_params_``)."""
+    (``update_params_``). ``host_sync=False`` gives the step a traced
+    run takes (``launch.steps.trace_cell``, on tensors that hold no
+    data): the update runs unguarded and the metrics stay tensors."""
     fam = family(cfg)
 
     def step_fn(model, opt_state: dict, batch: dict, step: int) -> dict:
@@ -95,6 +98,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, loop: TrainLoopConfig)
         lr = cosine_schedule(step, peak_lr=loop.peak_lr, warmup_steps=loop.warmup_steps,
                              total_steps=loop.total_steps)
         grads = fam.take_grad_tree(model)
+        if not host_sync:
+            fam.update_params_(model, adamw_begin(grads, opt_state, lr, opt_cfg))
+            return {"loss": loss.detach(), "lr": lr}
         ok = bool(torch.isfinite(loss))
         if ok:  # NaN guard: a non-finite loss skips the update whole
             fam.update_params_(model, adamw_begin(grads, opt_state, lr, opt_cfg))

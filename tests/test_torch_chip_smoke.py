@@ -327,7 +327,8 @@ def test_faults_only_runs_the_device_phase_first(capsys):
     assert cs.ALONE == {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
                         "--faults-only": "faults", "--train-only": "train",
                         "--train-breadth-only": "train breadth", "--breadth-only": "breadth",
-                        "--frontends-only": "frontends", "--distributed-only": "distributed"}
+                        "--frontends-only": "frontends", "--distributed-only": "distributed",
+                        "--dryrun-only": "dryrun"}
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
@@ -558,5 +559,60 @@ def test_distributed_only_runs_the_device_phase_first(capsys):
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
         cs.main(["--distributed-only"])
+    assert e.value.code != 0
+    assert "usage" not in capsys.readouterr().err
+
+
+def test_dryrun_phase_rehearses_on_cpu(capsys, monkeypatch):
+    """The dryrun phase at smoke size: (b) the traced product FLOPs ==
+    the profiler's for one real step (recomputation not stopped early in
+    either), (e) the EP layer's traced all-to-all bytes == what a
+    two-rank gloo world moved, (f) a production cell's record printed,
+    (a) the same record from a child process that sees no card; and the
+    JSON line. (c) needs the card's allocator."""
+    import json
+
+    cs = _chip_smoke()
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    res = cs.dryrun_phase(device="cpu", smoke=True)
+    out = capsys.readouterr().out
+    assert res["a"]["equal"] and "c" not in res
+    assert res["b"]["traced_flops"] + res["b"]["traced_row_pad_flops"] == \
+        res["b"]["profiled_flops"] > 0
+    assert res["b"]["traced_flops_early_stop"] < res["b"]["traced_flops"]
+    assert res["e"]["moved_bytes"] == [res["e"]["traced_bytes"]] * 2 and res["e"]["calls"] == [3, 3]
+    assert res["f"]["shape"] == "train_4k" and res["f"]["mesh"] == [16, 16]
+    assert res["f"]["status"] == "ok" and res["f"]["flops_per_dev"] > 0
+    assert res["d"]["roofline"]["dominant"] in ("compute", "memory", "collective")
+    assert "== the one traced in a process that sees no card" in out
+    assert set(res["a"]["trace_s"]) == {"this process", "no card"}
+    line = next(ln for ln in out.splitlines() if ln.startswith('{"dryrun"'))
+    assert json.loads(line) == {"dryrun": json.loads(json.dumps(res, default=str))}
+
+
+def test_a_failed_production_trace_fails_the_dryrun_phase(capsys, monkeypatch):
+    """(f) prints a failed trace as the reference's error record and then
+    raises: a cell that does not trace on the card's torch fails the
+    phase."""
+    cs = _chip_smoke()
+
+    def broken(smoke):
+        raise RuntimeError("Expected TupleStrategy for aten.index_put")
+
+    monkeypatch.setattr(cs, "_production_record", broken)
+    with pytest.raises(AssertionError, match=r"\(f\) the production cell's trace failed"):
+        cs._dryrun_cell("tinyllama-smoke", True)
+    assert '"status": "error"' in capsys.readouterr().out
+
+
+def test_dryrun_only_runs_the_device_phase_first(capsys):
+    cs = _chip_smoke()
+    assert cs.ALONE["--dryrun-only"] == "dryrun"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        cs.main(["--dryrun-only"])
     assert e.value.code != 0
     assert "usage" not in capsys.readouterr().err
