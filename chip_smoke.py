@@ -980,6 +980,7 @@ def profile_decode(compiled, tokens, tick_ms: float, extra_embeds=None) -> dict 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import obs
     from repro_torch.device import synchronize
     from repro_torch.models.layers import LATENT_WEIGHT_SPAN
 
@@ -1000,14 +1001,14 @@ def profile_decode(compiled, tokens, tick_ms: float, extra_embeds=None) -> dict 
         synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_TICKS
     # device-side events only (kernels, copies): the host ops that launch
-    # them carry the same device time again, and a span's device-side
-    # annotation covers its kernels again
+    # them carry the same device time again, and a program range's
+    # device-side annotation covers its kernels again
     averages = prof.key_averages()
     rows = [
         (getattr(e, "self_device_time_total", 0) / 1e3 / PROFILE_TICKS, e.count / PROFILE_TICKS, e.key)
         for e in averages
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-        and e.key != LATENT_WEIGHT_SPAN
+        and e.key not in obs.RANGES
     ]
     # the kernels launched inside dense's latent-weight span (host side)
     weight_ms = sum(getattr(e, "device_time_total", 0) for e in averages
@@ -1548,8 +1549,8 @@ def _tick_launches(compiled, tokens) -> tuple[float, float]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import obs
     from repro_torch.device import synchronize
-    from repro_torch.models.layers import LATENT_WEIGHT_SPAN
 
     ticks = 2
     logits, pre = compiled.prefill(tokens)
@@ -1562,7 +1563,9 @@ def _tick_launches(compiled, tokens) -> tuple[float, float]:
             logits, caches = compiled.decode_step(tok, tokens.shape[1] + i, caches)
             tok = torch.argmax(logits, dim=-1)
         synchronize(compiled.device)
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # kernels and copies, not the program ranges' device-side annotations
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False) and e.key not in obs.RANGES]
     return (sum(e.count for e in events) / ticks,
             sum(getattr(e, "self_device_time_total", 0) for e in events) / 1e3 / ticks)
 
@@ -1796,12 +1799,66 @@ def _span_shares(tel, wall_s: float) -> str:
             f"{100 * (1 - (pre + tick) / wall_s):.1f}% of {wall_s * 1e3:.1f} ms")
 
 
+def _inside(inner, outer) -> bool:
+    return any(s <= inner[0] and inner[1] <= e for s, e, _ in outer)
+
+
+def _profiled_request_path(argv: list[str], device: str, want: dict) -> dict:
+    """The serve CLI's request path (``argv``, telemetry on) under
+    ``torch.profiler``: the tokens of the untraced run; the program
+    ranges on the profiler's clock, one ``model.decode_step`` per tick
+    inside its ``decode_tick`` span's range inside a ``scheduler.step``,
+    one ``model.prefill`` per prefill inside its ``prefill``, ``lm.head``
+    once in each. Returns the decode steps' median host time and their
+    kernels' device time per step (0 on the CPU)."""
+    import statistics
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.launch import serve
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
+    with profile(activities=activities) as prof:
+        run = serve.run(argv)
+    tokens = {s.rid: tuple(s.generated) for s in run["states"]}
+    if tokens != want:
+        bad = sorted(r for r in tokens if tokens[r] != want.get(r))
+        raise AssertionError(f"request path: tokens under the profiler differ for {bad}")
+    ranges: dict[str, list] = {name: [] for name in obs.RANGES}
+    for e in prof.events():
+        if e.name in obs.RANGES and e.device_type == DeviceType.CPU:
+            ranges.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end, getattr(e, "device_time_total", 0)))
+    st = run["stats"]
+    n = {name: len(v) for name, v in ranges.items() if v}
+    want_n = {"model.decode_step": st.ticks, "decode_tick": st.ticks, "prefill": st.prefills,
+              "model.prefill": st.prefills, "lm.head": st.ticks + st.prefills}
+    nested = (all(_inside(r, ranges["scheduler.step"]) for r in ranges["decode_tick"])
+              and all(_inside(r, ranges["decode_tick"]) for r in ranges["model.decode_step"])
+              and all(_inside(r, ranges["prefill"]) for r in ranges["model.prefill"]))
+    if any(n.get(k) != v for k, v in want_n.items()) or n.get("scheduler.step", 0) < st.ticks \
+            or not nested:
+        raise AssertionError(f"request path under the profiler: ranges {n} (nested {nested}), "
+                             f"want {want_n}")
+    steps = ranges["model.decode_step"]
+    host_ms = statistics.median(e - s for s, e, _ in steps) / 1e3
+    device_ms = sum(d for _, _, d in steps) / 1e3 / len(steps)
+    print(f"[telemetry] request path under torch.profiler: tokens == untraced; ranges {n}, "
+          f"model.decode_step inside decode_tick inside scheduler.step; a decode step "
+          f"{host_ms:.2f} ms host (median), {device_ms:.3f} ms device", flush=True)
+    return {"model.decode_step host ms": host_ms, "model.decode_step device ms": device_ms}
+
+
 def telemetry_phase(device: str = "cuda", smoke: bool = False, out: Path = TELEMETRY_OUT) -> dict:
     """The port's own telemetry on the two request traces, each run once
     more with a session on: (a) the request path through the serve CLI's
     ``--trace-out`` / ``--metrics-out`` (16 requests, jnp attention, 8
     slots); (b) the 2-replica prefix-routed fleet (``attn_impl="pallas"``)
-    inside ``obs.session()``. Each traced run must give the tokens of
+    inside ``obs.session()``; then (a) once more under ``torch.profiler``,
+    with the program ranges checked (``_profiled_request_path``). Each
+    traced run must give the tokens of
     the untraced run of the same trace (the serve phases' runs, or its
     own when run alone), one span per tick and per prefill, counters
     equal to the stats, a Chrome trace and metrics snapshot that parse,
@@ -1875,6 +1932,9 @@ def telemetry_phase(device: str = "cuda", smoke: bool = False, out: Path = TELEM
           f"{req['untraced tok/s']:.1f} untraced; fused launches {fused}", flush=True)
     result["requests"] = req
     _release(traced)
+    req.update(_profiled_request_path(req_args + ["--metrics-out", str(out / "requests" /
+                                                                      "profiled_metrics.txt")],
+                                      device, UNTRACED["requests"]["tokens"]))
 
     # (b) the fleet, traced inside a session from compile() on
     cfg = dataclasses.replace(base, attn_impl="pallas")

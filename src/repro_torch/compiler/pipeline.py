@@ -290,7 +290,8 @@ class CompiledModel:
     """The artifact ``compile()`` returns: model + target, executable.
 
     * :meth:`prefill` / :meth:`prefill_continue` / :meth:`decode_step` —
-      LM entry points with the target's K-grouped executor bound;
+      LM entry points with the target's K-grouped executor bound, each
+      inside a profiler range (``model.prefill``, ``model.decode_step``);
     * :meth:`serve` — a bound continuous-batching ``ServingEngine``;
     * :meth:`price` — plan + programming + per-tick readout in one
       :class:`TargetPrice` (works without params);
@@ -361,11 +362,13 @@ class CompiledModel:
         ``extra_embeds`` (B, L, d) prepends modality-frontend embeddings
         (a VLM's patch embeddings); the caches then cover L + S positions."""
         self._require_params()
-        tokens = self._tokens(tokens)
-        if extra_embeds is not None:
-            extra_embeds = torch.as_tensor(extra_embeds)
-        ex = self.executor(int(tokens.shape[0]))
-        return lm_lib.prefill(self.params, tokens, self.cfg, extra_embeds=extra_embeds, engine=ex)
+        with obs.range("model.prefill"):
+            tokens = self._tokens(tokens)
+            if extra_embeds is not None:
+                extra_embeds = torch.as_tensor(extra_embeds)
+            ex = self.executor(int(tokens.shape[0]))
+            return lm_lib.prefill(self.params, tokens, self.cfg, extra_embeds=extra_embeds,
+                                  engine=ex)
 
     @torch.no_grad()
     def prefill_continue(self, tokens, prefix_caches: dict):
@@ -373,19 +376,22 @@ class CompiledModel:
         (last-position logits, full-prompt caches), bit-identical to
         :meth:`prefill` of the whole prompt (the prefix-graft path)."""
         self._require_params()
-        tokens = self._tokens(tokens)
-        ex = self.executor(int(tokens.shape[0]))
-        return lm_lib.prefill_continue(self.params, tokens, prefix_caches, self.cfg, engine=ex)
+        with obs.range("model.prefill"):
+            tokens = self._tokens(tokens)
+            ex = self.executor(int(tokens.shape[0]))
+            return lm_lib.prefill_continue(self.params, tokens, prefix_caches, self.cfg,
+                                           engine=ex)
 
     @torch.no_grad()
     def decode_step(self, token, pos, caches):
         """token (B,), pos scalar or (B,), caches -> (logits, caches);
         the caches are updated in place and returned."""
         self._require_params()
-        token = self._tokens(token)
-        pos = torch.as_tensor(pos).to(device=self.device, dtype=torch.int64)
-        ex = self.executor(int(token.shape[0]))
-        return lm_lib.decode_step(self.params, token, pos, caches, self.cfg, engine=ex)
+        with obs.range("model.decode_step"):
+            token = self._tokens(token)
+            pos = torch.as_tensor(pos).to(device=self.device, dtype=torch.int64)
+            ex = self.executor(int(token.shape[0]))
+            return lm_lib.decode_step(self.params, token, pos, caches, self.cfg, engine=ex)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return lm_lib.init_cache(self.cfg, batch, max_len, device=self.device)

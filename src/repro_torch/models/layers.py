@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.core import bnn
 from repro_torch.core.engine import PreparedWeights
 from repro_torch.kernels.flash_attention import ROW_BLOCK, flash_attention, rowblock_matmul
@@ -291,7 +292,7 @@ def dense(p: BitLinear, x: torch.Tensor, quant: str = "none", engine=None) -> to
                 # the weight side of a latent projection, named for the
                 # profiler: alpha and, on a weight-cache miss, the
                 # binarize + pack
-                with torch.profiler.record_function(LATENT_WEIGHT_SPAN):
+                with obs.range(LATENT_WEIGHT_SPAN):
                     alpha = _abs(w).mean().to(torch.float32)
                     if engine is not None and hasattr(engine, "prepare_cached"):
                         # lazy: binarization runs only on a weight-cache miss

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch import tree as tree_lib
 from repro_torch.core import bnn
 from repro_torch.device import resolve_device
@@ -532,12 +533,14 @@ def _mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _logits(model: LM, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Last-position fp32 logits. The head runs in blocks of
-    ``ROW_BLOCK`` rows, so a row's logits do not depend on how many
-    sequences share the call (a GEMM picks its algorithm by shape)."""
-    h = rms_norm(h, model.final_norm, cfg.norm_eps)
-    logits = rowblock_matmul(h[:, -1, :].to(torch.float32), _head_weights(model, cfg), 0)
-    return _mask_padded_vocab(logits, cfg)
+    """Last-position fp32 logits, inside the ``lm.head`` profiler range.
+    The head runs in blocks of ``ROW_BLOCK`` rows, so a row's logits do
+    not depend on how many sequences share the call (a GEMM picks its
+    algorithm by shape)."""
+    with obs.range("lm.head"):
+        h = rms_norm(h, model.final_norm, cfg.norm_eps)
+        logits = rowblock_matmul(h[:, -1, :].to(torch.float32), _head_weights(model, cfg), 0)
+        return _mask_padded_vocab(logits, cfg)
 
 
 def _mix(blk: Block, hn: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, eng):

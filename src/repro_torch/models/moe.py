@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.kernels.flash_attention import rowblock_matmul
 from repro_torch.kernels.ops import row_sum
 from repro_torch.models.config import ModelConfig
@@ -107,28 +108,35 @@ def experts(p: MoE, expert_in: torch.Tensor) -> torch.Tensor:
 
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, S, d) -> (B, S, d) in x's dtype, plus the GShard load-balance
-    aux loss ``E * sum_e f_e * P_e`` (fp32 scalar)."""
+    aux loss ``E * sum_e f_e * P_e`` (fp32 scalar). Its four phases run
+    inside the profiler ranges ``moe.route``, ``moe.dispatch``,
+    ``moe.experts`` and ``moe.combine`` (the aux loss last, in the
+    combine's)."""
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     c = capacity(cfg, s)
-    probs, gates, top_idx = route(p, x, cfg)
-    flat_e, slot, keep, onehot = slots(top_idx, e, c)
+    with obs.range("moe.route"):
+        probs, gates, top_idx = route(p, x, cfg)
+        flat_e, slot, keep, onehot = slots(top_idx, e, c)
 
     # dispatch: kept assignments write their token into (B, E, C, d);
     # dropped ones go to a spare slot C that is cut off
-    rows = torch.arange(b, device=x.device)[:, None].expand_as(flat_e)
-    x_rep = x.repeat_interleave(k, dim=1)  # (B, S*k, d)
-    buf = x.new_zeros((b, e, c + 1, d))
-    buf[rows, flat_e, torch.where(keep, slot, c)] = x_rep
-    out_e = experts(p, buf[:, :, :c])
+    with obs.range("moe.dispatch"):
+        rows = torch.arange(b, device=x.device)[:, None].expand_as(flat_e)
+        x_rep = x.repeat_interleave(k, dim=1)  # (B, S*k, d)
+        buf = x.new_zeros((b, e, c + 1, d))
+        buf[rows, flat_e, torch.where(keep, slot, c)] = x_rep
+    with obs.range("moe.experts"):
+        out_e = experts(p, buf[:, :, :c])
 
     # combine: a dropped assignment reads the clamped last slot, times 0,
     # as the reference's out-of-range gather does
-    got = out_e[rows, flat_e, torch.clamp_max(slot, c - 1)]
-    got = got * keep[..., None].to(got.dtype)
-    weighted = got.reshape(b, s, k, d) * gates[..., None].to(got.dtype)
-    y = _sum_k(weighted.to(torch.float32))
+    with obs.range("moe.combine"):
+        got = out_e[rows, flat_e, torch.clamp_max(slot, c - 1)]
+        got = got * keep[..., None].to(got.dtype)
+        weighted = got.reshape(b, s, k, d) * gates[..., None].to(got.dtype)
+        y = _sum_k(weighted.to(torch.float32))
 
-    frac = onehot.reshape(b, s, k, e).sum(dim=2).to(torch.float32).mean(dim=(0, 1))
-    aux = e * (frac * probs.mean(dim=(0, 1))).sum()
-    return y.to(x.dtype), aux
+        frac = onehot.reshape(b, s, k, e).sum(dim=2).to(torch.float32).mean(dim=(0, 1))
+        aux = e * (frac * probs.mean(dim=(0, 1))).sum()
+        return y.to(x.dtype), aux

@@ -14,6 +14,13 @@ engine, request scheduler, weight caches, fleet, launch driver):
 * :mod:`repro_torch.obs.crosscheck` — pairs traced decode ticks with
   their ``costmodel`` prices: the measured/modeled ratio per engine x K.
 
+**Program ranges.** :func:`range` (``with obs.range("moe.experts"):``)
+marks a layer boundary for ``torch.profiler``: while a profiler collects
+it is a ``record_function`` range, recorded on the clock of the device's
+kernels; otherwise it is one flag read returning the shared no-op span.
+An enabled :func:`span` opens a range of its name too, while a profiler
+collects. Ranges are not tracer records. :data:`RANGES` names them all.
+
 **Off by default, near-zero when off.** Instrumentation sites call the
 module-level helpers (:func:`span`, :func:`event`, :func:`observe`,
 :func:`count`, :func:`cache_event`); with no active session each is one
@@ -61,11 +68,13 @@ from repro_torch.obs.metrics import (  # noqa: F401
 )
 from repro_torch.obs.trace import (  # noqa: F401
     NULL_SPAN,
+    RANGES,
     Event,
     NullTracer,
     Span,
     Tracer,
 )
+from repro_torch.obs.trace import profiler_range as range  # noqa: F401
 
 
 class Telemetry:

@@ -30,6 +30,15 @@ one shared no-op span object is returned).
 
 The clock is injectable (``Tracer(clock=...)``) so golden-output tests
 are deterministic; the default is ``time.perf_counter_ns``.
+
+Program ranges put the port's layer boundaries on the profiler's clock,
+beside the device's kernels: :func:`profiler_range` returns
+``torch.profiler.record_function(name)`` while a profiler collects and
+the shared no-op span otherwise (one flag read, no ``record_function``
+object, no dispatcher call), and a span opens a range of its own name
+while a profiler collects. Ranges are not tracer records: the records
+and exports stay the reference's. :data:`RANGES` lists every range name
+the port opens.
 """
 
 from __future__ import annotations
@@ -40,6 +49,16 @@ import time
 from typing import Any, Callable
 
 import torch
+import torch.autograd.profiler as autograd_profiler
+
+# every profiler range the port opens: ``obs.range``'s sites, then the
+# spans, each of which opens a range of its name while a profiler collects
+RANGES = (
+    "scheduler.step", "model.prefill", "model.decode_step", "lm.head",
+    "moe.route", "moe.dispatch", "moe.experts", "moe.combine", "dense.latent_weight",
+    "compile", "compile.validate", "compile.map", "compile.resolve", "compile.program",
+    "remap", "prefill", "decode_tick", "degraded_tick",
+)
 
 
 @dataclasses.dataclass
@@ -109,6 +128,25 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+def _collecting_reader() -> Callable[[], bool]:
+    """Whether a profiler collects: torch's Python-side flag (one
+    attribute read) where this torch has it, else its C++ state."""
+    if hasattr(autograd_profiler, "_is_profiler_enabled"):
+        return lambda: autograd_profiler._is_profiler_enabled
+    return torch._C._autograd._profiler_enabled
+
+
+profiler_collecting = _collecting_reader()
+
+
+def profiler_range(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler collects, else the shared :data:`NULL_SPAN`."""
+    if profiler_collecting():
+        return torch.profiler.record_function(name)
+    return NULL_SPAN
+
+
 class NullTracer:
     """The disabled recorder: every call is a no-op, ``span`` returns
     the shared :data:`NULL_SPAN` (no allocation, no clock read, no
@@ -141,27 +179,37 @@ def _cuda_devices(values) -> list[torch.device]:
 
 
 class _OpenSpan:
-    """Context manager binding one :class:`Span` to its tracer stack."""
+    """Context manager binding one :class:`Span` to its tracer stack (and,
+    while a profiler collects, to a profiler range of the span's name)."""
 
-    __slots__ = ("tracer", "span")
+    __slots__ = ("tracer", "span", "range")
 
     def __init__(self, tracer: "Tracer", span: Span):
         self.tracer = tracer
         self.span = span
+        self.range = None
 
     def __enter__(self) -> Span:
         self.tracer._stack.append(self.span)
+        if profiler_collecting():
+            self.range = torch.profiler.record_function(self.span.name)
+            self.range.__enter__()
         return self.span
 
     def __exit__(self, *exc) -> bool:
         sp = self.span
-        if sp._fences:
-            for device in _cuda_devices(sp._fences):
-                torch.cuda.synchronize(device)
-            sp._fences.clear()
-        sp.t_end_ns = self.tracer._now()
-        self.tracer._stack.pop()
-        self.tracer.records.append(sp)
+        try:
+            if sp._fences:
+                for device in _cuda_devices(sp._fences):
+                    torch.cuda.synchronize(device)
+                sp._fences.clear()
+            sp.t_end_ns = self.tracer._now()
+            self.tracer._stack.pop()
+            self.tracer.records.append(sp)
+        finally:
+            if self.range is not None:
+                self.range.__exit__(None, None, None)
+                self.range = None
         return False
 
 

@@ -418,53 +418,55 @@ class RequestScheduler:
         return not self.waiting and not self.running
 
     def step(self) -> list[RequestState]:
-        """One scheduling tick. Returns states that became terminal."""
-        out = list(self._async_terminal)
-        self._async_terminal.clear()
-        out += self._expire()
-        self._admit()
-        if self.config.admission == "partial":
-            self._reconcile_budget()
-        if obs.enabled():
-            obs.gauge_set(
-                "repro_queue_depth", len(self.waiting),
-                "requests waiting after this tick's admissions",
-            )
-            obs.gauge_set(
-                "repro_running_slots", len(self.running), "slots held now"
-            )
-            obs.gauge_set(
-                "repro_kv_committed_tokens", self.kv_committed(),
-                "KV tokens held by running requests",
-            )
-            obs.observe(
-                "repro_queue_depth_ticks", len(self.waiting),
-                "waiting-queue depth sampled per tick",
-                buckets=obs.TICK_BUCKETS,
-            )
-        # a 1-token request is satisfied by its prefill alone — collect
-        # it before the decode so it neither burns a lane nor overshoots
-        out.extend(self._collect_finished())
-        if self.running:
-            self.pool.decode_tick(self.running)
-            for st in self.running.values():
-                if self.config.admission == "partial":
-                    st.committed = self._need(st)
-        # first-token bookkeeping BEFORE collecting finished: a request
-        # that finishes in its admission tick still has a TTFT
-        for st in self.running.values():
-            if st.first_token_tick is None and st.generated:
-                st.first_token_tick = self.tick_count
-                self._ttft[0] += 1
-                self._ttft[1] += self.tick_count - st.submit_tick
+        """One scheduling tick, inside the ``scheduler.step`` profiler range.
+        Returns states that became terminal."""
+        with obs.range("scheduler.step"):
+            out = list(self._async_terminal)
+            self._async_terminal.clear()
+            out += self._expire()
+            self._admit()
+            if self.config.admission == "partial":
+                self._reconcile_budget()
+            if obs.enabled():
+                obs.gauge_set(
+                    "repro_queue_depth", len(self.waiting),
+                    "requests waiting after this tick's admissions",
+                )
+                obs.gauge_set(
+                    "repro_running_slots", len(self.running), "slots held now"
+                )
+                obs.gauge_set(
+                    "repro_kv_committed_tokens", self.kv_committed(),
+                    "KV tokens held by running requests",
+                )
                 obs.observe(
-                    "repro_ttft_ticks", self.tick_count - st.submit_tick,
-                    "ticks from submit to first output token",
+                    "repro_queue_depth_ticks", len(self.waiting),
+                    "waiting-queue depth sampled per tick",
                     buckets=obs.TICK_BUCKETS,
                 )
-        out.extend(self._collect_finished())
-        self.tick_count += 1
-        return out
+            # a 1-token request is satisfied by its prefill alone — collect
+            # it before the decode so it neither burns a lane nor overshoots
+            out.extend(self._collect_finished())
+            if self.running:
+                self.pool.decode_tick(self.running)
+                for st in self.running.values():
+                    if self.config.admission == "partial":
+                        st.committed = self._need(st)
+            # first-token bookkeeping BEFORE collecting finished: a request
+            # that finishes in its admission tick still has a TTFT
+            for st in self.running.values():
+                if st.first_token_tick is None and st.generated:
+                    st.first_token_tick = self.tick_count
+                    self._ttft[0] += 1
+                    self._ttft[1] += self.tick_count - st.submit_tick
+                    obs.observe(
+                        "repro_ttft_ticks", self.tick_count - st.submit_tick,
+                        "ticks from submit to first output token",
+                        buckets=obs.TICK_BUCKETS,
+                    )
+            out.extend(self._collect_finished())
+            self.tick_count += 1
+            return out
 
     def drain(self, max_ticks: int = 10_000) -> list[RequestState]:
         """Step until idle; raises :class:`SchedulerExhaustedError`

@@ -581,3 +581,178 @@ def test_lockstep_traces_compile_only(tmp_path):
     names = [s.name for s in res["telemetry"].tracer.spans()]
     assert names[-1] == "compile" and "decode_tick" not in names
     assert json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+
+
+# ---------------------------------------------------------------------------
+# program ranges: on the profiler's clock while it collects, nothing when off
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+SRC = ROOT / "src" / "repro_torch"
+
+
+@pytest.fixture
+def ranges_made(monkeypatch):
+    """Names of the ``torch.profiler.record_function`` objects built."""
+    made = []
+    real = torch.profiler.record_function
+
+    class Counted(real):
+        def __init__(self, name, args=None):
+            made.append(name)
+            super().__init__(name, args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", Counted)
+    return made
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    """The smoke qwen3-moe compiled onto ``packed``: MoE blocks, the head,
+    programmed binarized attention."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = get_smoke_config(MOE_ARCH)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    cm = compiler.compile(cfg, params, compiler.HardwareTarget(engine="packed"), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, (3 + i,), np.int32) for i in range(3)]
+    return cm, prompts
+
+
+def _serve_moe(moe_model):
+    cm, prompts = moe_model
+    se = cm.serve(max_batch=2, max_len=MAX_LEN)
+    return _drive(se, prompts, Request), se
+
+
+def _lockstep_moe(moe_model):
+    cm, prompts = moe_model
+    tokens = torch.from_numpy(np.stack([p[:3] for p in prompts]))
+    logits, pre = cm.prefill(tokens)
+    caches = cm.graft_prefill_caches(cm.init_cache(3, 3 + GEN), pre)
+    out = [torch.argmax(logits, dim=-1)]
+    for i in range(GEN - 1):
+        logits, caches = cm.decode_step(out[-1], 3 + i, caches)
+        out.append(torch.argmax(logits, dim=-1))
+    return torch.stack(out, dim=1).tolist()
+
+
+def _profiled(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    ranges: dict[str, list[tuple[float, float]]] = {}
+    for e in prof.events():
+        if e.name in obs.RANGES:
+            ranges.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+    return out, ranges
+
+
+def _inside(inner, outer) -> bool:
+    return any(s <= inner[0] and inner[1] <= e for s, e in outer)
+
+
+class TestRanges:
+    def test_off_builds_no_record_function_and_reads_no_clock(
+            self, moe_model, ranges_made, cuda_calls, clock_reads):
+        """No profiler: ``obs.range`` is the shared no-op span, and a whole
+        MoE serving run, with telemetry off and then on, builds no
+        ``record_function``; with it off no clock is read either."""
+        assert obs.range("model.decode_step") is NULL_SPAN
+        with obs.range("moe.experts") as r:
+            assert r is NULL_SPAN
+        _serve_moe(moe_model)
+        _lockstep_moe(moe_model)
+        assert ranges_made == [] and clock_reads == [] and cuda_calls == []
+        with obs.session():
+            _serve_moe(moe_model)
+        assert ranges_made == []
+
+    def test_a_collecting_profiler_gets_the_ranges(self, moe_model, ranges_made):
+        (_, se), ranges = _profiled(lambda: _serve_moe(moe_model))
+        assert {"scheduler.step", "model.prefill", "model.decode_step", "lm.head",
+                "moe.route", "moe.dispatch", "moe.experts", "moe.combine"} == set(ranges)
+        assert set(ranges_made) == set(ranges)
+        assert len(ranges["model.decode_step"]) == se.stats().ticks
+
+    def test_the_flag_falls_back_to_the_profilers_own_state(self, monkeypatch):
+        from torch.profiler import ProfilerActivity, profile
+
+        monkeypatch.delattr(torch.autograd.profiler, "_is_profiler_enabled")
+        collecting = trace_lib._collecting_reader()
+        assert collecting is torch._C._autograd._profiler_enabled
+        assert not collecting()
+        with profile(activities=[ProfilerActivity.CPU]):
+            assert collecting()
+        assert not collecting()
+        monkeypatch.setattr(trace_lib, "profiler_collecting", collecting)
+        assert obs.range("lm.head") is NULL_SPAN
+        _, ranges = _profiled(lambda: obs.range("lm.head").__enter__().__exit__(None, None, None))
+        assert len(ranges["lm.head"]) == 1
+
+    def test_a_span_opens_a_range_of_its_name_and_records_as_before(self):
+        def script():
+            tr = Tracer(clock=FakeClock())
+            with tr.span("decode_tick", track="serve", k=2) as sp:
+                sp.fence(torch.zeros(1))
+                with tr.span("prefill"):
+                    pass
+            return tr.to_records()
+
+        plain = script()
+        traced, ranges = _profiled(script)
+        assert traced == plain
+        assert set(ranges) == {"decode_tick", "prefill"}
+        assert _inside(ranges["prefill"][0], ranges["decode_tick"])
+
+    def test_a_serving_tick_nests_its_ranges(self, moe_model):
+        """scheduler.step > decode_tick > model.decode_step > moe.* and
+        lm.head, on the profiler's clock, with telemetry on."""
+        with obs.session() as tel:
+            (_, se), ranges = _profiled(lambda: _serve_moe(moe_model))
+        ticks = se.stats().ticks
+        cfg = moe_model[0].cfg
+        assert len(ranges["decode_tick"]) == len(tel.tracer.spans("decode_tick")) == ticks
+        steps = ranges["model.decode_step"]
+        assert len(steps) == ticks > 0
+        assert all(_inside(t, ranges["scheduler.step"]) for t in ranges["decode_tick"])
+        assert all(_inside(s, ranges["decode_tick"]) for s in steps)
+        for name in ("moe.route", "moe.dispatch", "moe.experts", "moe.combine", "lm.head"):
+            per_step = [r for r in ranges[name] if _inside(r, steps)]
+            layers = 1 if name == "lm.head" else cfg.n_layers
+            assert len(per_step) == layers * ticks, name
+            rest = [r for r in ranges[name] if not _inside(r, steps)]
+            assert all(_inside(r, ranges["model.prefill"]) for r in rest), name
+        assert all(_inside(p, ranges["prefill"]) for p in ranges["model.prefill"])
+
+    @pytest.mark.parametrize("path", ["requests", "lockstep"])
+    def test_generations_equal_with_a_profiler_collecting(self, moe_model, path):
+        run = (lambda: _serve_moe(moe_model)[0]) if path == "requests" \
+            else (lambda: _lockstep_moe(moe_model))
+        plain = run()
+        with obs.session():
+            profiled, _ = _profiled(run)
+        assert profiled == plain and plain
+
+
+def _opened_names() -> set[str]:
+    """Every name the port's sources pass to ``obs.range`` or ``obs.span``,
+    a module constant resolved to its string."""
+    names = set()
+    call = re.compile(r"obs\.(?:range|span)\(\s*(?:\"([^\"]+)\"|([A-Z_]+)\b)")
+    for path in SRC.rglob("*.py"):
+        text = path.read_text()
+        for lit, const in call.findall(text):
+            if const:
+                lit = re.search(rf"^{const} = \"([^\"]+)\"", text, re.M).group(1)
+            names.add(lit)
+    return names
+
+
+def test_every_range_is_opened_in_the_port_and_listed():
+    opened = _opened_names()
+    assert set(obs.RANGES) == opened, (set(obs.RANGES) ^ opened)
+    assert len(obs.RANGES) == len(set(obs.RANGES))
