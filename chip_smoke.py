@@ -5,13 +5,14 @@
                            --kernels-only | --telemetry-only | --simulators-only |
                            --faults-only | --train-only | --train-breadth-only |
                            --breadth-only | --frontends-only | --distributed-only |
-                           --dryrun-only]
+                           --dryrun-only | --decode-graph-only]
 
 Each ``--*-only`` argument stops after those kernels' checks and timings
 (``--kernels-only``: every kernel's; ``--telemetry-only``,
 ``--simulators-only``, ``--faults-only``, ``--train-only``,
 ``--train-breadth-only``, ``--breadth-only``, ``--frontends-only``,
-``--distributed-only`` and ``--dryrun-only``: the build and that phase
+``--distributed-only``, ``--dryrun-only`` and ``--decode-graph-only``:
+the build and that phase
 alone) and prints no
 result line. Needs one
 CUDA card (device 0), the CUDA toolkit's ``nvcc`` and ``nvidia-smi``;
@@ -126,7 +127,15 @@ exits non-zero without them. Phases, each announced on its own
    reference, the request path with token prompts == alone; a
    ``{"frontends": ...}`` JSON line. Its Hamming, fused and flash
    launches join rows 2, 1 and 3;
-14. distributed: ``repro_torch.distributed`` on ``torch.distributed``
+14. decode graph: ``CompiledModel.decode_step`` replayed as a CUDA graph
+   (``compiler/decode_graph.py``) against eager steps on ``packed`` --
+   internvl2-1b's lockstep wave of 32 images over 64 steps,
+   qwen3-moe-235b-a22b at 1 of 94 layers in 64 slots and tinyllama-1.1b
+   in 8 through ``serve()``, mamba2-2.7b at 8 of 64 layers and the
+   hybrid's smoke config in lockstep: the logits and every cache tensor
+   ``torch.equal`` at every step, the tokens equal; ms per step both ways
+   by CUDA events and the graphed side's ``model_decode_graph_total``;
+15. distributed: ``repro_torch.distributed`` on ``torch.distributed``
    -- (a) a one-rank NCCL group on the card: every collective and the
    compressed all-reduce give their n = 1 identities; (b) two spawned
    ranks sharing the card on gloo probe which collectives gloo runs on
@@ -141,7 +150,7 @@ exits non-zero without them. Phases, each announced on its own
    gradient tree, bit for bit against the reference's arithmetic; a
    ``{"distributed": ...}`` JSON line. The ranks' fused launches ((c)
    and (d)) join row 1;
-15. dryrun: the dry-run's step analysis (``launch/hlo_analysis.py``,
+16. dryrun: the dry-run's step analysis (``launch/hlo_analysis.py``,
    ``steps.trace_cell``) against the card -- tinyllama-1.1b at full width,
    the train phase's step (8 x 128 tokens, plain-ops attention, remat,
    one rank, fp32 parameters): (b) its product FLOPs equal
@@ -1809,7 +1818,8 @@ def _profiled_request_path(argv: list[str], device: str, want: dict) -> dict:
     ranges on the profiler's clock, one ``model.decode_step`` per tick
     inside its ``decode_tick`` span's range inside a ``scheduler.step``,
     one ``model.prefill`` per prefill inside its ``prefill``, ``lm.head``
-    once in each. Returns the decode steps' median host time and their
+    once in each but a decode step replayed as a CUDA graph (which runs
+    no Python inside). Returns the decode steps' median host time and their
     kernels' device time per step (0 on the CPU)."""
     import statistics
 
@@ -1817,6 +1827,7 @@ def _profiled_request_path(argv: list[str], device: str, want: dict) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import obs
+    from repro_torch.compiler import decode_graph
     from repro_torch.launch import serve
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
@@ -1833,8 +1844,10 @@ def _profiled_request_path(argv: list[str], device: str, want: dict) -> dict:
                 (e.time_range.start, e.time_range.end, getattr(e, "device_time_total", 0)))
     st = run["stats"]
     n = {name: len(v) for name, v in ranges.items() if v}
+    replayed = int(run["telemetry"].metrics.counter(decode_graph.COUNTER).labels(
+        outcome="replay").value)
     want_n = {"model.decode_step": st.ticks, "decode_tick": st.ticks, "prefill": st.prefills,
-              "model.prefill": st.prefills, "lm.head": st.ticks + st.prefills}
+              "model.prefill": st.prefills, "lm.head": st.ticks - replayed + st.prefills}
     nested = (all(_inside(r, ranges["scheduler.step"]) for r in ranges["decode_tick"])
               and all(_inside(r, ranges["decode_tick"]) for r in ranges["model.decode_step"])
               and all(_inside(r, ranges["prefill"]) for r in ranges["model.prefill"]))
@@ -1846,7 +1859,8 @@ def _profiled_request_path(argv: list[str], device: str, want: dict) -> dict:
     host_ms = statistics.median(e - s for s, e, _ in steps) / 1e3
     device_ms = sum(d for _, _, d in steps) / 1e3 / len(steps)
     print(f"[telemetry] request path under torch.profiler: tokens == untraced; ranges {n}, "
-          f"model.decode_step inside decode_tick inside scheduler.step; a decode step "
+          f"model.decode_step inside decode_tick inside scheduler.step, {replayed} of its "
+          f"{st.ticks} ticks replayed as a CUDA graph; a decode step "
           f"{host_ms:.2f} ms host (median), {device_ms:.3f} ms device", flush=True)
     return {"model.decode_step host ms": host_ms, "model.decode_step device ms": device_ms}
 
@@ -4213,6 +4227,285 @@ def _production_record(smoke: bool) -> tuple[dict, float]:
     return rec, time.perf_counter() - t0
 
 
+# the decode graph phase: internvl2-1b's lockstep wave (32 images, 64
+# steps), qwen3-moe at 1 of 94 layers in 64 slots and tinyllama in 8
+# through serve(), mamba2 (8 of 64 layers) and the hybrid's smoke config
+# in lockstep
+GRAPH_VLM = "internvl2-1b"
+GRAPH_VLM_BATCH = 32
+GRAPH_WAVE = 64
+GRAPH_MOE_LAYERS = 1
+GRAPH_MOE_SLOTS = 64
+GRAPH_MOE_REQUESTS = 96
+GRAPH_SSM_STEPS = 32
+
+
+class _NoGraphs:
+    """A decode-graph backend that never captures: each step eager."""
+
+    def usable(self, device) -> bool:
+        return False
+
+
+def _caches_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    return all(torch.equal(t, b[slot][name]) for slot, kv in a.items() for name, t in kv.items())
+
+
+def _graph_outcomes(tel) -> dict:
+    """``model_decode_graph_total`` by outcome (eager by its reason),
+    leaving out the eager side's steps (its backend has no graphs)."""
+    from repro_torch.compiler import decode_graph
+
+    out = {}
+    for key, child in tel.metrics.counter(decode_graph.COUNTER)._series.items():
+        labels = dict(key)
+        name = labels.get("reason", labels["outcome"])
+        if name != "device":
+            out[name] = int(child.value)
+    return out
+
+
+def _timed(fn, device) -> tuple:
+    """(fn(), host ms, CUDA-event ms) of one call on ``device`` (the
+    host's ms on the CPU)."""
+    import torch
+
+    from repro_torch.device import synchronize
+
+    on_card = device.type == "cuda"
+    synchronize(device)
+    if on_card:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    out = fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if on_card:
+        end.record()
+    synchronize(device)
+    return out, host_ms, start.elapsed_time(end) if on_card else host_ms
+
+
+def _graph_wave(cm, tokens, steps: int, backend, what: str, extra_embeds=None) -> dict:
+    """One lockstep wave twice over, a step of each in turn: through
+    ``cm``'s decode graphs and eagerly, the logits and every cache tensor
+    ``torch.equal`` at every step; then a wave each way alone, timed
+    (CUDA events and the host's clock), whose tokens must be equal."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.compiler import decode_graph
+
+    s = tokens.shape[1] + (0 if extra_embeds is None else extra_embeds.shape[1])
+    eager = decode_graph.DecodeGraphs(_NoGraphs())
+
+    def start():
+        logits, pre = cm.prefill(tokens, extra_embeds)
+        caches = cm.graft_prefill_caches(cm.init_cache(tokens.shape[0], s + steps), pre)
+        return torch.argmax(logits, dim=-1), caches
+
+    @torch.no_grad()
+    def wave(graphs, tok, caches):
+        cm.decode_graphs = graphs
+        out = [tok]
+        for i in range(steps - 1):
+            logits, caches = cm.decode_step(out[-1], s + i, caches)
+            out.append(torch.argmax(logits, dim=-1))
+        return torch.stack(out, dim=1)
+
+    graphs = decode_graph.DecodeGraphs(backend)
+    (tok_g, caches_g), (tok_e, caches_e) = start(), start()
+    with obs.session() as tel, torch.no_grad():
+        for i in range(steps - 1):
+            cm.decode_graphs = graphs
+            lg, _ = cm.decode_step(tok_g, s + i, caches_g)
+            cm.decode_graphs = eager
+            le, _ = cm.decode_step(tok_e, s + i, caches_e)
+            if not (torch.equal(lg, le) and _caches_equal(caches_g, caches_e)):
+                raise AssertionError(f"{what}: step {i} through the graph != eager")
+            tok_g, tok_e = torch.argmax(lg, dim=-1), torch.argmax(le, dim=-1)
+    outcomes = _graph_outcomes(tel)
+    tok_e, caches_e = start()
+    gen_e, host_e, dev_e = _timed(lambda: wave(eager, tok_e, caches_e), cm.device)
+    tok_g, caches_g = start()
+    gen_g, host_g, dev_g = _timed(lambda: wave(decode_graph.DecodeGraphs(backend), tok_g,
+                                               caches_g), cm.device)
+    if not torch.equal(gen_g, gen_e):
+        raise AssertionError(f"{what}: the graphed wave's tokens != the eager wave's")
+    cm.decode_graphs = decode_graph.DecodeGraphs(backend)
+    n = steps - 1
+    print(f"[decode graph] {what}: {n} steps, logits and caches == eager at every step, the "
+          f"wave's tokens equal; outcomes {outcomes}; per step {dev_g / n:.2f} ms graphed "
+          f"against {dev_e / n:.2f} ms eager by CUDA events (host {host_g / n:.2f} / "
+          f"{host_e / n:.2f} ms)", flush=True)
+    return {"outcomes": outcomes, "graph_ms": dev_g / n, "eager_ms": dev_e / n,
+            "graph_host_ms": host_g / n, "eager_host_ms": host_e / n}
+
+
+def _graph_serve(cm, reqs, slots: int, max_len: int, backend, what: str) -> dict:
+    """The requests through two serving engines on ``cm`` a tick of each
+    in turn, one with decode graphs and one eager: every tick's logits
+    and every cache tensor ``torch.equal``, every request's tokens equal;
+    then each alone, timed."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.compiler import decode_graph
+
+    eager = decode_graph.DecodeGraphs(_NoGraphs())
+    graphs = decode_graph.DecodeGraphs(backend)
+    seen = []
+    step = cm.decode_step
+
+    def recorded(token, pos, caches):
+        logits, caches = step(token, pos, caches)
+        seen.append(logits)
+        return logits, caches
+
+    engines = {}
+    cm.decode_step = recorded
+    try:
+        with obs.session() as tel:
+            for name in ("graph", "eager"):
+                se = cm.serve(max_batch=slots, max_len=max_len)
+                engines[name] = (se, [se.submit(r) for r in reqs])
+            ticks = 0
+            while not (engines["graph"][0].idle() and engines["eager"][0].idle()):
+                for name, dg in (("graph", graphs), ("eager", eager)):
+                    cm.decode_graphs = dg
+                    engines[name][0].step()
+                if len(seen) == 2 and not torch.equal(*seen):
+                    raise AssertionError(f"{what}: tick {ticks} logits through the graph != eager")
+                if len(seen) not in (0, 2):
+                    raise AssertionError(f"{what}: tick {ticks} decoded in one engine only")
+                if not _caches_equal(engines["graph"][0].caches, engines["eager"][0].caches):
+                    raise AssertionError(f"{what}: tick {ticks} caches through the graph != eager")
+                ticks += bool(seen)
+                seen.clear()
+    finally:
+        del cm.decode_step
+    outcomes = _graph_outcomes(tel)
+    for st_g, st_e in zip(engines["graph"][1], engines["eager"][1]):
+        if not st_g.done or st_g.generated != st_e.generated:
+            raise AssertionError(f"{what}: request {st_g.rid} through the graph != eager")
+    del engines
+
+    def alone(dg):
+        cm.decode_graphs = dg
+        se = cm.serve(max_batch=slots, max_len=max_len)
+        states = [se.submit(r) for r in reqs]
+        se.drain()
+        return [tuple(st.generated) for st in states], se.stats().ticks
+
+    (gen_e, ticks_e), host_e, dev_e = _timed(lambda: alone(eager), cm.device)
+    (gen_g, ticks_g), host_g, dev_g = _timed(lambda: alone(decode_graph.DecodeGraphs(backend)),
+                                             cm.device)
+    if gen_g != gen_e:
+        raise AssertionError(f"{what}: the graphed run's tokens != the eager run's")
+    cm.decode_graphs = decode_graph.DecodeGraphs(backend)
+    print(f"[decode graph] {what}: {len(reqs)} requests in {slots} slots, {ticks} ticks, logits "
+          f"and caches == eager at every tick, every request's tokens equal; outcomes "
+          f"{outcomes}; per tick {dev_g / ticks_g:.2f} ms graphed against {dev_e / ticks_e:.2f} "
+          f"ms eager by CUDA events (host {host_g / ticks_g:.2f} / {host_e / ticks_e:.2f} ms; "
+          f"prefills included)", flush=True)
+    return {"outcomes": outcomes, "ticks": ticks, "graph_ms": dev_g / ticks_g,
+            "eager_ms": dev_e / ticks_e}
+
+
+def decode_graph_phase(device: str = "cuda", smoke: bool = False, backend=None) -> dict:
+    """``CompiledModel.decode_step`` as a CUDA graph against eager steps,
+    on the ``packed`` engine with seeded random weights:
+
+    (a) internvl2-1b at full depth: a lockstep wave of 32 images (256
+        patches and a 32-token text each), 64 steps;
+    (b) qwen3-moe-235b-a22b at full width, 1 of 94 layers: 96 requests
+        in 64 slots through ``serve()`` (identity and gathered ticks);
+    (c) tinyllama-1.1b: 24 requests in 8 slots through ``serve()``;
+    (d) mamba2-2.7b at 8 of 64 layers and the hybrid's smoke config
+        (jamba-1.5-large-398b): a lockstep wave each.
+
+    Each is held to eager steps bit for bit (``_graph_wave``,
+    ``_graph_serve``) and timed both ways; the graphed side's
+    ``model_decode_graph_total`` is printed. ``device="cpu", smoke=True``
+    with a ``backend`` rehearses it at the smoke configs' size."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import frontend_embeds
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import Request
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+
+    def config(arch, **full):
+        return get_smoke_config(arch) if smoke else dataclasses.replace(get_config(arch), **full)
+
+    def compiled(cfg):
+        params = lm.init_params(torch.Generator(device=device).manual_seed(SEED), cfg,
+                                device=device)
+        return compiler.compile(cfg, params, compiler.HardwareTarget(engine="packed"),
+                                device=device)
+
+    def requests(cfg, n, lo, hi, gen_lo, gen_hi):
+        rng = np.random.default_rng(REQUEST_SEED)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=int(
+                    rng.integers(lo, hi + 1))).astype(np.int32),
+                        max_new_tokens=int(rng.integers(gen_lo, gen_hi + 1)))
+                for i in range(n)]
+
+    res: dict = {}
+    _fresh_peak(on_card)
+    vlm = config(GRAPH_VLM)
+    batch = 4 if smoke else GRAPH_VLM_BATCH
+    steps = 8 if smoke else GRAPH_WAVE
+    cm = compiled(vlm)
+    tokens = torch.as_tensor(serve.prompts(vlm, batch, PROMPT, SEED), device=device)
+    extra = frontend_embeds(vlm, batch, generator=torch.Generator().manual_seed(SEED),
+                            device=device)
+    res["a"] = _graph_wave(cm, tokens, steps, backend,
+                           f"(a) {vlm.name} {vlm.n_layers} layers, batch {batch}, "
+                           f"{vlm.frontend_len} patches + {PROMPT} text", extra_embeds=extra)
+    del cm
+    _fresh_peak(on_card)
+
+    moe = config(BREADTH_MOE, n_layers=GRAPH_MOE_LAYERS)
+    slots = 4 if smoke else GRAPH_MOE_SLOTS
+    n_req = 6 if smoke else GRAPH_MOE_REQUESTS
+    cm = compiled(moe)
+    res["b"] = _graph_serve(cm, requests(moe, n_req, 16, 128, 8, 40), slots, 192, backend,
+                            f"(b) {moe.name} {moe.n_layers} layer(s)")
+    del cm
+    _fresh_peak(on_card)
+
+    dense = config(ARCH)
+    cm = compiled(dense)
+    res["c"] = _graph_serve(cm, requests(dense, 24, 8, PROMPT, 4, GEN), BATCH,
+                            PROMPT + GEN, backend, f"(c) {dense.name}")
+    del cm
+    _fresh_peak(on_card)
+
+    for key, arch, full in (("d_ssm", BREADTH_SSM, {"n_layers": BREADTH_SSM_LAYERS}),
+                            ("d_hybrid", BREADTH_HYBRID, None)):
+        cfg = get_smoke_config(arch) if smoke or full is None else config(arch, **full)
+        cm = compiled(cfg)
+        tokens = torch.as_tensor(serve.prompts(cfg, BATCH, PROMPT, SEED), device=device)
+        res[key] = _graph_wave(cm, tokens, 8 if smoke else GRAPH_SSM_STEPS, backend,
+                               f"(d) {cfg.name} {cfg.n_layers} layers "
+                               f"({'+'.join(sorted({k.mixer for k in cfg.pattern}))})")
+        del cm
+        _fresh_peak(on_card)
+    print(f"[decode graph] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return res
+
+
 def kernel_summary(checked: dict, launches: dict) -> list[dict]:
     """One entry per kernel: the sums over one tinyllama-1.1b layer's
     launches in a decode tick of 8 slots."""
@@ -4296,7 +4589,7 @@ ALONE = {"--telemetry-only": "telemetry", "--simulators-only": "simulators",
          "--faults-only": "faults", "--train-only": "train",
          "--train-breadth-only": "train breadth", "--breadth-only": "breadth",
          "--frontends-only": "frontends", "--distributed-only": "distributed",
-         "--dryrun-only": "dryrun"}
+         "--dryrun-only": "dryrun", "--decode-graph-only": "decode graph"}
 
 
 def main(argv: list[str]) -> int:
@@ -4320,7 +4613,8 @@ def main(argv: list[str]) -> int:
         {"telemetry": telemetry_phase, "simulators": simulators_phase,
          "faults": faults_phase, "train": train_phase, "train breadth": train_breadth_phase,
          "breadth": breadth_phase, "frontends": frontends_phase,
-         "distributed": distributed_phase, "dryrun": dryrun_phase}[name]()
+         "distributed": distributed_phase, "dryrun": dryrun_phase,
+         "decode graph": decode_graph_phase}[name]()
         print(card, flush=True)
         return 0
     phase("kernels")
@@ -4375,6 +4669,8 @@ def main(argv: list[str]) -> int:
                            ("flash_attention", "sm90")):
         launches[kname] += frontends[kname]
         BY_VARIANT[kname][variant] += frontends[kname]
+    phase("decode graph")
+    decode_graph_phase()
     phase("distributed")
     distributed = distributed_phase()
     launches["fused_bnn_matmul"] += distributed["fused_bnn_matmul"]

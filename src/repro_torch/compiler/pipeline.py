@@ -43,6 +43,7 @@ from typing import Any
 import torch
 
 from repro_torch import obs
+from repro_torch.compiler.decode_graph import DecodeGraphs
 from repro_torch.compiler.target import (
     GroupSizeError,
     HardwareTarget,
@@ -311,6 +312,7 @@ class CompiledModel:
         self.program_s = program_s    # programming wall time
         self.device = device
         self._executors: dict[int, engine_lib.GroupedEngine | None] = {}
+        self.decode_graphs = DecodeGraphs()
         self._price_plan = plan
 
     @property
@@ -382,16 +384,17 @@ class CompiledModel:
             return lm_lib.prefill_continue(self.params, tokens, prefix_caches, self.cfg,
                                            engine=ex)
 
-    @torch.no_grad()
     def decode_step(self, token, pos, caches):
         """token (B,), pos scalar or (B,), caches -> (logits, caches);
-        the caches are updated in place and returned."""
+        the caches are updated in place and returned. A step whose
+        shapes and cache addresses repeat is replayed as a CUDA graph
+        (:mod:`repro_torch.compiler.decode_graph`); the logits are the
+        caller's either way."""
         self._require_params()
         with obs.range("model.decode_step"):
-            token = self._tokens(token)
-            pos = torch.as_tensor(pos).to(device=self.device, dtype=torch.int64)
-            ex = self.executor(int(token.shape[0]))
-            return lm_lib.decode_step(self.params, token, pos, caches, self.cfg, engine=ex)
+            grad = torch.is_grad_enabled()
+            with torch.no_grad():
+                return self.decode_graphs.step(self, token, pos, caches, grad=grad)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return lm_lib.init_cache(self.cfg, batch, max_len, device=self.device)
@@ -467,6 +470,7 @@ class CompiledModel:
         if self.params is not None:
             self.params = self._refresh_artifacts()
         self._executors.clear()
+        self.decode_graphs.clear()
 
     def remap(self, fault_map) -> RemapReport:
         """Move only the blocks resident on the fault map's tiles onto
@@ -501,8 +505,10 @@ class CompiledModel:
             self.engine = eng.rebind(inner)
             if self.params is not None:
                 self.params = self._refresh_artifacts()
-            # cached executors wrap the old engine — drop them
+            # cached executors wrap the old engine, graphs the old
+            # artifacts — drop them
             self._executors.clear()
+            self.decode_graphs.clear()
             sp.set(moves=len(delta.moves), spares_left=len(new_plan.spares))
         obs.count("repro_remaps_total", 1, "fault-driven incremental remaps")
         return RemapReport(

@@ -119,6 +119,20 @@ class LRUCache:
             if self.name is not None:
                 obs.cache_event(self.name, "eviction")
 
+    def count(self, hits: int = 0, misses: int = 0, evictions: int = 0) -> None:
+        """Add traffic that ran without ``get``/``put`` (a replayed CUDA
+        graph's, ``compiler/decode_graph.py``), mirrored as any other."""
+        self.hits += hits
+        self.misses += misses
+        self.evictions += evictions
+        if self.name is not None:
+            for kind, n in (("hit", hits), ("miss", misses), ("eviction", evictions)):
+                if n:
+                    obs.cache_event(self.name, kind, n)
+
+    def values(self) -> list:
+        return list(self._store.values())
+
     def __len__(self) -> int:
         return len(self._store)
 
@@ -169,6 +183,12 @@ class WeightCache:
 
     def __len__(self) -> int:
         return len(self._lru)
+
+    @property
+    def lru(self) -> LRUCache:
+        """The LRU behind the cache: its entries are ``(weight, version,
+        artifact)``."""
+        return self._lru
 
     @property
     def stats(self) -> dict[str, int]:

@@ -139,6 +139,7 @@ class EncDecServing:
         return encdec.decode_step(self.model, token, pos, caches, self.cfg)
 
 
+@torch.no_grad()
 def lockstep(compiled, tokens: np.ndarray, gen: int, extra_embeds=None) -> dict:
     """Prefill the batch (after ``extra_embeds`` (B, L, d), a VLM's
     patches, when given), then ``gen - 1`` lockstep decode ticks from

@@ -328,7 +328,7 @@ def test_faults_only_runs_the_device_phase_first(capsys):
                         "--faults-only": "faults", "--train-only": "train",
                         "--train-breadth-only": "train breadth", "--breadth-only": "breadth",
                         "--frontends-only": "frontends", "--distributed-only": "distributed",
-                        "--dryrun-only": "dryrun"}
+                        "--dryrun-only": "dryrun", "--decode-graph-only": "decode graph"}
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
@@ -614,5 +614,35 @@ def test_dryrun_only_runs_the_device_phase_first(capsys):
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
         cs.main(["--dryrun-only"])
+    assert e.value.code != 0
+    assert "usage" not in capsys.readouterr().err
+
+
+def test_decode_graph_phase_rehearses_on_cpu(capsys):
+    """The decode graph phase at smoke size through the CPU tests' graph
+    backend: each stack's graphed steps == eager ones at every step and
+    tick, the steps captured once and replayed after."""
+    from test_torch_decode_graph import FakeGraphs
+
+    backend = FakeGraphs()
+    res = _chip_smoke().decode_graph_phase(device="cpu", smoke=True, backend=backend)
+    out = capsys.readouterr().out
+    assert out.count("[decode graph] (") == 5 and "logits and caches == eager at every" in out
+    # a lockstep wave: one first sight, one capture, replays after
+    for key in ("a", "d_ssm", "d_hybrid"):
+        assert res[key]["outcomes"] == {"first_sight": 1, "capture": 1, "replay": 5}, key
+    for key in ("b", "c"):
+        o = res[key]["outcomes"]
+        assert o.get("replay", 0) > 0 and sum(o.values()) == res[key]["ticks"], key
+    assert backend.replays > 0
+
+
+def test_decode_graph_only_runs_the_device_phase_first(capsys):
+    cs = _chip_smoke()
+    assert cs.ALONE["--decode-graph-only"] == "decode graph"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        cs.main(["--decode-graph-only"])
     assert e.value.code != 0
     assert "usage" not in capsys.readouterr().err

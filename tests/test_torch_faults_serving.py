@@ -22,6 +22,7 @@ from repro import faults as jax_faults
 from repro import obs as jax_obs
 from repro.serving import Request as JaxRequest
 from repro_torch import compiler, obs
+from repro_torch.compiler import decode_graph
 from repro_torch.faults import FaultModel
 from repro_torch.fleet import FleetEngine, Replica
 from repro_torch.serving import (
@@ -116,13 +117,17 @@ def _records(tel) -> list:
 # layer) where the reference stacks each projection over its layers (7 in
 # all), so that cache's hit count differs by design and is left out.
 PER_ARTIFACT = (("cache", "placement_indices"),)
+# the port's own: how its decode steps ran (CUDA graph or eager), which
+# the reference has no counterpart of
+PORT_ONLY = (decode_graph.COUNTER,)
 
 
 def _metrics(tel) -> dict:
     out = {}
     for name, inst in tel.metrics._metrics.items():
         for key, child in inst._series.items():
-            if name == "repro_cache_events_total" and key[:1] == PER_ARTIFACT:
+            if name == "repro_cache_events_total" and key[:1] == PER_ARTIFACT \
+                    or name in PORT_ONLY:
                 continue
             if inst.kind == "histogram":
                 out[(name, key)] = (child.total, None if name.endswith("_seconds")

@@ -32,6 +32,7 @@ from repro import fleet as jax_fleet
 from repro import obs as jax_obs
 from repro.serving import Request as JaxRequest
 from repro_torch import compiler, obs
+from repro_torch.compiler import decode_graph
 from repro_torch import fleet as port_fleet
 from repro_torch.launch import serve
 from repro_torch.obs import trace as trace_lib
@@ -385,9 +386,13 @@ def _records(tel) -> list:
 
 def _metrics(tel) -> dict:
     """Counter and gauge values by series; histogram counts by series
-    (bucket counts too, except for wall-clock histograms)."""
+    (bucket counts too, except for wall-clock histograms). Leaves out the
+    port's own decode-graph counter, which the reference has no
+    counterpart of (each test that compares reads it apart)."""
     out = {}
     for name, inst in tel.metrics._metrics.items():
+        if name == decode_graph.COUNTER:
+            continue
         for key, child in inst._series.items():
             if inst.kind == "histogram":
                 out[(name, key)] = (child.total, None if name.endswith("_seconds")
@@ -450,6 +455,10 @@ def test_serving_records_and_counters_equal_the_reference(model):
     m = tel.metrics
     stats = se.stats()
     assert m.counter("repro_decode_ticks_total").value == stats.ticks
+    # every step of the CPU's serving run eager, as the device has no graphs
+    assert m.counter(decode_graph.COUNTER).labels(
+        outcome="eager", reason="device").value == m.counter(decode_graph.COUNTER).value \
+        == stats.ticks
     assert m.counter("repro_decoded_tokens_total").value == stats.decoded
     assert m.counter("repro_mmm_groups_total").value == stats.mmm_groups
     assert m.counter("repro_prefills_total").value == stats.prefills
@@ -516,6 +525,7 @@ def test_fleet_records_and_counters_equal_the_reference(model, fleet_models, sce
     grafted = sum(s.attrs["grafted"] for s in tel.tracer.spans("prefill"))
     assert grafted == stats.grafted_tokens == jstats.grafted_tokens
     assert len(tel.tracer.spans("decode_tick")) == stats.ticks
+    assert m.counter(decode_graph.COUNTER).value == stats.ticks
     if scenario == "prefix":
         assert stats.prefix_hits > 0 and grafted > 0
     else:
