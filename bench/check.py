@@ -17,6 +17,9 @@ first choice is judged the same way.
 A deep binarized stack amplifies every sign that rounding flips, so a
 cell whose limits say ``"kind": "layerwise"`` follows the system layer
 by layer from its own state instead (:func:`layerwise`).
+
+The reference is the cell's model module's ``Reference`` (see
+``bench/spec.py``), handed in by the harness.
 """
 
 from __future__ import annotations
@@ -24,19 +27,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bench.reference.decoder import Decoder, Precision, no_tf32
-
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
           "float8_e4m3fn": torch.float8_e4m3fn}
 
 
-def precisions(config: dict) -> tuple[Precision, Precision]:
-    """The configuration's stated precision and its control's."""
+def precisions(config: dict) -> tuple[tuple[torch.dtype, torch.dtype],
+                                      tuple[torch.dtype, torch.dtype]]:
+    """The configuration's stated precision and its control's, each as
+    the reference's ``(store, expert_store)``."""
     p = config["precision"]
     act = DTYPES[p["activations"]]
     expert = DTYPES[p.get("experts", p["activations"])]
     low = DTYPES[p["control"]]
-    return Precision(act, expert), Precision(low, low)
+    return (act, expert), (low, low)
 
 
 def sample_sequences(finished: list[dict], seed: int, min_tokens: int) -> list[dict]:
@@ -58,7 +61,7 @@ def sample_sequences(finished: list[dict], seed: int, min_tokens: int) -> list[d
     return out
 
 
-def _reference_pass(dec: Decoder, seq: dict, device) -> torch.Tensor:
+def _reference_pass(ref, seq: dict, device) -> torch.Tensor:
     tokens = np.asarray(seq["tokens"], np.int64)
     gen = np.asarray(seq["generated"], np.int64)
     ids = torch.as_tensor(np.concatenate([tokens, gen[:-1]]), device=device)
@@ -66,17 +69,17 @@ def _reference_pass(dec: Decoder, seq: dict, device) -> torch.Tensor:
     n_extra = 0 if extra is None else extra.shape[0]
     start = n_extra + len(tokens) - 1
     rows = torch.arange(start, start + len(gen), device=device)
-    return dec.logits(ids, extra, seq["routed_calls"], rows)
+    return ref.logits(ids, extra, seq["routed_calls"], rows)
 
 
-def gaps(weights: dict, sz: dict, config: dict, samples: list[dict], device,
+def gaps(reference, weights: dict, sz: dict, config: dict, samples: list[dict], device,
          control: bool = False) -> dict:
     """The number of served tokens of ``samples`` judged and the share
-    that are not the reference's first choice (with ``control``, of the
-    control's first choices instead)."""
+    that are not the first choice of ``reference`` (the model module's
+    class; with ``control``, of the control's first choices instead)."""
     ref_p, low_p = precisions(config)
-    ref = Decoder(weights, sz, ref_p)
-    low = Decoder(weights, sz, low_p) if control else None
+    ref = reference(weights, sz, *ref_p)
+    low = reference(weights, sz, *low_p) if control else None
     n, missed = 0, 0
     for seq in samples:
         logits = _reference_pass(ref, seq, device)
@@ -97,7 +100,7 @@ def _rel(out: torch.Tensor, ref: torch.Tensor, inp: torch.Tensor) -> float:
     return float((out - ref).norm() / torch.clamp_min((ref - inp).norm(), 1e-30))
 
 
-def layerwise(weights: dict, sz: dict, config: dict, cap: dict, device,
+def layerwise(reference, weights: dict, sz: dict, config: dict, cap: dict, device,
               control: bool = False) -> dict:
     """Follow the system layer by layer from its own state (``cap``,
     ``WaveDriver.capture``): each attention and FFN sublayer of the
@@ -110,10 +113,10 @@ def layerwise(weights: dict, sz: dict, config: dict, cap: dict, device,
     rounding flips, so a whole-sequence comparison at depth would judge
     that chaos, not the system."""
     ref_p, low_p = precisions(config)
-    ref = Decoder(weights, sz, ref_p)
-    low = Decoder(weights, sz, low_p) if control else None
+    ref = reference(weights, sz, *ref_p)
+    low = reference(weights, sz, *low_p) if control else None
     worst, widest, n = 0.0, 0.0, 0
-    with no_tf32(), torch.no_grad():
+    with torch.no_grad():
         for j in range(len(cap["generated"])):
             gen = np.asarray(cap["generated"][j], np.int64)
             ids = torch.as_tensor(np.concatenate([cap["tokens"][j], gen[:-1]]), device=device)

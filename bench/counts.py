@@ -2,11 +2,12 @@
 token counts alone, so they read the same whatever implements the work.
 
 Model FLOPs count 2 per multiply-add of every product the model's
-equations hold, binary (±1) ones included: attention projections, the
-router, the ``top_k`` routed experts of each token (never the ones it
-skips), the dense SwiGLU, attention over the real causal context (QK^T
-and PV), and the head once per position whose logits are used. No
-recompute, no padding, no capacity buffer.
+equations hold, binary (±1) ones included: each layer's own products
+(the model module's ``sz["layers"][i]["macs"]``: attention projections,
+the router, the ``top_k`` routed experts of each token and never the
+ones it skips, the dense SwiGLU), attention over the real causal context
+(QK^T and PV) in the layers that attend, and the head once per position
+whose logits are used. No recompute, no padding, no capacity buffer.
 
 The fused BitLinear's bytes count each operand once per call: the
 activations (bf16), the packed weight words (32 signs per int32), the
@@ -22,24 +23,12 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 
-def proj_macs(sz: dict) -> int:
-    """Multiply-adds of one token's products in one layer, attention
-    scores aside."""
-    d, h, kv, hd, f = sz["d_model"], sz["n_heads"], sz["n_kv_heads"], sz["hd"], sz["d_ff"]
-    attn = d * (h + 2 * kv) * hd + h * hd * d
-    if sz["moe_experts"]:
-        ffn = d * sz["moe_experts"] + sz["moe_top_k"] * 3 * d * f
-    else:
-        ffn = 3 * d * f
-    return attn + ffn
-
-
 def forward_flops(sz: dict, tokens: int, context_sum: int, head_rows: int) -> float:
     """FLOPs of a forward over ``tokens`` positions whose attention spans
     ``context_sum`` keys in all, with logits at ``head_rows`` positions."""
-    layers = sz["n_layers"]
-    macs = layers * proj_macs(sz) * tokens
-    macs += layers * 2 * sz["n_heads"] * sz["hd"] * context_sum
+    macs = 0
+    for layer in sz["layers"]:  # a layer that does not attend has 0 heads
+        macs += layer["macs"] * tokens + 2 * layer["attn_heads"] * layer["attn_hd"] * context_sum
     macs += sz["d_model"] * sz["vocab_size"] * head_rows
     return 2.0 * macs
 
@@ -56,25 +45,16 @@ def decode_flops(sz: dict, context: int) -> float:
     return forward_flops(sz, 1, context, 1)
 
 
-def fused_projections(sz: dict) -> list[tuple[int, int]]:
-    """``(m, n)`` of each fused BitLinear launch of one layer: the
-    [q|k|v] artifact and o, then w1, w3, w2 for a dense FFN."""
-    d, h, kv, hd, f = sz["d_model"], sz["n_heads"], sz["n_kv_heads"], sz["hd"], sz["d_ff"]
-    out = [(d, (h + 2 * kv) * hd), (h * hd, d)]
-    if not sz["moe_experts"]:
-        out += [(d, f), (d, f), (f, d)]
-    return out
-
-
 def fused_window(sz: dict, calls: int, rows: int) -> tuple[int, float]:
     """Launches and bytes of ``calls`` model calls over ``rows`` rows in
-    all. Each call launches every layer's fused projections once, and a
-    launch over r rows moves x (r * m bf16), the words (ceil(m / 32) * n
-    int32), alpha (n fp32), beta (r fp32) and the output (r * n fp32)."""
-    per_layer = fused_projections(sz)
-    launches = calls * sz["n_layers"] * len(per_layer)
-    total = 0
-    for m, n in per_layer:
-        words_alpha = -(-m // 32) * n * 4 + n * 4
-        total += calls * words_alpha + rows * (m * 2 + 4 + n * 4)
-    return launches, float(total * sz["n_layers"])
+    all. Each call makes every layer's fused launches (``sz["layers"][i]
+    ["fused"]``) once, and a launch over r rows moves x (r * m bf16), the
+    words (ceil(m / 32) * n int32), alpha (n fp32), beta (r fp32) and the
+    output (r * n fp32)."""
+    launches, total = 0, 0
+    for layer in sz["layers"]:
+        launches += calls * len(layer["fused"])
+        for m, n in layer["fused"]:
+            words_alpha = -(-m // 32) * n * 4 + n * 4
+            total += calls * words_alpha + rows * (m * 2 + 4 + n * 4)
+    return launches, float(total)

@@ -1,8 +1,9 @@
 """One run of one cell: set-up, the measured window, the check, the
 result.
 
-Set-up makes the weights from the seed on the device, builds the
-system's model from them with its own constructors, compiles it onto
+Set-up makes the weights from the seed on the device in the layout of
+the cell's model module, builds the system's model from them with its
+own constructors (the module's ``build``), compiles it onto
 its target (programming the binarized projections) and warms up the
 cell's shapes. The window runs the traffic's loop for ``seconds``. With
 ``trace`` the telemetry of the system (``repro_torch.obs`` spans) is on
@@ -28,8 +29,8 @@ import torch
 from bench import check, counts
 from bench.drivers import make_driver
 from bench.profile import Profiler
-from bench.spec import ROOT, Cell, metric_reader, port_config, sizes
-from bench.weights import build_port_model, make_weights
+from bench.spec import ROOT, Cell, metric_reader, port_config
+from bench.weights import make_weights
 
 # the profiler's window within a traced run's window
 TRACE_SECONDS = 5.0
@@ -173,7 +174,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device, t_st
     out_dir = out_dir or ROOT / "bench_out" / cell.name / f"{seed}_{int(trace)}"
     out_dir.mkdir(parents=True, exist_ok=True)
     cfg = port_config(cell.config, smoke=smoke)
-    sz = sizes(cfg)
+    sz = cell.model.sizes(cfg)
     meta = {"workload": cell.name, "seed": seed, "seconds": seconds, "trace": trace,
             "torch": torch.__version__, "cuda": torch.version.cuda, "smoke": smoke,
             "commit": commit()}
@@ -184,8 +185,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device, t_st
         torch.cuda.reset_peak_memory_stats(device)
 
     # -- set-up --------------------------------------------------------------
-    weights = make_weights(sz, cell.config["weights"], seed, device)
-    model = build_port_model(weights, sz)
+    weights = make_weights(cell.model.layout(sz, cell.config["weights"]), seed, device)
+    model = cell.model.build(weights, sz)
     compiled = compiler_lib.compile(
         cfg, model, compiler_lib.HardwareTarget(engine=cell.config["engine"]), device=device)
     driver = make_driver(compiled, cell, seed, sz)
@@ -247,9 +248,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device, t_st
     else:
         judged = check.sample_sequences(sequences, seed, int(cell.traffic["check_tokens"]))
         compare = check.gaps
-    numbers = compare(weights, sz, cell.config, judged, device)
-    control_numbers = compare(weights, sz, cell.config, judged, device, control=True) \
-        if control else None
+    reference = cell.model.Reference
+    numbers = compare(reference, weights, sz, cell.config, judged, device)
+    control_numbers = compare(reference, weights, sz, cell.config, judged, device,
+                              control=True) if control else None
     numbers["failed"] = window["failed"]
     ok, shown = check.judge(numbers, cell.limits)
     shown["failed"] = {"value": window["failed"], "limit": 0}

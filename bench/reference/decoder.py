@@ -23,11 +23,13 @@ the benchmark's own seeded weights and inputs.
 ``store`` is the dtype the configuration states for activations and the
 KV cache (and ``expert_store`` for the expert weights): every value the
 model stores between operations is rounded to it, while the arithmetic
-stays fp32. The control runs the same code with a lower ``store``.
+stays fp32. The control runs the same code with a lower ``store``. Each
+public stage runs with TF32 off and no autograd, whoever calls it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -63,14 +65,27 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-class Decoder:
-    """The reference over the benchmark's weight dict (``weights.py``'s
-    names) and size dict (``spec.sizes``)."""
+def _fp32(fn):
+    """``fn`` with fp32 products in fp32 (TF32 off) and no autograd."""
 
-    def __init__(self, weights: dict, sz: dict, prec: Precision):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with no_tf32(), torch.no_grad():
+            return fn(*args, **kwargs)
+
+    return run
+
+
+class Decoder:
+    """The reference over the benchmark's weight dict and size dict (the
+    names of ``bench/models/decoder.py``'s ``layout`` and ``sizes``),
+    storing values as ``store`` (expert weights as ``expert_store``)."""
+
+    def __init__(self, weights: dict, sz: dict, store: torch.dtype,
+                 expert_store: torch.dtype | None = None):
         self.w = weights
         self.sz = sz
-        self.prec = prec
+        self.prec = Precision(store, expert_store)
         self._signs: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
 
     def _bitlinear(self, x: torch.Tensor, name: str) -> torch.Tensor:
@@ -132,40 +147,43 @@ class Decoder:
 
     # -- the forward, and its stages for a check that follows the system --
 
+    @_fp32
     def embed(self, tokens: torch.Tensor, extra: torch.Tensor | None) -> torch.Tensor:
         h = self.prec.rnd(self.w["embed"][tokens])
         if extra is not None:
             h = torch.cat([self.prec.rnd(extra.to(torch.float32)), h], dim=0)
         return h
 
+    @_fp32
     def attention_sublayer(self, h: torch.Tensor, i: int, positions: torch.Tensor) -> torch.Tensor:
         p = f"layers.{i}."
         x = self.prec.rnd(_norm(h, self.w[p + "norm1"], self.sz["norm_eps"]))
         return self.prec.rnd(h + self._attention(x, p, positions))
 
+    @_fp32
     def ffn_sublayer(self, h: torch.Tensor, i: int, routed_calls) -> torch.Tensor:
         p = f"layers.{i}."
         x = self.prec.rnd(_norm(h, self.w[p + "norm2"], self.sz["norm_eps"]))
         y = self._moe(x, p, routed_calls) if self.sz["moe_experts"] else self._dense_ffn(x, p)
         return self.prec.rnd(h + y)
 
+    @_fp32
     def head(self, h: torch.Tensor) -> torch.Tensor:
         hn = self.prec.rnd(_norm(h, self.w["final_norm"], self.sz["norm_eps"]))
         v = self.sz["vocab_size"]
         head = self.w["embed"][:v].T if self.sz["tie_embeddings"] else self.w["head"][:, :v]
         return hn @ head
 
-    @torch.no_grad()
+    @_fp32
     def logits(self, tokens: torch.Tensor, extra: torch.Tensor | None,
                routed_calls: list[tuple[int, int]], rows: torch.Tensor) -> torch.Tensor:
         """fp32 logits (len(rows), vocab) of the sequence ``[extra,
         embed(tokens)]`` at positions ``rows``."""
-        with no_tf32():
-            h = self.embed(tokens, extra)
-            positions = torch.arange(h.shape[0], device=h.device)
-            for i in range(self.sz["n_layers"]):
-                h = self.ffn_sublayer(self.attention_sublayer(h, i, positions), i, routed_calls)
-            return self.head(h[rows])
+        h = self.embed(tokens, extra)
+        positions = torch.arange(h.shape[0], device=h.device)
+        for i in range(self.sz["n_layers"]):
+            h = self.ffn_sublayer(self.attention_sublayer(h, i, positions), i, routed_calls)
+        return self.head(h[rows])
 
 
 class no_tf32:

@@ -1,12 +1,15 @@
 """BENCHMARK.json keeps to the contract's form, and every name in it
-finds its files: configuration, traffic, limits and metric readers."""
+finds its files: configuration, model module, traffic, limits and metric
+readers."""
 
+import inspect
 import json
 import re
+from pathlib import Path
 
 import pytest
 
-from bench.spec import BENCH_DIR, ROOT, load_cell
+from bench.spec import BENCH_DIR, ROOT, load_cell, model_module
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -85,3 +88,14 @@ def test_configuration_files_state_the_cut(c):
     assert changed == c["reduced"]
     for key in ("assumed", "departures", "deployment", "precision", "port"):
         assert cfg[key]
+
+
+@pytest.mark.parametrize("c", BENCH["configs"], ids=lambda c: c["name"])
+def test_configuration_names_a_model_module(c):
+    """Its four parts, and a plain reference under ``bench/reference/``."""
+    cfg = json.loads((ROOT / c["file"]).read_text())
+    assert NAME.match(cfg["model"])
+    assert (BENCH_DIR / "models" / f"{cfg['model']}.py").is_file()
+    model = model_module(cfg)
+    assert all(callable(getattr(model, part)) for part in ("sizes", "layout", "build"))
+    assert Path(inspect.getfile(model.Reference)).parent == BENCH_DIR / "reference"
