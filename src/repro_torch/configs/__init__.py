@@ -5,8 +5,10 @@ Each module defines ``CONFIG`` (the published numbers) and
 port serves every architecture of the reference's pool: dense, MoE,
 Mamba-2, the hybrid Jamba stack, the encoder-decoder seamless-m4t
 (``models/encdec.py``) and the vision-frontend internvl2
-(``lm.prefill(extra_embeds=)``).
-"""
+(``lm.prefill(extra_embeds=)``). It also serves one the JAX reference
+lacks, the hybrid ``granite-4.0-h-small`` (Mamba-2 + NoPE attention, a
+shared expert, Granite's multipliers), which the benchmark's plain
+reference checks instead."""
 
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ ARCH_IDS: tuple[str, ...] = (
     "llama3.2-3b",
     "seamless-m4t-large-v2",
     "mamba2-2.7b",
+    "granite-4.0-h-small",
 )
 
 SERVED: tuple[str, ...] = ARCH_IDS

@@ -12,6 +12,8 @@ on exactly the rows it owns; the return trip brings outputs back, gates
 combine locally, and the aux load-balance loss is averaged over ranks.
 Over-capacity assignments contribute zero. Differentiable end to end:
 an ``all_to_all``'s backward is the same exchange of the gradient.
+A layer with a shared expert (``cfg.moe_shared_ff``) is refused
+(:class:`SharedExpertError`): this dispatch would drop it.
 
 Two departures from the reference's arithmetic layout, none from its
 function:
@@ -60,6 +62,11 @@ def capacity(t_local: int, cfg: ModelConfig, n_ranks: int) -> int:
     """Per-(src, dst) capacity: tokens x k per rank pair, times the
     capacity factor (the reference's ``ep.py:118``)."""
     return max(1, math.ceil(t_local * cfg.moe_top_k / n_ranks * cfg.moe_capacity_factor))
+
+
+class SharedExpertError(NotImplementedError):
+    """An expert-parallel MoE was asked of a layer with a shared expert,
+    which this dispatch does not compute (it would drop it silently)."""
 
 
 def local_experts(p: moe_lib.MoE, rank: int, n_ranks: int) -> moe_lib.MoE:
@@ -159,6 +166,10 @@ def ep_moe_ffn(p: moe_lib.MoE, x: torch.Tensor, cfg: ModelConfig, mesh,
     ``DeviceMesh`` with an ``axis`` dim, or a process group. Returns
     (out (B, S, d) in x's dtype, the aux load-balance loss averaged over
     the ranks)."""
+    if cfg.moe_shared_ff or p.has_shared:
+        raise SharedExpertError(
+            f"{cfg.name}: the expert-parallel dispatch has no shared expert; "
+            "serve it with moe_impl='pjit' (moe.moe_ffn adds it once per token)")
     ax = _axis(mesh, axis)
     group = group_of(ax)
     n_ranks = axis_size(ax)

@@ -41,6 +41,7 @@ class ModelConfig:
     moe_experts: int = 0
     moe_top_k: int = 0
     moe_capacity_factor: float = 1.25
+    moe_shared_ff: int = 0           # a shared SwiGLU expert of this width on every token (0: none)
     # SSM (mamba2 / hybrid)
     ssm_state: int = 0
     ssm_groups: int = 1
@@ -65,7 +66,15 @@ class ModelConfig:
     # compiled MappingPlan covers it
     mapping_policy: str = "tacitmap"
     # misc
+    rope: bool = True                # False: no position embedding (NoPE attention)
     rope_theta: float = 10_000.0
+    attn_scale: float = 0.0          # attention logits' scale; 0 -> 1 / sqrt(head_dim)
+    # Granite's multipliers: the token embeddings times the first, each
+    # sublayer's output times the second before its residual add, the
+    # logits divided by the third (1 each: no operation)
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     norm_eps: float = 1e-5
     loss_chunk: int = 256            # sequence chunking for the softmax loss
     attn_chunk: int = 512            # KV chunk of the chunked attention
@@ -75,10 +84,21 @@ class ModelConfig:
     # MoE dispatch of the reference (kept for config parity)
     moe_impl: Literal["pjit", "ep_shard_map"] = "pjit"
     remat: bool = True
+    # a serving prefill runs each whole sequence's products as one product
+    # per sequence instead of ROW_BLOCK-row ones (layers.sequence_products):
+    # a long prompt then costs one launch a product. Only for a stack that
+    # is never continued from a cached prefix (one with a non-attention
+    # mixer), whose prompt rows need not equal a continuation's.
+    prefill_per_sequence: bool = False
 
     def __post_init__(self):
         if self.n_layers % len(self.pattern) != 0:
             raise ValueError(f"{self.name}: n_layers {self.n_layers} not divisible by pattern {len(self.pattern)}")
+        if self.prefill_per_sequence and all(k.mixer == "attn" for k in self.pattern):
+            raise ValueError(
+                f"{self.name}: prefill_per_sequence needs a stack that is never continued "
+                "from a cached prefix; an attention-only stack is"
+            )
 
     # -- derived ------------------------------------------------------------
     @property
@@ -131,6 +151,7 @@ class ModelConfig:
             attn += (self.n_heads + 2 * self.n_kv_heads) * hd
         ffn_dense = 3 * d * self.d_ff
         ffn_moe = self.moe_experts * 3 * d * self.d_ff + d * self.moe_experts
+        ffn_moe += 3 * d * self.moe_shared_ff
         mamba = (
             d * (2 * self.d_inner + 2 * self.ssm_groups * self.ssm_state + self.ssm_heads)
             + self.d_inner * d
@@ -150,7 +171,8 @@ class ModelConfig:
         return total
 
     def active_param_count(self) -> int:
-        """Parameters touched per token (MoE: top-k of experts)."""
+        """Parameters touched per token (MoE: top-k of experts and the
+        shared expert)."""
         if self.moe_experts == 0:
             return self.param_count()
         d = self.d_model

@@ -13,7 +13,10 @@ functions on tensors; the modules only hold weights. Latent weights are
 
 from __future__ import annotations
 
+import functools
 import math
+import threading
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -340,6 +343,18 @@ def _qkv(attn: Attention, x: torch.Tensor, cfg: ModelConfig, quant: str, engine)
     return qkv
 
 
+def _positioned(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """q or k at ``positions``: RoPE, or ``x`` itself where the model
+    has no position embedding (``cfg.rope`` False, NoPE)."""
+    return rope(x, positions, cfg.rope_theta) if cfg.rope else x
+
+
+def _scale(cfg: ModelConfig) -> float | None:
+    """The attention logits' scale the config gives, or ``None`` for
+    ``1 / sqrt(head_dim)``."""
+    return cfg.attn_scale or None
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding. x (B, S, H, D), positions (B, S) or (S,)."""
     d = x.shape[-1]
@@ -373,8 +388,11 @@ def multi_head_attention(
     causal: bool,
     chunk: int,
     impl: str = "jnp",
+    scale: float | None = None,
+    per_sequence: bool = False,
 ) -> torch.Tensor:
-    """Chunked online-softmax attention with fp32 statistics.
+    """Chunked online-softmax attention with fp32 statistics; the logits
+    are scaled by ``scale`` (``None``: ``1 / sqrt(D)``).
 
     q (B, Sq, H, D); k/v (B, Skv, KV, D); positions (S,)-shaped. Returns
     (B, Sq, H, D) in q's dtype. The probabilities and values of each
@@ -388,7 +406,9 @@ def multi_head_attention(
     over encoder frames, so ``Skv - Sq`` is only an offset (negative for
     a prompt longer than the source; the blocks are whole either way):
     the products are exact as always, and no row-count invariant is
-    asked of them, since an enc-dec prompt is never continued.
+    asked of them, since an enc-dec prompt is never continued. With
+    ``per_sequence`` (a prefill inside :func:`sequence_products`) each
+    sequence's contractions are one product each instead.
 
     When ``Skv`` is not a multiple of ``chunk`` the keys are padded and
     masked by position, which turns on the causal mask for the real keys
@@ -400,9 +420,15 @@ def multi_head_attention(
     ``impl="pallas"`` routes through the fused flash-attention kernel
     (``kernels/flash_attention.py``) on the (B, H, S, D) layout. It has
     no backward (nor has the reference's): a gradient through it raises
-    :class:`FlashBackwardError`.
+    :class:`FlashBackwardError`. It scales by ``1 / sqrt(D)`` only, so a
+    given ``scale`` raises there.
     """
     if impl == "pallas":
+        if scale is not None:
+            raise NotImplementedError(
+                "the flash-attention kernel scales by 1/sqrt(head_dim); a config's "
+                "attn_scale needs attn_impl='jnp'"
+            )
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
             raise FlashBackwardError(
                 "attn_impl='pallas' runs the flash-attention kernel, which has no "
@@ -416,7 +442,8 @@ def multi_head_attention(
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     head_map = torch.arange(h, device=q.device) // g  # head -> kv head
     first_row = skv - sq  # absolute position of query row 0
 
@@ -432,11 +459,17 @@ def multi_head_attention(
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     qf = q.to(torch.float32).transpose(1, 2)  # (B, H, Sq, D)
+
+    def products(x, y):
+        if per_sequence:
+            return torch.cat([torch.matmul(a, b) for a, b in zip(x.split(1), y.split(1))])
+        return rowblock_matmul(x, y, first_row)
+
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
         kh = _expand_heads(k[:, sl], head_map, g).to(torch.float32)  # (B, C, H, D)
         vh = _expand_heads(v[:, sl], head_map, g)
-        s = rowblock_matmul(qf, kh.permute(0, 2, 3, 1), first_row) * scale  # (B, H, Sq, C)
+        s = products(qf, kh.permute(0, 2, 3, 1)) * scale  # (B, H, Sq, C)
         if causal:
             mask = kv_positions[sl][None, :] <= q_positions[:, None]  # (Sq, C)
             s = torch.where(mask[None, None], s, NEG_INF)
@@ -446,10 +479,9 @@ def multi_head_attention(
             p = torch.where(mask[None, None], p, 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        av = rowblock_matmul(
+        av = products(
             p.to(torch.bfloat16).to(torch.float32),
             vh.to(torch.bfloat16).to(torch.float32).transpose(1, 2),
-            first_row,
         )
         acc = acc * corr[..., None] + av
         m = m_new
@@ -488,11 +520,52 @@ def row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return rowblock_matmul(x2, w, 0).reshape(*x.shape[:-1], w.shape[-1])
 
 
+_SEQ = threading.local()
+
+
+@contextmanager
+def sequence_products(on: bool = True):
+    """Inside, :func:`seq_matmul` (and :func:`per_sequence`) run each
+    whole sequence's products as one product per sequence. ``lm.prefill``
+    enters it for a config with ``prefill_per_sequence``: a stack that is
+    never continued from a cached prefix, whose prompt rows need not equal
+    a continuation's. A decode step, a continuation and a training
+    forward never run inside it."""
+    prev = getattr(_SEQ, "on", False)
+    _SEQ.on = on
+    try:
+        yield
+    finally:
+        _SEQ.on = prev
+
+
+def per_sequence(x: torch.Tensor) -> bool:
+    """Whether the whole sequences ``x`` (B, S, K) take one product per
+    sequence: inside :func:`sequence_products`, plain tensors only (a
+    mesh's DTensors keep their row blocks)."""
+    return getattr(_SEQ, "on", False) and type(x) in _PLAIN
+
+
+def seq_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., K) and w (K, N): inside
+    :func:`sequence_products`, one product per sequence of x (B, S, K),
+    so a row's bits depend on its own sequence and on nothing the batch
+    shares with it, and a long prompt costs one launch; elsewhere
+    :func:`row_matmul`."""
+    if not (per_sequence(x) and type(w) in _PLAIN):
+        return row_matmul(x, w)
+    if x.shape[0] == 1:
+        return torch.matmul(x, w)
+    return torch.cat([torch.matmul(xs, w) for xs in x.split(1)])
+
+
 def decode_attention(
-    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: torch.Tensor
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: torch.Tensor,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Single-token attention against a (B, T, KV, D) cache; positions
-    >= ``cache_len`` are masked. q (B, 1, H, D). Normalizes, then
+    >= ``cache_len`` are masked. q (B, 1, H, D); the logits scaled by
+    ``scale`` (``None``: divided by ``sqrt(D)``). Normalizes, then
     contracts (the reference's order, which rounds differently from the
     prefill path).
 
@@ -503,16 +576,17 @@ def decode_attention(
     heads are gathered: the grouped view splits them by KV head, and the
     cache's time axis holds the model axis."""
     q = hinted(q, "dp", None, None, None, force=True)
-    return lane_blocks(_decode_block, q, k_cache, v_cache, cache_len)
+    return lane_blocks(functools.partial(_decode_block, scale=scale), q, k_cache, v_cache,
+                       cache_len)
 
 
-def _decode_block(q, k_cache, v_cache, cache_len):
+def _decode_block(q, k_cache, v_cache, cache_len, scale=None):
     b, _, h, d = q.shape
     t, kvh = k_cache.shape[1], k_cache.shape[2]
     g = h // kvh
     qg = q.reshape(b, kvh, g, d)
     s = torch.einsum("bkgd,btkd->bkgt", qg.to(torch.float32), k_cache.to(torch.float32))
-    s = s / math.sqrt(d)
+    s = s / math.sqrt(d) if scale is None else s * scale
     mask = torch.arange(t, device=q.device)[None, :] < cache_len[:, None]  # (B, T)
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -534,12 +608,12 @@ def attention_block(
     b, s, _ = x.shape
     hd = cfg.hd
     qkv = _qkv(attn, x, cfg, quant, engine)
-    q = rope(split_heads(qkv[0], b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
-    k = rope(split_heads(qkv[1], b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+    q = _positioned(split_heads(qkv[0], b, s, cfg.n_heads, hd), positions, cfg)
+    k = _positioned(split_heads(qkv[1], b, s, cfg.n_kv_heads, hd), positions, cfg)
     v = split_heads(qkv[2], b, s, cfg.n_kv_heads, hd)
     out = multi_head_attention(
         q, k, v, positions, positions, causal=causal, chunk=cfg.attn_chunk,
-        impl=cfg.attn_impl,
+        impl=cfg.attn_impl, scale=_scale(cfg), per_sequence=per_sequence(x),
     )
     out = hinted(out, "dp", None, "model", None)
     out = dense(attn.o, merge_heads(out, b, s, cfg.n_heads * hd), quant, engine)
@@ -592,21 +666,21 @@ def attention_continue(
     prefix rows do not depend on what followed them (causal masking adds
     exact zeros), and the suffix runs through the same attention as a
     prefill, whose per-row arithmetic does not depend on Sq
-    (:func:`multi_head_attention`, the flash kernel). RoPE applies to the
-    suffix only; the prefix rows join in the activation dtype.
+    (:func:`multi_head_attention`, the flash kernel). RoPE (where the
+    model has it) applies to the suffix only; the prefix rows join in the activation dtype.
     """
     b, s, _ = x.shape
     hd = cfg.hd
     qkv = _qkv(attn, x, cfg, quant, engine)
-    q = rope(split_heads(qkv[0], b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
-    k = rope(split_heads(qkv[1], b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+    q = _positioned(split_heads(qkv[0], b, s, cfg.n_heads, hd), positions, cfg)
+    k = _positioned(split_heads(qkv[1], b, s, cfg.n_kv_heads, hd), positions, cfg)
     v = split_heads(qkv[2], b, s, cfg.n_kv_heads, hd)
     k_full = torch.cat([prefix_k.to(k.dtype), k], dim=1)
     v_full = torch.cat([prefix_v.to(v.dtype), v], dim=1)
     kv_positions = torch.arange(k_full.shape[1], device=x.device)
     out = multi_head_attention(
         q, k_full, v_full, positions, kv_positions, causal=True,
-        chunk=cfg.attn_chunk, impl=cfg.attn_impl,
+        chunk=cfg.attn_chunk, impl=cfg.attn_impl, scale=_scale(cfg),
     )
     out = hinted(out, "dp", None, "model", None)
     out = dense(attn.o, merge_heads(out, b, s, cfg.n_heads * hd), quant, engine)
@@ -632,8 +706,8 @@ def attention_decode_step(
     qkv = _qkv(attn, x, cfg, quant, engine)
     pos_vec = torch.as_tensor(pos, device=x.device).to(torch.int64).expand(b)
     posb = pos_vec[:, None]
-    q = rope(split_heads(qkv[0], b, 1, cfg.n_heads, hd), posb, cfg.rope_theta)
-    k = rope(split_heads(qkv[1], b, 1, cfg.n_kv_heads, hd), posb, cfg.rope_theta)
+    q = _positioned(split_heads(qkv[0], b, 1, cfg.n_heads, hd), posb, cfg)
+    k = _positioned(split_heads(qkv[1], b, 1, cfg.n_kv_heads, hd), posb, cfg)
     v = split_heads(qkv[2], b, 1, cfg.n_kv_heads, hd)
     rows = torch.arange(b, device=x.device)
     if type(cache_k) in _PLAIN:
@@ -644,7 +718,7 @@ def attention_decode_step(
 
         write_positions_(cache_k, pos_vec, k[:, 0])
         write_positions_(cache_v, pos_vec, v[:, 0])
-    out = decode_attention(q, cache_k, cache_v, pos_vec + 1)
+    out = decode_attention(q, cache_k, cache_v, pos_vec + 1, _scale(cfg))
     out = dense(attn.o, merge_heads(out, b, 1, cfg.n_heads * hd), quant, engine)
     return out, cache_k, cache_v
 

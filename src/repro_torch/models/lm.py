@@ -53,6 +53,7 @@ from repro_torch.models.layers import (
     hinted,
     infer_engine,
     rms_norm,
+    sequence_products,
 )
 from repro_torch.models.scan import remat_scan
 
@@ -151,11 +152,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> LM:
         )
 
     def moe() -> moe_lib.MoE:
-        e, f = cfg.moe_experts, cfg.d_ff
+        e, f, fs = cfg.moe_experts, cfg.d_ff, cfg.moe_shared_ff
+        shared = {}
+        if fs:
+            shared = dict(ws1=normal((d, fs), 1.0 / math.sqrt(d)),
+                          ws3=normal((d, fs), 1.0 / math.sqrt(d)),
+                          ws2=normal((fs, d), 1.0 / math.sqrt(fs)))
         return moe_lib.MoE(normal((d, e), 1.0 / math.sqrt(d)),
                            normal((e, d, f), 1.0 / math.sqrt(d)),
                            normal((e, d, f), 1.0 / math.sqrt(d)),
-                           normal((e, f, d), 1.0 / math.sqrt(f)))
+                           normal((e, f, d), 1.0 / math.sqrt(f)), **shared)
 
     blocks = []
     for layer in range(cfg.n_layers):
@@ -202,7 +208,7 @@ def _block_leaves(blk: Block) -> dict:
         out["mamba"] = blk.mixer.leaves()
     if isinstance(blk.ffn, moe_lib.MoE):
         out["norm2"] = blk.norm2
-        out["moe"] = {n: getattr(blk.ffn, n) for n in moe_lib.MoE.LEAVES}
+        out["moe"] = blk.ffn.leaves()
     elif blk.ffn is not None:
         out["norm2"] = blk.norm2
         out["ffn"] = {n: _proj_leaves(getattr(blk.ffn, n)) for n in BINARIZED_PROJECTIONS["ffn"]}
@@ -314,15 +320,24 @@ def load_param_tree_(model: LM, tree: dict) -> LM:
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    return embed_rows(model.embed, tokens)
+def embed_tokens(model: LM, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The token embeddings (fp32), times ``cfg.embedding_multiplier``
+    where it is not 1."""
+    e = embed_rows(model.embed, tokens)
+    return e if cfg.embedding_multiplier == 1.0 else e * cfg.embedding_multiplier
+
+
+def _residual(h: torch.Tensor, y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``h + y``: the residual add of a sublayer's output ``y``, times
+    ``cfg.residual_multiplier`` first where it is not 1."""
+    return h + (y if cfg.residual_multiplier == 1.0 else y * cfg.residual_multiplier)
 
 
 def _apply_block(carry, blk: Block, positions: torch.Tensor, cfg: ModelConfig):
     h, aux = carry
     h = hinted(h, "dp", None, None)  # re-pin the batch sharding in the remat replay
     mix, _ = _mix(blk, rms_norm(h, blk.norm1, cfg.norm_eps), positions, cfg, None)
-    h, a = _ffn_residual(blk, h + mix, cfg, None)
+    h, a = _ffn_residual(blk, _residual(h, mix, cfg), cfg, None)
     return hinted(h, "dp", None, None), aux if a is None else aux + a
 
 
@@ -348,7 +363,7 @@ def backbone(model: LM, embeds: torch.Tensor, positions: torch.Tensor, cfg: Mode
 
 def _loss_chunk(hc: torch.Tensor, tc: torch.Tensor, w: torch.Tensor, cfg: ModelConfig):
     hc = hinted(hc, "dp_strict", None, None)
-    logits = torch.matmul(hc.to(torch.float32), gathered(w, "dp_strict"))
+    logits = _logit_scaled(torch.matmul(hc.to(torch.float32), gathered(w, "dp_strict")), cfg)
     logits = hinted(_mask_padded_vocab(logits, cfg), "dp_strict", None, "model_strict")
     lse = torch.logsumexp(logits, dim=-1)
     # the gathered target logit keeps its dim until the difference (a
@@ -387,7 +402,7 @@ def loss_fn(model: LM, batch: dict, cfg: ModelConfig, aux_coef: float = 0.01) ->
     prepended to the token embeddings, positions run over all ``L + S``
     rows, and the loss reads only the token rows."""
     tokens = batch["tokens"].to(device=model.embed.device, dtype=torch.int64)
-    embeds = embed_tokens(model, tokens)
+    embeds = embed_tokens(model, tokens, cfg)
     if "extra_embeds" in batch:
         extra = batch["extra_embeds"].to(device=embeds.device, dtype=embeds.dtype)
         embeds = torch.cat([extra, embeds], dim=1)
@@ -532,6 +547,12 @@ def _mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.where(valid, logits, -1e30)
 
 
+def _logit_scaled(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The head's product divided by ``cfg.logits_scaling`` where it is
+    not 1."""
+    return logits if cfg.logits_scaling == 1.0 else logits / cfg.logits_scaling
+
+
 def _logits(model: LM, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Last-position fp32 logits, inside the ``lm.head`` profiler range.
     The head runs in blocks of ``ROW_BLOCK`` rows, so a row's logits do
@@ -540,7 +561,7 @@ def _logits(model: LM, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     with obs.range("lm.head"):
         h = rms_norm(h, model.final_norm, cfg.norm_eps)
         logits = rowblock_matmul(h[:, -1, :].to(torch.float32), _head_weights(model, cfg), 0)
-        return _mask_padded_vocab(logits, cfg)
+        return _mask_padded_vocab(_logit_scaled(logits, cfg), cfg)
 
 
 def _mix(blk: Block, hn: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, eng):
@@ -575,8 +596,8 @@ def _ffn_residual(blk: Block, h: torch.Tensor, cfg: ModelConfig, eng):
     hn = rms_norm(h, blk.norm2, cfg.norm_eps)
     if isinstance(blk.ffn, moe_lib.MoE):
         y, aux = _moe(blk.ffn, hn, cfg)
-        return hinted(h + y, "dp", None, None), aux
-    return hinted(h + ffn(blk.ffn, hn, cfg.quant, eng), "dp", None, None), None
+        return hinted(_residual(h, y, cfg), "dp", None, None), aux
+    return hinted(_residual(h, ffn(blk.ffn, hn, cfg.quant, eng), cfg), "dp", None, None), None
 
 
 def _moe(p: moe_lib.MoE, hn: torch.Tensor, cfg: ModelConfig):
@@ -607,7 +628,7 @@ def run_blocks(blocks, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfi
     eng = engine if engine is not None else infer_engine(cfg)
     for blk in blocks:
         mix, _ = _mix(blk, rms_norm(h, blk.norm1, cfg.norm_eps), positions, cfg, eng)
-        h, _ = _ffn_residual(blk, h + mix, cfg, eng)
+        h, _ = _ffn_residual(blk, _residual(h, mix, cfg), cfg, eng)
     return h
 
 
@@ -627,9 +648,10 @@ def prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
     embed(tokens)]`` at positions ``0 .. L + S - 1``, and the caches
     cover all of it. ``engine`` overrides ``cfg.bnn_engine`` for the
     binarized projections (serving passes its K-group
-    ``GroupedEngine``)."""
+    ``GroupedEngine``). With ``cfg.prefill_per_sequence`` the layers run
+    inside ``layers.sequence_products``."""
     tokens = tokens.to(device=model.embed.device, dtype=torch.int64)
-    embeds = embed_rows(model.embed, tokens)
+    embeds = embed_tokens(model, tokens, cfg)
     if extra_embeds is not None:
         extra = extra_embeds.to(device=embeds.device, dtype=embeds.dtype)
         embeds = torch.cat([extra, embeds], dim=1)
@@ -638,11 +660,12 @@ def prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
     eng = engine if engine is not None else infer_engine(cfg)
     n_slots = len(cfg.pattern)
     per_slot: list[dict[str, list[torch.Tensor]]] = [{} for _ in range(n_slots)]
-    for layer, blk in enumerate(model.blocks):
-        mix, cache = _mix(blk, rms_norm(h, blk.norm1, cfg.norm_eps), positions, cfg, eng)
-        for key, t in cache.items():
-            per_slot[layer % n_slots].setdefault(key, []).append(t)
-        h, _ = _ffn_residual(blk, h + mix, cfg, eng)
+    with sequence_products(cfg.prefill_per_sequence):
+        for layer, blk in enumerate(model.blocks):
+            mix, cache = _mix(blk, rms_norm(h, blk.norm1, cfg.norm_eps), positions, cfg, eng)
+            for key, t in cache.items():
+                per_slot[layer % n_slots].setdefault(key, []).append(t)
+            h, _ = _ffn_residual(blk, _residual(h, mix, cfg), cfg, eng)
     return _logits(model, h, cfg), _stack_caches(per_slot)
 
 
@@ -678,7 +701,7 @@ def prefill_continue(model: LM, tokens: torch.Tensor, prefix_caches: dict, cfg: 
         )
     tokens = tokens.to(device=model.embed.device, dtype=torch.int64)
     start = next(iter(prefix_caches.values()))["k"].shape[2]
-    h = embed_rows(model.embed, tokens).to(ACT_DTYPE)
+    h = embed_tokens(model, tokens, cfg).to(ACT_DTYPE)
     positions = torch.arange(start, start + tokens.shape[1], device=h.device)
     eng = engine if engine is not None else infer_engine(cfg)
     n_slots = len(cfg.pattern)
@@ -693,7 +716,7 @@ def prefill_continue(model: LM, tokens: torch.Tensor, prefix_caches: dict, cfg: 
         )
         per_slot[layer % n_slots]["k"].append(torch.cat([pk, k.to(ACT_DTYPE)], dim=1))
         per_slot[layer % n_slots]["v"].append(torch.cat([pv, v.to(ACT_DTYPE)], dim=1))
-        h, _ = _ffn_residual(blk, h + mix, cfg, eng)
+        h, _ = _ffn_residual(blk, _residual(h, mix, cfg), cfg, eng)
     return _logits(model, h, cfg), _stack_caches(per_slot)
 
 
@@ -743,7 +766,7 @@ def decode_step(model: LM, token: torch.Tensor, pos, caches: dict, cfg: ModelCon
     reference donates its caches to the same effect) and returns (logits
     (B, V), caches)."""
     token = token.to(device=model.embed.device, dtype=torch.int64)
-    h = embed_rows(model.embed, token[:, None]).to(ACT_DTYPE)  # (B, 1, d)
+    h = embed_tokens(model, token[:, None], cfg).to(ACT_DTYPE)  # (B, 1, d)
     eng = engine if engine is not None else infer_engine(cfg)
     n_slots = len(cfg.pattern)
     for layer, blk in enumerate(model.blocks):
@@ -751,5 +774,5 @@ def decode_step(model: LM, token: torch.Tensor, pos, caches: dict, cfg: ModelCon
         r = layer // n_slots
         hn = rms_norm(h, blk.norm1, cfg.norm_eps)
         mix = _mix_step(blk, hn, pos, {key: t[r] for key, t in c.items()}, cfg, eng)
-        h, _ = _ffn_residual(blk, h + mix, cfg, eng)
+        h, _ = _ffn_residual(blk, _residual(h, mix, cfg), cfg, eng)
     return _logits(model, h, cfg), caches

@@ -8,14 +8,20 @@ assignments at or past the capacity dropped (they contribute zero).
 Kept assignments scatter into a dense (B, E, C, d) bf16 buffer; every
 expert runs its SwiGLU over its whole (C, d) buffer, zeros included, in
 bf16 with the SiLU in fp32; the gated results combine back per token.
+A layer with a shared expert (Granite-4.0-H's) adds its SwiGLU of every
+token to the routed combine, computed and cast the same way.
 
 Per-row arithmetic does not depend on how many rows share a call, which
 batched == solo serving needs on the card: the router runs in
 ``ROW_BLOCK``-row products (``layers.row_matmul``), the softmax sums
 through ``ops.row_sum``, the expert products run one (E, ROW_BLOCK, d)
 batched product per block of buffer rows, and the sums over k are
-unrolled. Top-k is a stable descending sort, so ties keep the lower
-expert index first, as ``jax.lax.top_k`` does. Kept (expert, slot)
+unrolled. A prefill inside ``layers.sequence_products`` (a config with
+``prefill_per_sequence``) runs its products one per sequence instead: a
+long prompt costs a few launches, not one per 16 rows; its decode lanes
+keep the row blocks. Top-k is a stable
+descending sort, so ties keep the lower expert index first, as
+``jax.lax.top_k`` does. Kept (expert, slot)
 pairs never collide, so the scatter is a plain index write.
 
 The expert-parallel dispatch (``distributed/ep.py``) runs instead under
@@ -35,22 +41,40 @@ from repro_torch import obs
 from repro_torch.kernels.flash_attention import rowblock_matmul
 from repro_torch.kernels.ops import row_sum
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ACT_DTYPE, frozen_parameter, row_matmul
+from repro_torch.models.layers import ACT_DTYPE, frozen_parameter, per_sequence, seq_matmul
 
 
 class MoE(nn.Module):
     """The router (d, E) and the expert stacks ``w1`` / ``w3`` (E, d, f)
-    and ``w2`` (E, f, d), fp32."""
+    and ``w2`` (E, f, d), fp32; optionally a shared expert, ``ws1`` /
+    ``ws3`` (d, fs) and ``ws2`` (fs, d), fp32 and real-valued like the
+    routed ones (``None`` without one)."""
 
     LEAVES = ("router", "w1", "w3", "w2")
+    SHARED = ("ws1", "ws3", "ws2")
 
     def __init__(self, router: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-                 w2: torch.Tensor):
+                 w2: torch.Tensor, ws1: torch.Tensor | None = None,
+                 ws3: torch.Tensor | None = None, ws2: torch.Tensor | None = None):
         super().__init__()
+        if len({t is None for t in (ws1, ws3, ws2)}) > 1:
+            raise ValueError("a shared expert takes all of ws1, ws3 and ws2")
         self.router = frozen_parameter(router)
         self.w1 = frozen_parameter(w1)
         self.w3 = frozen_parameter(w3)
         self.w2 = frozen_parameter(w2)
+        for name, t in zip(self.SHARED, (ws1, ws3, ws2)):
+            self.register_parameter(name, frozen_parameter(t))
+
+    @property
+    def has_shared(self) -> bool:
+        return self.ws1 is not None
+
+    def leaves(self) -> dict:
+        """The parameters in the reference's ``moe`` layout, the shared
+        expert's after the routed ones where there is one."""
+        names = self.LEAVES + (self.SHARED if self.has_shared else ())
+        return {n: getattr(self, n) for n in names}
 
 
 def capacity(cfg: ModelConfig, seq: int) -> int:
@@ -68,7 +92,7 @@ def _sum_k(t: torch.Tensor) -> torch.Tensor:
 def route(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     """(B, S, d) -> (probs (B, S, E) fp32, gates (B, S, k) fp32, top_idx
     (B, S, k) int64)."""
-    return route_logits(row_matmul(x.to(torch.float32), p.router), cfg.moe_top_k)
+    return route_logits(seq_matmul(x.to(torch.float32), p.router), cfg.moe_top_k)
 
 
 def route_logits(logits: torch.Tensor, k: int):
@@ -93,17 +117,34 @@ def slots(top_idx: torch.Tensor, n_experts: int, cap: int):
     return flat_e, slot, slot < cap, onehot
 
 
-def experts(p: MoE, expert_in: torch.Tensor) -> torch.Tensor:
+def experts(p: MoE, expert_in: torch.Tensor, per_sequence: bool = False) -> torch.Tensor:
     """Every expert's SwiGLU over its (B, C) buffer rows: (B, E, C, d)
-    bf16 -> (B, E, C, d) bf16."""
+    bf16 -> (B, E, C, d) bf16. With ``per_sequence`` each sequence's
+    (E, C, d) buffer takes one batched product (``layers.per_sequence``),
+    else the (E, B C, d) rows take ``ROW_BLOCK``-row ones."""
+    if per_sequence:
+        return torch.cat([_swiglu(xe, p.w1, p.w3, p.w2, torch.matmul)
+                          for xe in expert_in.split(1)])
     b, e, c, d = expert_in.shape
     xe = expert_in.transpose(0, 1).reshape(e, b * c, d)
-    h = rowblock_matmul(xe, p.w1.to(xe.dtype), 0)
-    g = rowblock_matmul(xe, p.w3.to(xe.dtype), 0)
+    out = _swiglu(xe, p.w1, p.w3, p.w2, lambda x, w: rowblock_matmul(x, w, 0))
+    return out.reshape(e, b, c, -1).transpose(0, 1)
+
+
+def _swiglu(x, w1, w3, w2, matmul) -> torch.Tensor:
+    """``w2(silu(x w1) * x w3)`` in bf16 products of the fp32 weights,
+    cast per call, the SiLU in fp32."""
+    h = matmul(x, w1.to(x.dtype))
+    g = matmul(x, w3.to(x.dtype))
     hf = h.to(torch.float32)
     h = (hf * torch.sigmoid(hf)).to(ACT_DTYPE) * g.to(ACT_DTYPE)  # silu, as x * sigmoid(x)
-    out = rowblock_matmul(h, p.w2.to(h.dtype), 0)
-    return out.reshape(e, b, c, -1).transpose(0, 1)
+    return matmul(h, w2.to(h.dtype))
+
+
+def shared_expert(p: MoE, x: torch.Tensor) -> torch.Tensor:
+    """The shared expert's SwiGLU of every row: (B, S, d) bf16 -> (B, S,
+    d) bf16, its products taking the rows as ``layers.seq_matmul`` does."""
+    return _swiglu(x, p.ws1, p.ws3, p.ws2, seq_matmul)
 
 
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
@@ -111,7 +152,8 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, to
     aux loss ``E * sum_e f_e * P_e`` (fp32 scalar). Its four phases run
     inside the profiler ranges ``moe.route``, ``moe.dispatch``,
     ``moe.experts`` and ``moe.combine`` (the aux loss last, in the
-    combine's)."""
+    combine's); a shared expert runs inside ``moe.shared``, before the
+    combine, and joins the routed sum there in fp32."""
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     c = capacity(cfg, s)
@@ -127,7 +169,11 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, to
         buf = x.new_zeros((b, e, c + 1, d))
         buf[rows, flat_e, torch.where(keep, slot, c)] = x_rep
     with obs.range("moe.experts"):
-        out_e = experts(p, buf[:, :, :c])
+        out_e = experts(p, buf[:, :, :c], per_sequence=per_sequence(x))
+
+    if p.has_shared:
+        with obs.range("moe.shared"):
+            shared = shared_expert(p, x)
 
     # combine: a dropped assignment reads the clamped last slot, times 0,
     # as the reference's out-of-range gather does
@@ -136,6 +182,8 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, to
         got = got * keep[..., None].to(got.dtype)
         weighted = got.reshape(b, s, k, d) * gates[..., None].to(got.dtype)
         y = _sum_k(weighted.to(torch.float32))
+        if p.has_shared:
+            y = y + shared.to(torch.float32)
 
         frac = onehot.reshape(b, s, k, e).sum(dim=2).to(torch.float32).mean(dim=(0, 1))
         aux = e * (frac * probs.mean(dim=(0, 1))).sum()

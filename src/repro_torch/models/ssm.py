@@ -18,7 +18,11 @@ serving invariants on the card): the projections run in
 unrolled elementwise sums, and the state contraction runs in blocks of
 ``ROW_BLOCK`` lanes (``layers.lane_blocks``). :func:`mamba_step` writes
 the new conv tails and state into the cache it is given, in place, as
-``layers.attention_decode_step`` does for K/V.
+``layers.attention_decode_step`` does for K/V. Inside
+``layers.sequence_products`` (the prefill of a config with
+``prefill_per_sequence``) a whole sequence's projections run one product
+per sequence (``layers.seq_matmul``): a long prompt then costs six
+launches a layer, not six per 16 rows.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     ACT_DTYPE,
@@ -35,7 +40,7 @@ from repro_torch.models.layers import (
     hinted,
     lane_blocks,
     rms_norm,
-    row_matmul,
+    seq_matmul,
 )
 
 SSD_CHUNK = 256
@@ -275,8 +280,8 @@ def _project(p: Mamba, u: torch.Tensor, name: str) -> torch.Tensor:
         # DTensor, which splits their rows over it, as the reference's
         # compiled prefill and decode do; its training step computes them
         # whole on every model rank, and so does the port's
-        return row_matmul(u, w)
-    return row_matmul(u, gathered(w))
+        return seq_matmul(u, w)
+    return seq_matmul(u, gathered(w))
 
 
 def _training(t: torch.Tensor) -> bool:
@@ -311,7 +316,12 @@ def mamba_block(p: Mamba, u: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
     """Full-sequence mixer. u (B, S, d) -> (out (B, S, d), decode cache
     ``{conv_x, conv_b, conv_c}`` (B, K-1, C) bf16 tails of the pre-conv
     streams, left-padded with zeros below K-1 tokens, and ``ssm`` (B, H,
-    N, P) fp32)."""
+    N, P) fp32), inside the ``ssm.mixer`` profiler range."""
+    with obs.range("ssm.mixer"):
+        return _mamba_block(p, u, cfg)
+
+
+def _mamba_block(p: Mamba, u: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     # the reference's hints (its ssm.py mamba_block): z, x and dt over
     # the model axis, B and C replicated
     z = hinted(_project(p, u, "z_proj"), "dp", None, "model")
@@ -344,7 +354,13 @@ def mamba_block(p: Mamba, u: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
 def mamba_step(p: Mamba, ut: torch.Tensor, cache: dict, cfg: ModelConfig):
     """One-token step. ut (B, 1, d); ``cache`` ``{conv_x, conv_b, conv_c,
     ssm}`` with the lanes on dim 0. Writes the new tails and state into
-    ``cache`` IN PLACE and returns (out (B, 1, d), cache)."""
+    ``cache`` IN PLACE and returns (out (B, 1, d), cache), inside the
+    ``ssm.mixer`` profiler range."""
+    with obs.range("ssm.mixer"):
+        return _mamba_step(p, ut, cache, cfg)
+
+
+def _mamba_step(p: Mamba, ut: torch.Tensor, cache: dict, cfg: ModelConfig):
     u = ut[:, 0, :]
     z = _project(p, u, "z_proj")
     cx, xt = conv_step(cache["conv_x"], _project(p, u, "x_proj"), p.conv_x, p.conv_bias_x)

@@ -56,6 +56,7 @@ import torch.autograd.profiler as autograd_profiler
 RANGES = (
     "scheduler.step", "model.prefill", "model.decode_step", "lm.head",
     "moe.route", "moe.dispatch", "moe.experts", "moe.combine", "dense.latent_weight",
+    "moe.shared", "ssm.mixer",
     "compile", "compile.validate", "compile.map", "compile.resolve", "compile.program",
     "remap", "prefill", "decode_tick", "degraded_tick",
 )

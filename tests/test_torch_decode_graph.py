@@ -112,11 +112,12 @@ def _outcomes(tel) -> dict:
 
 
 @pytest.mark.parametrize("arch", [ARCH, "mamba2-2.7b", "jamba-1.5-large-398b",
-                                  "qwen3-moe-235b-a22b"])
+                                  "qwen3-moe-235b-a22b", "granite-4.0-h-small"])
 def test_eager_then_capture_then_replay_equal_eager_steps(arch):
     """First sight eager, second capture, the rest replays; every step's
     logits and the caches (K/V, conv tails, SSD states) equal an eager
-    model's bit for bit, on attention, Mamba-2, hybrid and MoE stacks."""
+    model's bit for bit, on attention, Mamba-2, hybrid and MoE stacks
+    (granite: NoPE attention, a shared expert, the multipliers)."""
     eager, graphed = _compile(arch, fake=False), _compile(arch)
     want, want_caches = _decode(eager, *_start(eager))
     with obs.session() as tel:

@@ -3,7 +3,8 @@ architecture x shape x production mesh runs (or is skipped by the
 reference's rule) with no spec violation and nothing allocated, and a
 cell's per-rank bytes equal those the JAX package's specs give its own
 argument shapes (each leaf's bytes over the product of the mesh axes its
-spec names); the CLI caches each record under ``--out``.
+spec names); the CLI caches each record under ``--out``. An
+architecture the JAX package lacks is held to the port's own counts.
 """
 
 import json
@@ -14,14 +15,16 @@ import jax
 import pytest
 from jax.sharding import PartitionSpec as JP
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_config
 from repro.data import make_input_specs as jax_input_specs
 from repro.distributed import partitioner as jpart
 from repro.launch import steps as jsteps
 from repro.models.config import SHAPES as JSHAPES
-from repro_torch.configs import ARCH_IDS
-from repro_torch.launch import dryrun
-from repro_torch.models.config import SHAPES
+from repro_torch import tree as tree_lib
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.launch import dryrun, steps
+from repro_torch.models.config import SHAPES, shape_applicable
 
 
 def jax_bytes(tree, specs, sizes) -> int:
@@ -35,8 +38,34 @@ def jax_bytes(tree, specs, sizes) -> int:
     return total
 
 
+def _port_only_cells(arch):
+    """An architecture the JAX package lacks (granite-4.0-h-small): every
+    cell validates, and its numbers are the port's own: the model FLOPs
+    from its active parameters, each rank's parameter bytes between an
+    even split of the whole tree and the whole, the parts summing to the
+    total."""
+    cfg = get_config(arch)
+    whole = sum(math.prod(t.shape) * t.element_size()
+                for _, t in tree_lib.leaves_with_paths(steps.param_shapes(cfg)))
+    for multi_pod in (False, True):
+        for name, shape in SHAPES.items():
+            rec = dryrun.cell_specs(arch, name, multi_pod=multi_pod)
+            runs, _ = shape_applicable(cfg, shape)
+            assert runs == (rec["status"] != "skipped") and cfg.sub_quadratic
+            assert rec["status"] == "ok" and rec["violations"] == [], rec
+            assert rec["n_chips"] == (512 if multi_pod else 256)
+            factor = 6 if shape.kind == "train" else 2
+            assert rec["model_flops"] == factor * cfg.active_param_count() * rec["tokens"]
+            got = rec["spec_bytes_per_device"]
+            assert whole / rec["n_chips"] <= got["params"] < whole
+            assert got["total"] == sum(v for k, v in got.items() if k != "total")
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_every_cell_validates_and_counts_the_reference_bytes(arch):
+    if arch not in JAX_ARCH_IDS:
+        _port_only_cells(arch)
+        return
     for multi_pod in (False, True):
         names, sizes = ((("pod", "data", "model"), (2, 16, 16)) if multi_pod
                         else (("data", "model"), (16, 16)))

@@ -747,6 +747,30 @@ class TestRanges:
             profiled, _ = _profiled(run)
         assert profiled == plain and plain
 
+    def test_an_eager_hybrid_step_opens_the_mixer_and_shared_expert_ranges(self):
+        """granite's smoke stack, prefilled and stepped eagerly: every
+        Mamba mixer of each opens ``ssm.mixer`` and every MoE layer
+        ``moe.shared`` (a replayed graph's step opens neither)."""
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models import lm
+
+        cfg = get_smoke_config("granite-4.0-h-small")
+        params = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        cm = compiler.compile(cfg, params, compiler.HardwareTarget(engine="packed"),
+                              device="cpu")
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 5)))
+
+        def step():
+            logits, pre = cm.prefill(tokens)
+            caches = cm.graft_prefill_caches(cm.init_cache(2, 8), pre)
+            return cm.decode_step(torch.argmax(logits, dim=-1), 5, caches)[0]
+
+        _, ranges = _profiled(step)
+        mamba = sum(k.mixer == "mamba" for k in cfg.pattern)
+        assert len(ranges["ssm.mixer"]) == 2 * mamba
+        assert len(ranges["moe.shared"]) == 2 * cfg.n_layers
+        assert all(_inside(r, ranges["model.decode_step"]) for r in ranges["ssm.mixer"][mamba:])
+
 
 def _opened_names() -> set[str]:
     """Every name the port's sources pass to ``obs.range`` or ``obs.span``,
