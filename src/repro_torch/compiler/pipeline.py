@@ -13,13 +13,15 @@
    the plan) and flip the config to ``quant="bnn"`` for non-reference
    engines.
 4. **Program**: the one-time crossbar write (``lm.program_weights``), so
-   decode streams only activations.
+   decode streams only activations; the MoE expert stacks and Mamba
+   projections, plain bf16 products, get their bf16 copies here once.
 
 With a telemetry session active (:mod:`repro_torch.obs`) each stage
 records a span on the ``compile`` track, named as the reference's:
 ``compile.validate``, ``compile.map`` (with the plan's ``policy`` and
 ``n_tiles`` when there is one), ``compile.resolve`` and
-``compile.program`` (ending after the device's programming work) under
+``compile.program`` (ending after the device's programming work; with
+``resident_bytes``, the port's own, where bf16 copies were made) under
 the root ``compile``. The returned :class:`CompiledModel` is what every
 consumer drives: ``prefill()`` / ``prefill_continue()`` /
 ``decode_step()`` for batch loops, ``serve()`` for a
@@ -155,6 +157,9 @@ def _compile_staged(cfg, params, target: HardwareTarget, plan, dev) -> "Compiled
                 synchronize(dev)
                 program_s = time.perf_counter() - t0
                 prog_span.set(programmed=programmed, program_s=program_s)
+                resident = lm_lib.resident_bytes(params)
+                if resident:
+                    prog_span.set(resident_bytes=resident)
     return CompiledModel(
         cfg=cfg, params=params, target=target, plan=plan, engine=base,
         programmed=programmed, program_s=program_s, device=dev,

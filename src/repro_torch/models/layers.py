@@ -46,6 +46,44 @@ def frozen_parameter(t: torch.Tensor | None) -> nn.Parameter | None:
     return None if t is None else nn.Parameter(t, requires_grad=False)
 
 
+# A plain bf16 product's fp32 weights (MoE experts, Mamba projections):
+# ``lm.program_weights`` gives their modules a resident ACT_DTYPE copy of
+# each, the buffer ``<name>_resident``; ``product_weights`` reads it, or
+# casts per call where a module holds none. Each pick is counted in
+# ``model_weight_cast_total{site, outcome="resident"|"cast"}``.
+RESIDENT = "_resident"
+CAST_COUNTER = "model_weight_cast_total"
+CAST_COUNTER_HELP = "plain bf16 products' weight picks: resident copies or a per-call cast"
+
+
+def register_resident_(module: nn.Module, names, resident: bool) -> None:
+    """Register ``<name>_resident`` for each named fp32 parameter of
+    ``module``: with ``resident``, its ACT_DTYPE copy, made by the ``.to``
+    that a per-call cast makes, on the parameter's device and placement,
+    so the products read the same bits; else (or where the parameter is
+    ``None``) ``None``. Buffers, so they follow ``.to(device)``; not
+    saved, as the fp32 leaves are the model's state."""
+    for name in names:
+        w = getattr(module, name)
+        copy = w.detach().to(ACT_DTYPE) if resident and w is not None else None
+        module.register_buffer(name + RESIDENT, copy, persistent=False)
+
+
+def product_weights(module: nn.Module, names, dtype: torch.dtype, site: str) -> list[torch.Tensor]:
+    """``module``'s named fp32 weights in ``dtype`` for a product: the
+    resident copies where it holds them in ``dtype`` and the weights take
+    no grad (a programmed model), else each cast for this call (an
+    unprogrammed model, or one in training, whose latents move)."""
+    ws = [getattr(module, n) for n in names]
+    held = [getattr(module, n + RESIDENT) for n in names]
+    if all(h is not None and h.dtype == dtype for h in held) \
+            and not any(w.requires_grad for w in ws):
+        obs.count(CAST_COUNTER, 1, CAST_COUNTER_HELP, site=site, outcome="resident")
+        return held
+    obs.count(CAST_COUNTER, 1, CAST_COUNTER_HELP, site=site, outcome="cast")
+    return [w.to(dtype) for w in ws]
+
+
 class BitLinear(nn.Module):
     """One projection. Holds either the latent weight ``w`` (m, n) fp32,
     or -- once programmed by ``lm.program_weights`` -- the engine's

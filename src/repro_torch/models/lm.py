@@ -41,6 +41,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     ACT_DTYPE,
     FFN,
+    RESIDENT,
     Attention,
     BitLinear,
     attention_block,
@@ -447,14 +448,22 @@ def _fused_qkv_artifact(attn: Attention, base) -> BitLinear | None:
     )
 
 
-def _rebuild(model: LM, attn_fn, ffn_fn) -> LM:
+def _rebuild(model: LM, attn_fn, ffn_fn, mamba_fn=None, moe_fn=None) -> LM:
     """A new ``LM`` whose blocks hold ``attn_fn(attn)`` and ``ffn_fn(ffn)``
-    in place of their attention and dense FFN; Mamba mixers, MoE FFNs,
-    norms and the embedding are shared."""
+    in place of their attention and dense FFN, and ``mamba_fn(mixer)`` /
+    ``moe_fn(ffn)`` in place of their Mamba mixers and MoE FFNs where
+    given (else those are shared); norms and the embedding are shared."""
     blocks = []
     for blk in model.blocks:
-        mixer = attn_fn(blk.mixer) if isinstance(blk.mixer, Attention) else blk.mixer
-        f = ffn_fn(blk.ffn) if isinstance(blk.ffn, FFN) else blk.ffn
+        mixer, f = blk.mixer, blk.ffn
+        if isinstance(mixer, Attention):
+            mixer = attn_fn(mixer)
+        elif mamba_fn is not None:
+            mixer = mamba_fn(mixer)
+        if isinstance(f, FFN):
+            f = ffn_fn(f)
+        elif isinstance(f, moe_lib.MoE) and moe_fn is not None:
+            f = moe_fn(f)
         blocks.append(Block(blk.norm1, mixer, blk.norm2, f))
     return LM(model.embed, model.final_norm, model.head, blocks, model.n_slots)
 
@@ -474,10 +483,15 @@ def program_weights(model: LM, cfg: ModelConfig, engine) -> tuple[LM, int]:
     ``BitLinear`` is replaced by one holding the prepared artifact and
     its ``alpha`` (the latent weight is dropped, as the hardware holds
     only cell states), plus the fused [q|k|v] artifact for fused
-    engines. Mamba projections and MoE experts are plain matmuls in the
-    reference and stay so. Returns ``(programmed_model, n_programmed)``;
-    the input model is not mutated (unchanged tensors are shared). No-op
-    unless ``cfg.quant == "bnn"`` and an engine is bound."""
+    engines. Mamba projections and MoE experts are plain bf16 matmuls in
+    the reference and stay so, but of weights made resident here: each
+    Mamba mixer and MoE FFN is replaced by one over the same fp32 leaves
+    that also holds their bf16 copies (its six projections; the routed
+    and shared expert stacks, the router kept fp32), cast once here where
+    the products would cast them on every call (:func:`resident_bytes`).
+    Returns ``(programmed_model, n_programmed)``; the input model is not
+    mutated (unchanged tensors are shared). No-op unless ``cfg.quant ==
+    "bnn"`` and an engine is bound."""
     if cfg.quant != "bnn" or engine is None:
         return model, 0
     base = getattr(engine, "base", engine)  # unwrap a GroupedEngine
@@ -494,9 +508,23 @@ def program_weights(model: LM, cfg: ModelConfig, engine) -> tuple[LM, int]:
     def dense_ffn(f: FFN) -> FFN:
         return FFN(*(_program(getattr(f, name), base) for name in BINARIZED_PROJECTIONS["ffn"]))
 
+    def mamba(m: ssm_lib.Mamba) -> ssm_lib.Mamba:
+        leaves = {n: getattr(m, n) for n in m.PROJECTIONS + m.VECTORS}
+        return ssm_lib.Mamba(resident=True, **leaves)
+
+    def moe(f: moe_lib.MoE) -> moe_lib.MoE:
+        return moe_lib.MoE(*(getattr(f, n) for n in f.LEAVES + f.SHARED), resident=True)
+
     n = sum(len(BINARIZED_PROJECTIONS[part]) for blk in model.blocks
             for part, _ in _binarized_parts(blk))
-    return _rebuild(model, attn, dense_ffn), n
+    return _rebuild(model, attn, dense_ffn, mamba, moe), n
+
+
+def resident_bytes(model: LM) -> int:
+    """Bytes of the bf16 copies :func:`program_weights` made resident
+    (0 for a model it did not program)."""
+    return sum(t.numel() * t.element_size() for name, t in model.named_buffers()
+               if name.endswith(RESIDENT))
 
 
 def programmed_projections(model: LM):

@@ -9,7 +9,12 @@ Kept assignments scatter into a dense (B, E, C, d) bf16 buffer; every
 expert runs its SwiGLU over its whole (C, d) buffer, zeros included, in
 bf16 with the SiLU in fp32; the gated results combine back per token.
 A layer with a shared expert (Granite-4.0-H's) adds its SwiGLU of every
-token to the routed combine, computed and cast the same way.
+token to the routed combine, computed the same way. The expert stacks
+are fp32 leaves; their products read the bf16 copies that
+``lm.program_weights`` makes once for serving (``MoE(...,
+resident=True)``), or cast them per call where a module holds none (an
+unprogrammed model, or one in training): the same bits either way
+(``layers.product_weights``).
 
 Per-row arithmetic does not depend on how many rows share a call, which
 batched == solo serving needs on the card: the router runs in
@@ -41,21 +46,33 @@ from repro_torch import obs
 from repro_torch.kernels.flash_attention import rowblock_matmul
 from repro_torch.kernels.ops import row_sum
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ACT_DTYPE, frozen_parameter, per_sequence, seq_matmul
+from repro_torch.models.layers import (
+    ACT_DTYPE,
+    frozen_parameter,
+    per_sequence,
+    product_weights,
+    register_resident_,
+    seq_matmul,
+)
 
 
 class MoE(nn.Module):
     """The router (d, E) and the expert stacks ``w1`` / ``w3`` (E, d, f)
     and ``w2`` (E, f, d), fp32; optionally a shared expert, ``ws1`` /
     ``ws3`` (d, fs) and ``ws2`` (fs, d), fp32 and real-valued like the
-    routed ones (``None`` without one)."""
+    routed ones (``None`` without one). With ``resident`` each expert
+    stack also has its bf16 copy, ``<name>_resident``
+    (``layers.register_resident_``); the router stays fp32, as its
+    product is."""
 
     LEAVES = ("router", "w1", "w3", "w2")
     SHARED = ("ws1", "ws3", "ws2")
+    ROUTED = ("w1", "w3", "w2")
 
     def __init__(self, router: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                  w2: torch.Tensor, ws1: torch.Tensor | None = None,
-                 ws3: torch.Tensor | None = None, ws2: torch.Tensor | None = None):
+                 ws3: torch.Tensor | None = None, ws2: torch.Tensor | None = None, *,
+                 resident: bool = False):
         super().__init__()
         if len({t is None for t in (ws1, ws3, ws2)}) > 1:
             raise ValueError("a shared expert takes all of ws1, ws3 and ws2")
@@ -65,6 +82,7 @@ class MoE(nn.Module):
         self.w2 = frozen_parameter(w2)
         for name, t in zip(self.SHARED, (ws1, ws3, ws2)):
             self.register_parameter(name, frozen_parameter(t))
+        register_resident_(self, self.ROUTED + self.SHARED, resident)
 
     @property
     def has_shared(self) -> bool:
@@ -122,20 +140,21 @@ def experts(p: MoE, expert_in: torch.Tensor, per_sequence: bool = False) -> torc
     bf16 -> (B, E, C, d) bf16. With ``per_sequence`` each sequence's
     (E, C, d) buffer takes one batched product (``layers.per_sequence``),
     else the (E, B C, d) rows take ``ROW_BLOCK``-row ones."""
+    ws = product_weights(p, MoE.ROUTED, expert_in.dtype, "moe.experts")
     if per_sequence:
-        return torch.cat([_swiglu(xe, p.w1, p.w3, p.w2, torch.matmul)
-                          for xe in expert_in.split(1)])
+        return torch.cat([_swiglu(xe, *ws, torch.matmul) for xe in expert_in.split(1)])
     b, e, c, d = expert_in.shape
     xe = expert_in.transpose(0, 1).reshape(e, b * c, d)
-    out = _swiglu(xe, p.w1, p.w3, p.w2, lambda x, w: rowblock_matmul(x, w, 0))
+    out = _swiglu(xe, *ws, lambda x, w: rowblock_matmul(x, w, 0))
     return out.reshape(e, b, c, -1).transpose(0, 1)
 
 
 def _swiglu(x, w1, w3, w2, matmul) -> torch.Tensor:
-    """``w2(silu(x w1) * x w3)`` in bf16 products of the fp32 weights,
-    cast per call, the SiLU in fp32."""
-    h = matmul(x, w1.to(x.dtype))
-    g = matmul(x, w3.to(x.dtype))
+    """``w2(silu(x w1) * x w3)`` in bf16 products of the weights as
+    ``layers.product_weights`` gives them (in x's dtype; ``w2`` taken to
+    the bf16 of ``h``, a no-op for bf16 x), the SiLU in fp32."""
+    h = matmul(x, w1)
+    g = matmul(x, w3)
     hf = h.to(torch.float32)
     h = (hf * torch.sigmoid(hf)).to(ACT_DTYPE) * g.to(ACT_DTYPE)  # silu, as x * sigmoid(x)
     return matmul(h, w2.to(h.dtype))
@@ -144,7 +163,7 @@ def _swiglu(x, w1, w3, w2, matmul) -> torch.Tensor:
 def shared_expert(p: MoE, x: torch.Tensor) -> torch.Tensor:
     """The shared expert's SwiGLU of every row: (B, S, d) bf16 -> (B, S,
     d) bf16, its products taking the rows as ``layers.seq_matmul`` does."""
-    return _swiglu(x, p.ws1, p.ws3, p.ws2, seq_matmul)
+    return _swiglu(x, *product_weights(p, MoE.SHARED, x.dtype, "moe.shared"), seq_matmul)
 
 
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:

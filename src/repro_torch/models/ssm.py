@@ -2,7 +2,9 @@
 ``repro/models/ssm.py``).
 
 The reference's layout and arithmetic: unfused input projections (z, x,
-B, C, dt) and ``out_proj`` as plain bf16 matmuls (never BitLinears), the
+B, C, dt) and ``out_proj`` as plain bf16 matmuls (never BitLinears; of
+the bf16 copies ``lm.program_weights`` makes once for serving, or cast
+per call where a mixer holds none: ``layers.product_weights``), the
 depthwise causal conv split to match them, the chunked SSD scan in fp32
 (intra-chunk (Q x Q) blocks, chunk end-states, an inter-chunk recurrence
 that here is a Python loop over chunks where the reference has a
@@ -39,6 +41,8 @@ from repro_torch.models.layers import (
     gathered,
     hinted,
     lane_blocks,
+    product_weights,
+    register_resident_,
     rms_norm,
     seq_matmul,
 )
@@ -49,19 +53,22 @@ SSD_CHUNK = 256
 class Mamba(nn.Module):
     """One Mamba-2 mixer's fp32 parameters, named as the reference's
     leaves: the projections (``PROJECTIONS``, each (d_in, d_out); in the
-    reference's tree ``{"w": ...}``) and the rest (``VECTORS``)."""
+    reference's tree ``{"w": ...}``) and the rest (``VECTORS``). With
+    ``resident`` each projection also has its bf16 copy,
+    ``<name>_resident`` (``layers.register_resident_``)."""
 
     PROJECTIONS = ("z_proj", "x_proj", "b_proj", "c_proj", "dt_proj", "out_proj")
     VECTORS = ("conv_x", "conv_b", "conv_c", "conv_bias_x", "conv_bias_b", "conv_bias_c",
                "A_log", "D", "dt_bias", "norm")
 
-    def __init__(self, **leaves: torch.Tensor):
+    def __init__(self, *, resident: bool = False, **leaves: torch.Tensor):
         super().__init__()
         want = set(self.PROJECTIONS + self.VECTORS)
         if set(leaves) != want:
             raise ValueError(f"Mamba takes {sorted(want)}, got {sorted(leaves)}")
         for name in self.PROJECTIONS + self.VECTORS:
             setattr(self, name, frozen_parameter(leaves[name]))
+        register_resident_(self, self.PROJECTIONS, resident)
 
     def leaves(self) -> dict:
         """The parameters in the reference's slot layout."""
@@ -274,7 +281,7 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _project(p: Mamba, u: torch.Tensor, name: str) -> torch.Tensor:
-    w = getattr(p, name).to(u.dtype)
+    (w,) = product_weights(p, (name,), u.dtype, "ssm.project")
     if name in ("b_proj", "c_proj") and not _training(u):
         # serving: B and C (replicated over the model axis) are left to
         # DTensor, which splits their rows over it, as the reference's

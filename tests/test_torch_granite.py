@@ -39,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_resident
 
 from repro_torch import compiler
 from repro_torch.configs import ARCH_IDS, SERVED, get_config, get_smoke_config
@@ -322,3 +323,45 @@ def test_only_the_flagged_prefill_runs_inside_the_context(arch, monkeypatch):
         seen.clear()
         lm.decode_step(model, ids[:, 0], 0, lm.init_cache(cfg, 1, 16, device="cpu"), cfg)
     assert seen and not any(seen)
+
+
+# ---------------------------------------------------------------------------
+# Resident bf16 weights (lm.program_weights) == the per-call cast
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graph"])
+def test_resident_weights_give_the_per_call_casts_bits(graphed):
+    """granite's prefill (one product per sequence) and decode_step,
+    eager or replayed, on the programmed model (routed and shared expert
+    stacks, Mamba projections) == on the same model casting per call,
+    bit for bit."""
+    torch_resident.assert_resident_equals_cast(ARCH, graphed)
+
+
+def test_programming_leaves_the_input_model_and_the_fp32_leaves_as_they_were():
+    torch_resident.assert_programming_leaves_the_input_as_it_was(ARCH)
+
+
+def test_an_optimizer_step_after_compile_moves_neither_outputs_nor_copies():
+    """A model in training is compiled from a copy: an optimizer step on
+    it afterwards leaves the compiled model's outputs and its resident
+    copies as they were."""
+    cfg = get_smoke_config(ARCH)
+    model = lm.init_params(torch.Generator().manual_seed(2), cfg, device="cpu")
+    model.requires_grad_(True)
+    cm = compiler.compile(cfg, model, compiler.HardwareTarget(engine="packed"), device="cpu")
+    copies = {n: t.clone() for n, t in torch_resident.residents(cm.params).items()}
+    assert copies
+    want = torch_resident.outputs(cm, graphed=False)
+    opt = torch.optim.SGD(model.parameters(), lr=0.5)
+    logits, _ = lm.prefill(model, _ids(cfg, 2, 8)[None], cfg)
+    logits.square().mean().backward()
+    before = {n: t.detach().clone() for n, t in model.named_parameters()}
+    opt.step()
+    moved = [n for n, t in model.named_parameters() if not torch.equal(t, before[n])]
+    assert any(".ffn.w1" in n for n in moved) and any("mixer.x_proj" in n for n in moved)
+    assert all(torch.equal(t, copies[n])
+               for n, t in torch_resident.residents(cm.params).items())
+    got = torch_resident.outputs(cm, graphed=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -24,9 +24,12 @@ import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import moe as jax_moe
+import torch_resident
+from repro_torch import obs
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import moe_from_jax
 from repro_torch.models import moe
+from repro_torch.models.layers import CAST_COUNTER
 
 # smoke shapes gain nothing from intra-op threads, which only contend
 # with the other test workers
@@ -138,3 +141,48 @@ def test_rows_do_not_depend_on_the_row_count():
     for n in (1, 3):
         part, _ = moe.moe_ffn(m, x[:n], cfg)
         assert torch.equal(part, full[:n])
+
+
+# ---------------------------------------------------------------------------
+# Resident bf16 expert stacks (lm.program_weights) == the per-call cast
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graph"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "jamba-1.5-large-398b"])
+def test_resident_expert_stacks_give_the_per_call_casts_bits(arch, graphed):
+    """prefill, prefill_continue (attention-only stacks) and decode_step,
+    eager or replayed, on the programmed model == on the same model
+    casting per call, bit for bit."""
+    torch_resident.assert_resident_equals_cast(arch, graphed)
+
+
+def test_programming_leaves_the_input_model_and_the_fp32_leaves_as_they_were():
+    torch_resident.assert_programming_leaves_the_input_as_it_was("qwen3-moe-235b-a22b")
+
+
+@pytest.mark.parametrize("programmed", [False, True])
+def test_a_model_with_grad_casts_from_its_live_latents(programmed):
+    """Leaves that require grad are cast per call, resident copies or
+    not, and the output follows a change of a latent (and the gradient
+    reaches it)."""
+    cfg = get_smoke_config("qwen3-moe-235b-a22b")
+    p = jax_moe.moe_init(jax.random.key(5), jax_smoke_config("qwen3-moe-235b-a22b"))
+    m = moe_from_jax(jax.tree.map(np.asarray, p), device="cpu")
+    if programmed:
+        m = moe.MoE(*(getattr(m, n) for n in moe.MoE.LEAVES), resident=True)
+        assert m.w1_resident is not None
+    m.requires_grad_(True)
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(2, 4, cfg.d_model))
+                         .astype(np.float32)).to(torch.bfloat16)
+    with obs.session() as tel:
+        y0, _ = moe.moe_ffn(m, x, cfg)
+    c = tel.metrics.counter(CAST_COUNTER)
+    assert {dict(k)["outcome"] for k in c._series} == {"cast"}
+    y0.float().sum().backward()
+    assert m.w1.grad is not None and m.w1.grad.abs().sum() > 0
+    with torch.no_grad():
+        m.w1.mul_(-1.0)
+        m.w2.mul_(2.0)
+        y1, _ = moe.moe_ffn(m, x, cfg)
+    assert not torch.equal(y0.detach(), y1)

@@ -772,6 +772,63 @@ class TestRanges:
         assert all(_inside(r, ranges["model.decode_step"]) for r in ranges["ssm.mixer"][mamba:])
 
 
+# ---------------------------------------------------------------------------
+# model_weight_cast_total: resident copies or a per-call cast, by site
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "granite-4.0-h-small"])
+def test_a_compiled_model_reads_resident_weights_and_an_uncompiled_one_casts(arch):
+    """A prefill and decode steps count one weight pick per MoE layer
+    (``moe.experts``, ``moe.shared`` with a shared expert) and six per
+    Mamba mixer (``ssm.project``) per call: all ``resident`` on the
+    model compiled onto ``packed`` (whose ``compile.program`` span
+    records the copies' bytes), all ``cast`` on the uncompiled one."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.models.layers import CAST_COUNTER
+
+    cfg = get_smoke_config(arch)
+    model = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 5)))
+    calls = 1 + GEN
+    moe_layers = sum(k.moe for k in cfg.pattern) * cfg.n_repeats
+    mamba_layers = sum(k.mixer == "mamba" for k in cfg.pattern) * cfg.n_repeats
+    sites = {"moe.experts": moe_layers * calls}
+    if cfg.moe_shared_ff:
+        sites["moe.shared"] = moe_layers * calls
+    if mamba_layers:
+        sites["ssm.project"] = 6 * mamba_layers * calls
+
+    def counts(tel) -> dict:
+        c = tel.metrics.counter(CAST_COUNTER)
+        return {(dict(k)["site"], dict(k)["outcome"]): int(v.value) for k, v in c._series.items()}
+
+    def run(prefill, step, init_cache):
+        logits, pre = prefill(tokens)
+        caches = init_cache(2, 5 + GEN)
+        for slot, kv in pre.items():
+            for name, t in kv.items():
+                lm.graft_cache_(caches[slot][name], t, name)
+        tok = torch.argmax(logits, dim=-1)
+        for i in range(GEN):
+            logits, caches = step(tok, 5 + i, caches)
+            tok = torch.argmax(logits, dim=-1)
+
+    with obs.session() as tel:
+        cm = compiler.compile(cfg, model, compiler.HardwareTarget(engine="packed"), device="cpu")
+        run(cm.prefill, cm.decode_step, cm.init_cache)
+    assert counts(tel) == {(site, "resident"): n for site, n in sites.items()}
+    (program,) = tel.tracer.spans("compile.program")
+    assert program.attrs["resident_bytes"] == lm.resident_bytes(cm.params) > 0
+
+    with obs.session() as tel, torch.no_grad():
+        run(lambda t: lm.prefill(model, t, cfg),
+            lambda t, pos, c: lm.decode_step(model, t, pos, c, cfg),
+            lambda b, n: lm.init_cache(cfg, b, n, device="cpu"))
+    assert counts(tel) == {(site, "cast"): n for site, n in sites.items()}
+
+
 def _opened_names() -> set[str]:
     """Every name the port's sources pass to ``obs.range`` or ``obs.span``,
     a module constant resolved to its string."""

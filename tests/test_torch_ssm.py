@@ -22,9 +22,12 @@ import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import ssm as jax_ssm
+import torch_resident
+from repro_torch import obs
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import mamba_from_jax
 from repro_torch.models import ssm
+from repro_torch.models.layers import CAST_COUNTER
 
 # smoke shapes gain nothing from intra-op threads, which only contend
 # with the other test workers
@@ -155,3 +158,43 @@ def test_decode_lanes_do_not_depend_on_the_lane_count():
         assert torch.equal(out, out_full[:n])
         for key in part:
             assert torch.equal(part[key], full[key][:n])
+
+
+# ---------------------------------------------------------------------------
+# Resident bf16 projections (lm.program_weights) == the per-call cast
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graph"])
+def test_resident_projections_give_the_per_call_casts_bits(graphed):
+    """mamba2's prefill and decode_step, eager or replayed, on the
+    programmed model == on the same model casting per call, bit for bit."""
+    torch_resident.assert_resident_equals_cast(ARCH, graphed)
+
+
+def test_programming_leaves_the_input_mixers_and_the_fp32_leaves_as_they_were():
+    torch_resident.assert_programming_leaves_the_input_as_it_was(ARCH)
+
+
+@pytest.mark.parametrize("programmed", [False, True])
+def test_a_mixer_with_grad_casts_from_its_live_latents(programmed):
+    """Projections that require grad are cast per call, resident copies
+    or not: a changed projection moves the output, and the gradient
+    reaches it."""
+    _, cfg, _, m = _mixer(3)
+    if programmed:
+        m = ssm.Mamba(resident=True, **{n: getattr(m, n) for n in m.PROJECTIONS + m.VECTORS})
+        assert m.out_proj_resident is not None
+    m.requires_grad_(True)
+    u = torch.from_numpy(np.random.default_rng(7).normal(size=(2, 5, cfg.d_model))
+                         .astype(np.float32)).to(torch.bfloat16)
+    with obs.session() as tel:
+        y0, _ = ssm.mamba_block(m, u, cfg)
+    c = tel.metrics.counter(CAST_COUNTER)
+    assert {dict(k)["outcome"] for k in c._series} == {"cast"}
+    y0.float().sum().backward()
+    assert m.out_proj.grad is not None and m.out_proj.grad.abs().sum() > 0
+    with torch.no_grad():
+        m.out_proj.mul_(-1.0)
+        y1, _ = ssm.mamba_block(m, u, cfg)
+    assert torch.equal(y1, -y0.detach())

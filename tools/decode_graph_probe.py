@@ -1,6 +1,7 @@
 """How a benchmark cell's decode steps ran: the cell's untraced run with
 the port's telemetry on, then ``model_decode_graph_total`` by outcome
-(eager by its reason) beside the result line.
+(eager by its reason) and ``model_weight_cast_total`` by site and
+outcome (``resident`` or ``cast``) beside the result line.
 
     python3 tools/decode_graph_probe.py --workload internvl2.caption-batch32 \\
         --seeds 1,2 --seconds 51
@@ -43,6 +44,7 @@ def main(argv=None) -> int:
     from bench.spec import load_cell
     from repro_torch import obs
     from repro_torch.compiler import decode_graph
+    from repro_torch.models.layers import CAST_COUNTER
 
     cell = load_cell(args.workload)
     for seed in (int(s) for s in args.seeds.split(",")):
@@ -53,6 +55,8 @@ def main(argv=None) -> int:
         for key, child in tel.metrics.counter(decode_graph.COUNTER)._series.items():
             labels = dict(key)
             series[labels.get("reason", labels["outcome"])] = int(child.value)
+        casts = {f'{dict(key)["site"]}/{dict(key)["outcome"]}': int(child.value)
+                 for key, child in tel.metrics.counter(CAST_COUNTER)._series.items()}
         meta = out["meta"]
         if cell.traffic["loop"] == "waves":  # each wave: a prefill's token, then steps
             steps = meta["tokens"] // cell.traffic["batch"] - meta["prefill_s_n"]
@@ -63,7 +67,8 @@ def main(argv=None) -> int:
                           "decode_tok_s": r["metrics"]["decode_tok_s"]["value"],
                           "setup_s": r["metrics"]["setup_s"]["value"],
                           "check": {k: v["value"] for k, v in r["check"].items()},
-                          "decode_graph_total": series, "window_steps": int(steps),
+                          "decode_graph_total": series, "weight_cast_total": casts,
+                          "window_steps": int(steps),
                           "peak_bytes": r["device"]["memory_peak_bytes"]}), flush=True)
         del out
         gc.collect()
