@@ -1168,8 +1168,7 @@ def row_count_check(device: str = "cuda") -> dict:
     asserts the port's padded or blocked forms give equal bits."""
     import torch
 
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import rowblock_matmul
+    from repro_torch.kernels import rows
     from repro_torch.models import layers
 
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -1179,7 +1178,7 @@ def row_count_check(device: str = "cuda") -> dict:
     kc, vc = (torch.randn((8, 160, 4, 64), generator=gen, device=device).to(torch.bfloat16)
               for _ in range(2))
     lens = torch.full((8,), 101, device=device)
-    rows = (1, 2, 8, 15)
+    counts = (1, 2, 8, 15)
 
     def same(f, full, n):
         """Largest |difference| of the first r rows, computed alone,
@@ -1187,16 +1186,16 @@ def row_count_check(device: str = "cuda") -> dict:
         return max((f(r).float() - full[:r].float()).abs().max().item() for r in n)
 
     lib = {
-        "mean": same(lambda r: (x[:r] * x[:r]).mean(-1), (x * x).mean(-1), rows),
-        "fp32 matmul": same(lambda r: x[:r] @ w, x @ w, rows),
+        "mean": same(lambda r: (x[:r] * x[:r]).mean(-1), (x * x).mean(-1), counts),
+        "fp32 matmul": same(lambda r: x[:r] @ w, x @ w, counts),
         "decode attention in one call": same(
             lambda r: layers._decode_block(q[:r], kc[:r], vc[:r], lens[:r]),
             layers._decode_block(q, kc, vc, lens), (1, 2, 4)),
     }
     port = {
-        "ops.row_mean": same(lambda r: ops.row_mean(x[:r] * x[:r]), ops.row_mean(x * x), rows),
-        "rowblock_matmul": same(lambda r: rowblock_matmul(x[:r], w, 0),
-                                rowblock_matmul(x, w, 0), rows),
+        "rows.row_mean": same(lambda r: rows.row_mean(x[:r] * x[:r]), rows.row_mean(x * x),
+                              counts),
+        "rows.matmul": same(lambda r: rows.matmul(x[:r], w), rows.matmul(x, w), counts),
         "layers.decode_attention": same(
             lambda r: layers.decode_attention(q[:r], kc[:r], vc[:r], lens[:r]),
             layers.decode_attention(q, kc, vc, lens), (1, 2, 4)),
@@ -1214,7 +1213,7 @@ FLEET_REQUESTS, FLEET_PREFIXES, PREFIX_LEN, SUFFIX = 16, 4, 256, (32, 96)
 REQUEST_SEED = 1
 CONT_PROMPT, CONT_CUT = 320, 256
 # a suffix below 16 rows takes CUDA's other reduction layout unless the
-# port pads it (ops.row_mean): the graft must stay exact there too
+# port pads it (rows.row_mean): the graft must stay exact there too
 SHORT_SUFFIXES = (16, 8, 1)
 # the flash path rounds attention differently from the plain-ops path (p
 # stays fp32 for P.V where the plain path rounds p and v to bf16). One
@@ -3614,11 +3613,12 @@ def _ep_part(rank: int, world: int, device: str, smoke: bool) -> dict:
     from repro_torch.device import synchronize
     from repro_torch.distributed import ep
     from repro_torch.distributed.hints import activation_hints
+    from repro_torch.kernels import rows as rows_lib
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import lm
     from repro_torch.models import moe as moe_lib
-    from repro_torch.models.layers import ACT_DTYPE, rms_norm, row_matmul
+    from repro_torch.models.layers import ACT_DTYPE, rms_norm
 
     on_card = device == "cuda"
     dev = torch.device(device)
@@ -3676,7 +3676,7 @@ def _ep_part(rank: int, world: int, device: str, smoke: bool) -> dict:
         cfg125 = dataclasses.replace(cfg, moe_capacity_factor=base.moe_capacity_factor)
         cap = ep.capacity(rows * PROMPT, cfg125, world)
         x2d = hn.reshape(-1, cfg.d_model)
-        keep = ep._local_dispatch(x2d, row_matmul(x2d.float(), blk.ffn.router), world,
+        keep = ep._local_dispatch(x2d, rows_lib.matmul(x2d.float(), blk.ffn.router), world,
                                   cfg.moe_experts // world, cfg.moe_top_k, cap)[-1]
         (y125, _), ep125_ms = timed(lambda: ep.ep_moe_ffn(blk.ffn, hn, cfg125, mesh))
     if not bool((err <= bound).all()):

@@ -21,7 +21,7 @@ function:
 * the reference gathers a weight matrix per received row (``w1[sel]``,
   (R C, d, f): ~64 GB per projection at qwen3-moe's full width); the
   port groups the received rows by local expert and runs one row-blocked
-  product per expert (``rowblock_matmul``), so a row's bits do not
+  product per expert (``rows.matmul``), so a row's bits do not
   depend on how many rows share its expert;
 * the reference's out-of-range scatters (``mode="drop"``) are an
   explicit ``keep`` mask here; nothing is indexed out of range.
@@ -46,11 +46,9 @@ from repro_torch.distributed.collectives import (
     axis_size,
     group_of,
 )
-from repro_torch.kernels import trips
-from repro_torch.kernels.flash_attention import rowblock_matmul
+from repro_torch.kernels import rows
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import row_matmul
 
 
 def _axis(mesh, axis: str):
@@ -129,28 +127,28 @@ def _expert_ffn(recv: torch.Tensor, recv_eid: torch.Tensor, w1: torch.Tensor,
     """(N, d) rows with local-expert ids (-1: an empty slot) -> (N, d)
     outputs, zero at the empty slots. The rows are grouped by expert (a
     stable sort: one host read of the counts) and each expert runs its
-    SwiGLU -- bf16 products in ``ROW_BLOCK``-row blocks, the SiLU in fp32
+    SwiGLU -- bf16 products in 16-row blocks, the SiLU in fp32
     -- on its rows only."""
     n, d = recv.shape
     e_local = w1.shape[0]
     key = torch.where(recv_eid >= 0, recv_eid, e_local)
     order = torch.argsort(key, stable=True)
-    if trips.ACTIVE is not None:  # a trace holds no values: the rows split evenly
+    if rows.ACTIVE is not None:  # a trace holds no values: the rows split evenly
         counts = [n // e_local + (e < n % e_local) for e in range(e_local)]
     else:
         counts = torch.bincount(key, minlength=e_local + 1).tolist()
-    rows = recv[order]
+    grouped = recv[order]
     outs, start = [], 0
     for e in range(e_local):
         c = counts[e]
         if c == 0:
             continue
-        xe = rows[start : start + c]
-        h = rowblock_matmul(xe, w1[e].to(xe.dtype), 0)
-        g = rowblock_matmul(xe, w3[e].to(xe.dtype), 0)
+        xe = grouped[start : start + c]
+        h = rows.matmul(xe, w1[e].to(xe.dtype))
+        g = rows.matmul(xe, w3[e].to(xe.dtype))
         hf = h.to(torch.float32)
         h = (hf * torch.sigmoid(hf)).to(xe.dtype) * g  # silu, as x * sigmoid(x)
-        outs.append(rowblock_matmul(h, w2[e].to(h.dtype), 0))
+        outs.append(rows.matmul(h, w2[e].to(h.dtype)))
         start += c
     out = recv.new_zeros((n, d))
     if not outs:
@@ -185,7 +183,7 @@ def ep_moe_ffn(p: moe_lib.MoE, x: torch.Tensor, cfg: ModelConfig, mesh,
     cap = capacity(t, cfg, n_ranks)
 
     x2d = x.reshape(t, d)
-    logits = row_matmul(x2d.to(torch.float32), p.router)
+    logits = rows.matmul(x2d.to(torch.float32), p.router)
     send, send_eid, _, gates, top_idx, dest, slot, keep = _local_dispatch(
         x2d, logits, n_ranks, e_local, k, cap)
     # buckets travel: (R, C, .) sent -> (R, C, .) received from each rank

@@ -52,7 +52,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, trips
+from repro_torch.kernels import _build, rows
 
 # launches of the CUDA kernel since the last reset (the plain version
 # does not count), in all and per variant
@@ -62,28 +62,10 @@ launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 NEG_INF = -1e30
 KEY_TILE = 64          # keys per tile (the sm90 variant's wgmma N)
-ROW_BLOCK = 16         # query rows per block of the plain contractions
 HEAD_DIMS = (64, 128)  # head dims the CUDA kernel is built for
 
 _ENTRY = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
 _SM90_ENTRY = "flash_attention_sm90"
-
-
-def rowblock_matmul(a: torch.Tensor, b: torch.Tensor, first_row: int) -> torch.Tensor:
-    """``a @ b`` for a (..., M, K) x (..., K, N), computed in blocks of
-    :data:`ROW_BLOCK` rows aligned to absolute row ``first_row + i``, one
-    product call per block.
-
-    A GEMM picks its algorithm by shape (a CPU GEMM takes another path for
-    a handful of rows, a CUDA one by M and batch count), so its per-row
-    arithmetic can depend on M. Here every row is computed by a call of
-    one shape, at the offset its absolute position gives it, so a row's
-    bits do not depend on how many rows share the product: a
-    continuation's rows equal the full pass's, a lane's equal its solo
-    run's.
-    """
-    return trips.row_blocks(lambda a, b: torch.matmul(a.contiguous(), b), (a,), (b,),
-                            dim=-2, front=first_row % ROW_BLOCK)
 
 
 def split_bf16x3(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -147,8 +129,8 @@ def flash_attention_plain(
     """The kernel's arithmetic in plain PyTorch ops: q, k, v in fp32, the
     online softmax over key tiles of :data:`KEY_TILE`, p kept in fp32 for
     the P.V product, ``p = 0`` where ``s <= NEG_INF / 2``. Returns q's
-    dtype. The products run through :func:`rowblock_matmul`, so each row
-    is independent of Sq here too."""
+    dtype. The products run through ``rows.matmul``, so each row is
+    independent of Sq here too."""
     diag = _check(q, k, v, causal)
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
@@ -163,7 +145,7 @@ def flash_attention_plain(
         kt = k[:, head_map, k0 : k0 + KEY_TILE].to(torch.float32)  # (B, H, C, D)
         vt = v[:, head_map, k0 : k0 + KEY_TILE].to(torch.float32)
         k_pos = torch.arange(k0, k0 + kt.shape[2], device=q.device)
-        s = rowblock_matmul(qf, kt.transpose(-1, -2), diag) * scale
+        s = rows.matmul(qf, kt.transpose(-1, -2), diag) * scale
         if causal:
             s = torch.where(k_pos[None, :] <= q_pos[:, None], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -171,7 +153,7 @@ def flash_attention_plain(
         p = torch.where(s <= NEG_INF / 2, 0.0, p)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + rowblock_matmul(p, vt, diag)
+        acc = acc * corr[..., None] + rows.matmul(p, vt, diag)
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
 

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import bitlinear as _bitlinear_kernel
-from repro_torch.kernels import trips
+from repro_torch.kernels import rows
 from repro_torch.kernels import fused_decode as _fused_kernel
 from repro_torch.kernels import wdm_mmm as _wdm_kernel
 from repro_torch.kernels import xnor_matmul as _xnor_kernel
@@ -29,36 +29,6 @@ WORD = 32
 # reference's (``repro.kernels.xnor_matmul.DEFAULT_BKW`` / ``DEFAULT_BN``).
 PREPAD_WORDS = 16
 PREPAD_COLS = 128
-
-
-# CUDA's reduction kernel lays out fewer rows than this differently (a
-# wider block, another summation tree), so a row's mean would depend on
-# how many rows share the call; smaller calls are padded to this many.
-MEAN_ROWS = 16
-
-
-def _row_reduce(x: torch.Tensor, reduce) -> torch.Tensor:
-    if trips.ACTIVE is not None and trips.is_sharded(x):  # a step analysis: no flattening
-        return reduce(x).unsqueeze(-1)                      # of a sharded dim
-    x2 = x.reshape(-1, x.shape[-1])
-    rows = x2.shape[0]
-    if rows < MEAN_ROWS:
-        x2 = F.pad(x2, (0, 0, 0, MEAN_ROWS - rows))
-    return reduce(x2)[:rows].reshape(*x.shape[:-1], 1)
-
-
-def row_mean(x: torch.Tensor) -> torch.Tensor:
-    """Mean over the last dim, keepdim, with per-row arithmetic that does
-    not depend on the number of rows in the call: a decode tick of 8
-    lanes, one request alone, a 1-token continuation and a full prefill
-    give each row the same bits (the serving invariants need it; the CPU
-    reduction has the property already, and padding leaves it so)."""
-    return _row_reduce(x, lambda x2: x2.mean(dim=-1))
-
-
-def row_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last dim, keepdim, padded as :func:`row_mean` is."""
-    return _row_reduce(x, lambda x2: x2.sum(dim=-1))
 
 
 # ---------------------------------------------------------------------------
@@ -150,13 +120,13 @@ def fused_bnn_matmul(
     (..., m) raw activations x (ceil(m/32), n) words x alpha -> (..., n)
     fp32 of ``(binarize(x) @ w±1) * (alpha * beta)`` with ``beta =
     mean|x|`` per row, computed here in fp32 with the same expression as
-    ``models.layers.dense`` (:func:`row_mean`). ``alpha`` is a scalar or an (n,) vector (the
-    concatenated [q|k|v] projection). Leading dims flatten, so stacked
+    ``models.layers.dense`` (``rows.row_mean``). ``alpha`` is a scalar or
+    an (n,) vector (the concatenated [q|k|v] projection). Leading dims flatten, so stacked
     (G, K, m) groups are one launch. bf16 and fp32 activations go to the
     kernel as they are; other dtypes are cast to fp32.
     """
     lead = x.shape[:-1]
-    beta = row_mean(x.abs().to(torch.float32))
+    beta = rows.row_mean(x.abs().to(torch.float32))
     if x.dtype not in (torch.bfloat16, torch.float32):
         x = x.to(torch.float32)
     x2 = x.reshape(-1, m).contiguous()

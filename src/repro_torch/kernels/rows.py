@@ -1,12 +1,26 @@
-"""The 16-row block loop of the port's row helpers, and its trip count
-under a step analysis.
+"""The row policy: every per-row product and reduction runs in calls
+whose shape does not depend on how many rows share them.
 
-``flash_attention.rowblock_matmul`` and ``models.layers.lane_blocks`` pad
-their rows to whole blocks of 16 and run one call per block
-(:func:`row_blocks`), so that a row's bits do not depend on how many rows
-share the call. Traced whole, a 65,536-row product is 4,096 calls. Under
-an active ``launch.hlo_analysis.StepAnalysis`` (``ACTIVE``, set by
-``hlo_analysis.analysing``) the same loop is counted the way the
+A GEMM or a reduction picks its algorithm by shape (a CPU GEMM takes
+another path for a handful of rows, a CUDA one by M and batch count;
+CUDA's reduction lays out fewer than :data:`MEAN_ROWS` rows another
+way), so a row's bits could depend on the row count. Serving needs them
+not to: 8 slots == alone, a grafted continuation == the full prefill, a
+replayed decode graph == the eager step. So:
+
+* products run in blocks of :data:`ROWS` rows, one call per block
+  (:func:`blocks`, :func:`matmul`), aligned to a row's absolute position
+  where a continuation needs it;
+* row means and sums pad their calls to :data:`MEAN_ROWS` rows
+  (:func:`row_mean`, :func:`row_sum`);
+* a prefill inside :func:`sequence_products` (a config with
+  ``prefill_per_sequence``: a stack never continued from a cached
+  prefix, whose prompt rows need not equal a continuation's) takes one
+  product per sequence at the sites that call :func:`by_sequence`.
+
+Traced whole, a 65,536-row product is 4,096 calls. Under an active
+``launch.hlo_analysis.StepAnalysis`` (``ACTIVE``, set by
+``hlo_analysis.analysing``) the block loop is counted the way the
 reference's ``known_trip_count`` counts one:
 
 * plain tensors: one block is traced inside ``repeat(n)`` and the other
@@ -24,13 +38,24 @@ module-level ``None`` check.
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+
 import torch
 import torch.nn.functional as F
+from torch import nn
 
-ROWS = 16  # rows per block (flash_attention.ROW_BLOCK)
+ROWS = 16  # rows per product call
+# CUDA's reduction kernel lays out fewer rows than this differently (a
+# wider block, another summation tree); smaller calls are padded to it
+MEAN_ROWS = 16
+# the types that are not a mesh's DTensors
+PLAIN = (torch.Tensor, nn.Parameter)
 
 # the active StepAnalysis, or None
 ACTIVE = None
+# whether this thread runs inside sequence_products
+_MODE = threading.local()
 
 
 def is_sharded(*ts) -> bool:
@@ -110,8 +135,7 @@ def _pad(t: torch.Tensor, dim: int, front: int, back: int) -> torch.Tensor:
     return F.pad(t, (0, 0) * (t.ndim - 1 - dim % t.ndim) + (front, back))
 
 
-def row_blocks(fn, blocked: tuple, shared: tuple = (), *, dim: int,
-               front: int = 0) -> torch.Tensor:
+def blocks(fn, blocked: tuple, shared: tuple = (), *, dim: int, front: int = 0) -> torch.Tensor:
     """``fn(*blocks, *shared)`` over ``ROWS``-row blocks of the
     ``blocked`` tensors along ``dim``, ``shared`` passed whole to every
     call: the rows are zero-padded by ``front`` before row 0 and to a
@@ -147,3 +171,86 @@ def checkpoint_kw() -> dict:
         return {}
     an = ACTIVE
     return {"context_fn": lambda: (an.discard(), an.recompute())}
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, first_row: int = 0) -> torch.Tensor:
+    """``a @ b`` with every product call of one shape, whatever the row
+    count: a (..., M, K) x (..., K, N) runs in blocks of :data:`ROWS`
+    rows of M, aligned to absolute row ``first_row + i``, one batched
+    call per block; a weight ``b`` (K, N) takes ``a``'s leading dims
+    flattened into the rows, so each call is (ROWS, K) x (K, N) (a
+    batched (B, ROWS, K) call may take another GEMM path). A row's bits
+    then depend neither on the batch nor on how many rows share the
+    product: a continuation's rows equal the full pass's, a lane's its
+    solo run's."""
+    if b.ndim == 2 and a.ndim > 2:
+        out = matmul(a.reshape(-1, a.shape[-1]), b, first_row)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return blocks(lambda a, b: torch.matmul(a.contiguous(), b), (a,), (b,),
+                  dim=-2, front=first_row % ROWS)
+
+
+def _row_reduce(x: torch.Tensor, reduce) -> torch.Tensor:
+    if ACTIVE is not None and is_sharded(x):  # a step analysis: no flattening
+        return reduce(x).unsqueeze(-1)         # of a sharded dim
+    x2 = x.reshape(-1, x.shape[-1])
+    rows = x2.shape[0]
+    if rows < MEAN_ROWS:
+        x2 = F.pad(x2, (0, 0, 0, MEAN_ROWS - rows))
+    return reduce(x2)[:rows].reshape(*x.shape[:-1], 1)
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim, keepdim, with per-row arithmetic that does
+    not depend on the number of rows in the call: a decode tick of 8
+    lanes, one request alone, a 1-token continuation and a full prefill
+    give each row the same bits (the CPU reduction has the property
+    already, and padding leaves it so)."""
+    return _row_reduce(x, lambda x2: x2.mean(dim=-1))
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim, keepdim, padded as :func:`row_mean` is."""
+    return _row_reduce(x, lambda x2: x2.sum(dim=-1))
+
+
+@contextmanager
+def sequence_products(on: bool = True):
+    """Inside, :func:`by_sequence` runs each whole sequence's products as
+    one product per sequence. ``lm.prefill`` enters it for a config with
+    ``prefill_per_sequence``; a decode step, a continuation and a
+    training forward never run inside it."""
+    prev = getattr(_MODE, "on", False)
+    _MODE.on = on
+    try:
+        yield
+    finally:
+        _MODE.on = prev
+
+
+def per_sequence(*ts: torch.Tensor) -> bool:
+    """Whether products of ``ts`` take one product per sequence: inside
+    :func:`sequence_products`, on plain tensors only (a mesh's DTensors
+    keep their row blocks)."""
+    return getattr(_MODE, "on", False) and all(type(t) in PLAIN for t in ts)
+
+
+def by_sequence(fn, split: tuple, shared: tuple = (), *, blocked) -> torch.Tensor:
+    """The one product site that reads the mode: ``fn(*parts, *shared)``
+    once per sequence (dim 0) of the ``split`` tensors, joined on dim 0
+    (one sequence: ``fn`` on it whole), where :func:`per_sequence` says
+    so, so a row's bits depend on its own sequence only and a long prompt
+    costs one launch a product; else ``blocked(*split, *shared)``, the
+    row-blocked form."""
+    if not per_sequence(*split, *shared):
+        return blocked(*split, *shared)
+    if split[0].shape[0] == 1:
+        return fn(*split, *shared)
+    return torch.cat([fn(*parts, *shared) for parts in zip(*(t.split(1) for t in split))])
+
+
+def seq_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (B, S, K) and a weight w (K, N) as
+    :func:`by_sequence` takes it: :func:`matmul`'s blocks of the flattened
+    rows, or one product per sequence."""
+    return by_sequence(torch.matmul, (x,), (w,), blocked=matmul)

@@ -44,15 +44,15 @@ more on fake tensors of the global shape for its output's metadata.
 Trip counts (the reference's ``known_trip_count``): a loop of identical
 iterations is traced once and counted times its trip count. The
 depth is handled by ``steps.trace_cell`` (two and three repeats of the
-layer pattern, extrapolated linearly); the 16-row block loops of the
-port's row helpers (``kernels.flash_attention.rowblock_matmul``,
-``models.layers.lane_blocks``) check ``kernels.trips.ACTIVE`` and, under an
-analysis, trace one block inside :meth:`StepAnalysis.repeat` and build
-the rest as uncounted empties (:meth:`StepAnalysis.uncounted`). Those
-helpers pad to whole blocks so that a row's bits do not depend on the
-row count; the padding rows are not work the step needs, so inside a
-block the products' FLOPs are split by :meth:`StepAnalysis.rows` into
-the real rows' (``flops``) and the padding's (``row_pad_flops``).
+layer pattern, extrapolated linearly); the 16-row block loop of the
+port's row policy (``kernels.rows.blocks``) checks ``kernels.rows.ACTIVE``
+and, under an analysis, traces one block inside
+:meth:`StepAnalysis.repeat` and builds the rest as uncounted empties
+(:meth:`StepAnalysis.uncounted`). The rows are padded to whole blocks
+so that a row's bits do not depend on the row count; the padding rows
+are not work the step needs, so inside a block the products' FLOPs are
+split by :meth:`StepAnalysis.rows` into the real rows' (``flops``) and
+the padding's (``row_pad_flops``).
 
 :func:`analyze_trace` gives the reference's record keys. It has no
 ``xla_cost_flops_tripblind``: that is XLA's own trip-blind
@@ -82,7 +82,7 @@ from torch.distributed.tensor import DTensor
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.kernels import trips
+from repro_torch.kernels import rows
 
 # H100 SXM5 80GB HBM3, 700 W (NVIDIA H100 datasheet)
 PEAK_FLOPS = 989e12      # bf16 dense FLOP/s
@@ -561,14 +561,14 @@ class StepAnalysis(TorchDispatchMode):
 @contextlib.contextmanager
 def analysing(analysis: StepAnalysis):
     """Enter ``analysis`` and make it the one the row helpers see
-    (``kernels.trips.ACTIVE``)."""
-    prev = trips.ACTIVE
-    trips.ACTIVE = analysis
+    (``kernels.rows.ACTIVE``)."""
+    prev = rows.ACTIVE
+    rows.ACTIVE = analysis
     try:
         with analysis:
             yield analysis
     finally:
-        trips.ACTIVE = prev
+        rows.ACTIVE = prev
 
 
 def roofline_terms(flops_per_dev: float, bytes_per_dev: float,

@@ -85,10 +85,10 @@ class ModelConfig:
     moe_impl: Literal["pjit", "ep_shard_map"] = "pjit"
     remat: bool = True
     # a serving prefill runs each whole sequence's products as one product
-    # per sequence instead of ROW_BLOCK-row ones (layers.sequence_products):
-    # a long prompt then costs one launch a product. Only for a stack that
-    # is never continued from a cached prefix (one with a non-attention
-    # mixer), whose prompt rows need not equal a continuation's.
+    # per sequence instead of 16-row ones (kernels/rows.py): a long prompt
+    # then costs one launch a product. Only for a stack that is never
+    # continued from a cached prefix (one with a non-attention mixer),
+    # whose prompt rows need not equal a continuation's.
     prefill_per_sequence: bool = False
 
     def __post_init__(self):

@@ -15,8 +15,6 @@ from __future__ import annotations
 
 import functools
 import math
-import threading
-from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -25,9 +23,8 @@ from torch import nn
 from repro_torch import obs
 from repro_torch.core import bnn
 from repro_torch.core.engine import PreparedWeights
-from repro_torch.kernels.flash_attention import ROW_BLOCK, flash_attention, rowblock_matmul
-from repro_torch.kernels import trips
-from repro_torch.kernels.ops import row_mean
+from repro_torch.kernels import rows
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
 
 ACT_DTYPE = torch.bfloat16
@@ -156,7 +153,7 @@ class FFN(nn.Module):
 # Placement on a sharded mesh (DTensors; identity for plain tensors)
 # ---------------------------------------------------------------------------
 
-_PLAIN = (torch.Tensor, nn.Parameter)
+_PLAIN = rows.PLAIN
 
 
 def gathered(w: torch.Tensor, axis: str = "dp") -> torch.Tensor:
@@ -224,7 +221,7 @@ def merge_heads(x: torch.Tensor, b: int, s: int, width: int) -> torch.Tensor:
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.to(torch.float32)
-    var = row_mean(xf * xf)
+    var = rows.row_mean(xf * xf)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
@@ -245,17 +242,17 @@ class _RMSNorm(torch.autograd.Function):
         x, scale = ctx.saved_tensors
         xf = x.to(torch.float32)
         gf = g.to(torch.float32)
-        inv = torch.rsqrt(row_mean(xf * xf) + ctx.eps)
+        inv = torch.rsqrt(rows.row_mean(xf * xf) + ctx.eps)
         xhat = xf * inv
         d_scale = (gf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
         gs = gf * scale.to(torch.float32)
-        dx = inv * (gs - xhat * row_mean(gs * xhat))
+        dx = inv * (gs - xhat * rows.row_mean(gs * xhat))
         return dx.to(x.dtype), d_scale.to(scale.dtype), None
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm in fp32, returned in ``x``'s dtype. The mean's per-row
-    arithmetic does not depend on the row count (:func:`row_mean`). With
+    arithmetic does not depend on the row count (``rows.row_mean``). With
     grad enabled and an input that requires it, the backward is the
     reference's hand-written one (:class:`_RMSNorm`)."""
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
@@ -322,7 +319,7 @@ def dense(p: BitLinear, x: torch.Tensor, quant: str = "none", engine=None) -> to
         if pw is not None and getattr(engine, "supports_fused_dense", False):
             out = engine.fused_dense(x, pw, p.alpha).to(ACT_DTYPE)
         else:
-            beta = row_mean(_abs(x).to(torch.float32))
+            beta = rows.row_mean(_abs(x).to(torch.float32))
             xb = bnn.binarize_ste(x.to(torch.float32))
             if pw is not None:
                 alpha = p.alpha
@@ -427,7 +424,6 @@ def multi_head_attention(
     chunk: int,
     impl: str = "jnp",
     scale: float | None = None,
-    per_sequence: bool = False,
 ) -> torch.Tensor:
     """Chunked online-softmax attention with fp32 statistics; the logits
     are scaled by ``scale`` (``None``: ``1 / sqrt(D)``).
@@ -436,7 +432,7 @@ def multi_head_attention(
     (B, Sq, H, D) in q's dtype. The probabilities and values of each
     chunk round to bf16 before an fp32 contraction, as the reference's
     bf16 einsum with fp32 accumulation does. Both contractions run in
-    blocks of 16 query rows (``rowblock_matmul``) aligned to row
+    blocks of 16 query rows (``rows.matmul``) aligned to row
     ``Skv - Sq``. In self-attention the queries are the last Sq of the
     Skv positions, so that is their absolute position and a row's result
     does not depend on Sq: a prefix-grafted continuation equals the full
@@ -444,9 +440,9 @@ def multi_head_attention(
     over encoder frames, so ``Skv - Sq`` is only an offset (negative for
     a prompt longer than the source; the blocks are whole either way):
     the products are exact as always, and no row-count invariant is
-    asked of them, since an enc-dec prompt is never continued. With
-    ``per_sequence`` (a prefill inside :func:`sequence_products`) each
-    sequence's contractions are one product each instead.
+    asked of them, since an enc-dec prompt is never continued. A prefill
+    inside ``rows.sequence_products`` takes them one product per
+    sequence instead (``rows.by_sequence``).
 
     When ``Skv`` is not a multiple of ``chunk`` the keys are padded and
     masked by position, which turns on the causal mask for the real keys
@@ -499,9 +495,8 @@ def multi_head_attention(
     qf = q.to(torch.float32).transpose(1, 2)  # (B, H, Sq, D)
 
     def products(x, y):
-        if per_sequence:
-            return torch.cat([torch.matmul(a, b) for a, b in zip(x.split(1), y.split(1))])
-        return rowblock_matmul(x, y, first_row)
+        return rows.by_sequence(torch.matmul, (x, y),
+                                 blocked=lambda x, y: rows.matmul(x, y, first_row))
 
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
@@ -539,64 +534,6 @@ def _expand_heads(t: torch.Tensor, head_map: torch.Tensor, g: int) -> torch.Tens
     return hinted(t, "dp", None, "model", None)
 
 
-def lane_blocks(fn, *ts: torch.Tensor) -> torch.Tensor:
-    """``fn(*ts)`` computed on blocks of ``ROW_BLOCK`` lanes along dim 0
-    (the last block zero-padded), so every call has one shape whatever
-    the lane count: a library op picks its algorithm by shape, and a
-    lane's result must not depend on how many slots share the tick
-    (batched == solo). ``fn`` keeps lanes apart and returns them on
-    dim 0."""
-    return trips.row_blocks(fn, ts, dim=0)
-
-
-def row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` for x (..., K) and w (K, N) with every product call of
-    shape (``ROW_BLOCK``, K) x (K, N) (``rowblock_matmul`` over the
-    flattened rows): a row's bits depend neither on the batch nor on how
-    many lanes share a decode tick."""
-    x2 = x.reshape(-1, x.shape[-1])
-    return rowblock_matmul(x2, w, 0).reshape(*x.shape[:-1], w.shape[-1])
-
-
-_SEQ = threading.local()
-
-
-@contextmanager
-def sequence_products(on: bool = True):
-    """Inside, :func:`seq_matmul` (and :func:`per_sequence`) run each
-    whole sequence's products as one product per sequence. ``lm.prefill``
-    enters it for a config with ``prefill_per_sequence``: a stack that is
-    never continued from a cached prefix, whose prompt rows need not equal
-    a continuation's. A decode step, a continuation and a training
-    forward never run inside it."""
-    prev = getattr(_SEQ, "on", False)
-    _SEQ.on = on
-    try:
-        yield
-    finally:
-        _SEQ.on = prev
-
-
-def per_sequence(x: torch.Tensor) -> bool:
-    """Whether the whole sequences ``x`` (B, S, K) take one product per
-    sequence: inside :func:`sequence_products`, plain tensors only (a
-    mesh's DTensors keep their row blocks)."""
-    return getattr(_SEQ, "on", False) and type(x) in _PLAIN
-
-
-def seq_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` for x (..., K) and w (K, N): inside
-    :func:`sequence_products`, one product per sequence of x (B, S, K),
-    so a row's bits depend on its own sequence and on nothing the batch
-    shares with it, and a long prompt costs one launch; elsewhere
-    :func:`row_matmul`."""
-    if not (per_sequence(x) and type(w) in _PLAIN):
-        return row_matmul(x, w)
-    if x.shape[0] == 1:
-        return torch.matmul(x, w)
-    return torch.cat([torch.matmul(xs, w) for xs in x.split(1)])
-
-
 def decode_attention(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: torch.Tensor,
     scale: float | None = None,
@@ -607,15 +544,15 @@ def decode_attention(
     contracts (the reference's order, which rounds differently from the
     prefill path).
 
-    The lanes run in blocks of ``ROW_BLOCK`` (the last one padded), so
+    The lanes run in blocks of ``rows.ROWS`` (the last one padded), so
     every product has one shape whatever the lane count: a GEMM picks
     its algorithm by shape, and a lane's result must not depend on how
     many slots share the tick (batched == solo). On a mesh the query's
     heads are gathered: the grouped view splits them by KV head, and the
     cache's time axis holds the model axis."""
     q = hinted(q, "dp", None, None, None, force=True)
-    return lane_blocks(functools.partial(_decode_block, scale=scale), q, k_cache, v_cache,
-                       cache_len)
+    return rows.blocks(functools.partial(_decode_block, scale=scale),
+                       (q, k_cache, v_cache, cache_len), dim=0)
 
 
 def _decode_block(q, k_cache, v_cache, cache_len, scale=None):
@@ -651,7 +588,7 @@ def attention_block(
     v = split_heads(qkv[2], b, s, cfg.n_kv_heads, hd)
     out = multi_head_attention(
         q, k, v, positions, positions, causal=causal, chunk=cfg.attn_chunk,
-        impl=cfg.attn_impl, scale=_scale(cfg), per_sequence=per_sequence(x),
+        impl=cfg.attn_impl, scale=_scale(cfg),
     )
     out = hinted(out, "dp", None, "model", None)
     out = dense(attn.o, merge_heads(out, b, s, cfg.n_heads * hd), quant, engine)

@@ -33,8 +33,7 @@ from repro_torch import obs
 from repro_torch import tree as tree_lib
 from repro_torch.core import bnn
 from repro_torch.device import resolve_device
-from repro_torch.kernels import trips
-from repro_torch.kernels.flash_attention import rowblock_matmul
+from repro_torch.kernels import rows
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
@@ -54,7 +53,6 @@ from repro_torch.models.layers import (
     hinted,
     infer_engine,
     rms_norm,
-    sequence_products,
 )
 from repro_torch.models.scan import remat_scan
 
@@ -390,7 +388,7 @@ def lm_loss(model: LM, hidden: torch.Tensor, targets: torch.Tensor, cfg: ModelCo
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(0, hidden.shape[1], ck):
         n, t = checkpoint(_loss_chunk, hidden[:, c : c + ck], targets[:, c : c + ck], w, cfg,
-                          use_reentrant=False, preserve_rng_state=False, **trips.checkpoint_kw())
+                          use_reentrant=False, preserve_rng_state=False, **rows.checkpoint_kw())
         n_tok = n_tok + n
         total = total + t
     return total / torch.clamp_min(n_tok, 1.0)
@@ -583,12 +581,12 @@ def _logit_scaled(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _logits(model: LM, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Last-position fp32 logits, inside the ``lm.head`` profiler range.
-    The head runs in blocks of ``ROW_BLOCK`` rows, so a row's logits do
-    not depend on how many sequences share the call (a GEMM picks its
-    algorithm by shape)."""
+    The head runs in 16-row blocks (``rows.matmul``) in a prefill and a
+    decode step alike, so a row's logits do not depend on how many
+    sequences share the call."""
     with obs.range("lm.head"):
         h = rms_norm(h, model.final_norm, cfg.norm_eps)
-        logits = rowblock_matmul(h[:, -1, :].to(torch.float32), _head_weights(model, cfg), 0)
+        logits = rows.matmul(h[:, -1, :].to(torch.float32), _head_weights(model, cfg))
         return _mask_padded_vocab(_logit_scaled(logits, cfg), cfg)
 
 
@@ -677,7 +675,7 @@ def prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
     cover all of it. ``engine`` overrides ``cfg.bnn_engine`` for the
     binarized projections (serving passes its K-group
     ``GroupedEngine``). With ``cfg.prefill_per_sequence`` the layers run
-    inside ``layers.sequence_products``."""
+    inside ``rows.sequence_products``."""
     tokens = tokens.to(device=model.embed.device, dtype=torch.int64)
     embeds = embed_tokens(model, tokens, cfg)
     if extra_embeds is not None:
@@ -688,7 +686,7 @@ def prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
     eng = engine if engine is not None else infer_engine(cfg)
     n_slots = len(cfg.pattern)
     per_slot: list[dict[str, list[torch.Tensor]]] = [{} for _ in range(n_slots)]
-    with sequence_products(cfg.prefill_per_sequence):
+    with rows.sequence_products(cfg.prefill_per_sequence):
         for layer, blk in enumerate(model.blocks):
             mix, cache = _mix(blk, rms_norm(h, blk.norm1, cfg.norm_eps), positions, cfg, eng)
             for key, t in cache.items():

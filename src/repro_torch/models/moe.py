@@ -17,17 +17,12 @@ unprogrammed model, or one in training): the same bits either way
 (``layers.product_weights``).
 
 Per-row arithmetic does not depend on how many rows share a call, which
-batched == solo serving needs on the card: the router runs in
-``ROW_BLOCK``-row products (``layers.row_matmul``), the softmax sums
-through ``ops.row_sum``, the expert products run one (E, ROW_BLOCK, d)
-batched product per block of buffer rows, and the sums over k are
-unrolled. A prefill inside ``layers.sequence_products`` (a config with
-``prefill_per_sequence``) runs its products one per sequence instead: a
-long prompt costs a few launches, not one per 16 rows; its decode lanes
-keep the row blocks. Top-k is a stable
-descending sort, so ties keep the lower expert index first, as
-``jax.lax.top_k`` does. Kept (expert, slot)
-pairs never collide, so the scatter is a plain index write.
+batched == solo serving needs on the card: the router, the expert and
+the shared expert products and the softmax sums take their rows as
+``kernels/rows.py`` decides, and the sums over k are unrolled. Top-k is
+a stable descending sort, so ties keep the lower expert index first, as
+``jax.lax.top_k`` does. Kept (expert, slot) pairs never collide, so the
+scatter is a plain index write.
 
 The expert-parallel dispatch (``distributed/ep.py``) runs instead under
 a mesh with ``moe_impl="ep_shard_map"`` (``lm``'s MoE residual), as in
@@ -43,16 +38,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import obs
-from repro_torch.kernels.flash_attention import rowblock_matmul
-from repro_torch.kernels.ops import row_sum
+from repro_torch.kernels import rows
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     ACT_DTYPE,
     frozen_parameter,
-    per_sequence,
     product_weights,
     register_resident_,
-    seq_matmul,
 )
 
 
@@ -110,13 +102,13 @@ def _sum_k(t: torch.Tensor) -> torch.Tensor:
 def route(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     """(B, S, d) -> (probs (B, S, E) fp32, gates (B, S, k) fp32, top_idx
     (B, S, k) int64)."""
-    return route_logits(seq_matmul(x.to(torch.float32), p.router), cfg.moe_top_k)
+    return route_logits(rows.seq_matmul(x.to(torch.float32), p.router), cfg.moe_top_k)
 
 
 def route_logits(logits: torch.Tensor, k: int):
     """:func:`route` from the router's fp32 logits (B, S, E)."""
     ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    probs = ex / row_sum(ex)
+    probs = ex / rows.row_sum(ex)
     gates, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, top_idx = gates[..., :k], top_idx[..., :k]
     total = _sum_k(gates.unsqueeze(-1))  # (B, S, 1)
@@ -135,17 +127,20 @@ def slots(top_idx: torch.Tensor, n_experts: int, cap: int):
     return flat_e, slot, slot < cap, onehot
 
 
-def experts(p: MoE, expert_in: torch.Tensor, per_sequence: bool = False) -> torch.Tensor:
+def experts(p: MoE, expert_in: torch.Tensor) -> torch.Tensor:
     """Every expert's SwiGLU over its (B, C) buffer rows: (B, E, C, d)
-    bf16 -> (B, E, C, d) bf16. With ``per_sequence`` each sequence's
-    (E, C, d) buffer takes one batched product (``layers.per_sequence``),
-    else the (E, B C, d) rows take ``ROW_BLOCK``-row ones."""
+    bf16 -> (B, E, C, d) bf16, the (E, B C, d) rows in 16-row blocks, or
+    each sequence's (E, C, d) buffer as one batched product
+    (``rows.by_sequence``)."""
     ws = product_weights(p, MoE.ROUTED, expert_in.dtype, "moe.experts")
-    if per_sequence:
-        return torch.cat([_swiglu(xe, *ws, torch.matmul) for xe in expert_in.split(1)])
+    return rows.by_sequence(lambda xe, *ws: _swiglu(xe, *ws, torch.matmul), (expert_in,), ws,
+                            blocked=_blocked_experts)
+
+
+def _blocked_experts(expert_in: torch.Tensor, *ws: torch.Tensor) -> torch.Tensor:
     b, e, c, d = expert_in.shape
     xe = expert_in.transpose(0, 1).reshape(e, b * c, d)
-    out = _swiglu(xe, *ws, lambda x, w: rowblock_matmul(x, w, 0))
+    out = _swiglu(xe, *ws, rows.matmul)
     return out.reshape(e, b, c, -1).transpose(0, 1)
 
 
@@ -162,8 +157,8 @@ def _swiglu(x, w1, w3, w2, matmul) -> torch.Tensor:
 
 def shared_expert(p: MoE, x: torch.Tensor) -> torch.Tensor:
     """The shared expert's SwiGLU of every row: (B, S, d) bf16 -> (B, S,
-    d) bf16, its products taking the rows as ``layers.seq_matmul`` does."""
-    return _swiglu(x, *product_weights(p, MoE.SHARED, x.dtype, "moe.shared"), seq_matmul)
+    d) bf16 (``rows.seq_matmul``)."""
+    return _swiglu(x, *product_weights(p, MoE.SHARED, x.dtype, "moe.shared"), rows.seq_matmul)
 
 
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
@@ -188,7 +183,7 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, to
         buf = x.new_zeros((b, e, c + 1, d))
         buf[rows, flat_e, torch.where(keep, slot, c)] = x_rep
     with obs.range("moe.experts"):
-        out_e = experts(p, buf[:, :, :c], per_sequence=per_sequence(x))
+        out_e = experts(p, buf[:, :, :c])
 
     if p.has_shared:
         with obs.range("moe.shared"):

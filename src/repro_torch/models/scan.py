@@ -18,12 +18,12 @@ from typing import Any, Callable, Iterable
 
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels import trips
+from repro_torch.kernels import rows
 
 
 def remat_scan(body: Callable[[Any, Any], Any], carry: Any, xs: Iterable) -> Any:
     """``for x in xs: carry = body(carry, x)``, each step checkpointed."""
     for x in xs:
         carry = checkpoint(body, carry, x, use_reentrant=False, preserve_rng_state=False,
-                           **trips.checkpoint_kw())
+                           **rows.checkpoint_kw())
     return carry

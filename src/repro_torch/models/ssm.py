@@ -15,16 +15,11 @@ Shapes: x (B, S, H, P); dt (B, S, H); A (H,); B/C (B, S, G, N), heads
 grouped G | H. Used by ``mamba2-2.7b`` and Jamba's Mamba layers.
 
 Decode keeps each lane's arithmetic independent of the lane count (the
-serving invariants on the card): the projections run in
-``ROW_BLOCK``-row products (``layers.row_matmul``), the conv taps are
-unrolled elementwise sums, and the state contraction runs in blocks of
-``ROW_BLOCK`` lanes (``layers.lane_blocks``). :func:`mamba_step` writes
-the new conv tails and state into the cache it is given, in place, as
-``layers.attention_decode_step`` does for K/V. Inside
-``layers.sequence_products`` (the prefill of a config with
-``prefill_per_sequence``) a whole sequence's projections run one product
-per sequence (``layers.seq_matmul``): a long prompt then costs six
-launches a layer, not six per 16 rows.
+serving invariants on the card): the projections and the state
+contraction take their rows as ``kernels/rows.py`` decides, and the
+conv taps are unrolled elementwise sums. :func:`mamba_step` writes the
+new conv tails and state into the cache it is given, in place, as
+``layers.attention_decode_step`` does for K/V.
 """
 
 from __future__ import annotations
@@ -34,17 +29,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import obs
+from repro_torch.kernels import rows
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     ACT_DTYPE,
     frozen_parameter,
     gathered,
     hinted,
-    lane_blocks,
     product_weights,
     register_resident_,
     rms_norm,
-    seq_matmul,
 )
 
 SSD_CHUNK = 256
@@ -261,7 +255,7 @@ def ssd_step(state, xt, dtt, a, bt, ct):
         from repro_torch.distributed.hints import placed_like
 
         ch = placed_like(ch, new_state, 2)
-    yt = lane_blocks(_state_readout, ch, new_state)
+    yt = rows.blocks(_state_readout, (ch, new_state), dim=0)
     return new_state, yt.to(xt.dtype)
 
 
@@ -287,8 +281,8 @@ def _project(p: Mamba, u: torch.Tensor, name: str) -> torch.Tensor:
         # DTensor, which splits their rows over it, as the reference's
         # compiled prefill and decode do; its training step computes them
         # whole on every model rank, and so does the port's
-        return seq_matmul(u, w)
-    return seq_matmul(u, gathered(w))
+        return rows.seq_matmul(u, w)
+    return rows.seq_matmul(u, gathered(w))
 
 
 def _training(t: torch.Tensor) -> bool:

@@ -24,7 +24,7 @@ from repro.kernels import ref as jax_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch import compiler
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ref, rows
 from repro_torch.models import layers, lm
 from repro_torch.models.config import LayerKind
 from test_torch_generate import ARCHS, op_by_op, pair
@@ -114,18 +114,18 @@ def test_rows_do_not_depend_on_sq(impl):
 
 def test_row_reductions_do_not_depend_on_row_count():
     """The other per-row ops of a serving step: the row mean (RMSNorm,
-    the activation scale) pads calls below ``ops.MEAN_ROWS`` rows, and
+    the activation scale) pads calls below ``rows.MEAN_ROWS`` rows, and
     decode attention runs lanes in fixed blocks, so a row's bits do not
     depend on how many rows share the call (on the card a reduction or
     GEMM picks its layout by shape: without these, a request batched in
     8 slots decoded other tokens than alone)."""
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.normal(size=(40, 96)).astype(np.float32))
-    full = ops.row_mean(x)
+    full = rows.row_mean(x)
     assert full.shape == (40, 1)
     torch.testing.assert_close(full, x.mean(dim=-1, keepdim=True), rtol=1e-6, atol=0)
     for r in range(1, 40):
-        assert torch.equal(ops.row_mean(x[:r]), full[:r]), f"{r} rows"
+        assert torch.equal(rows.row_mean(x[:r]), full[:r]), f"{r} rows"
     q = torch.from_numpy(rng.normal(size=(20, 1, 8, 16)).astype(np.float32)).to(torch.bfloat16)
     kc, vc = (torch.from_numpy(rng.normal(size=(20, 24, 2, 16)).astype(np.float32))
               .to(torch.bfloat16) for _ in range(2))

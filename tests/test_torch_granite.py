@@ -44,14 +44,10 @@ import torch_resident
 from repro_torch import compiler
 from repro_torch.configs import ARCH_IDS, SERVED, get_config, get_smoke_config
 from repro_torch.distributed import ep
+from repro_torch.kernels import rows
+from repro_torch.kernels.rows import per_sequence, seq_matmul, sequence_products
 from repro_torch.models import lm, moe
-from repro_torch.models.layers import (
-    per_sequence,
-    rms_norm,
-    row_matmul,
-    seq_matmul,
-    sequence_products,
-)
+from repro_torch.models.layers import rms_norm
 from repro_torch.serving import Request
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -289,7 +285,7 @@ def test_sequence_products_take_one_product_per_sequence_only_inside_the_context
     x = torch.randn(3, 40, 24, generator=g).to(torch.bfloat16)
     w = torch.randn(24, 8, generator=g).to(torch.bfloat16)
     assert not per_sequence(x)
-    assert torch.equal(seq_matmul(x, w), row_matmul(x, w))
+    assert torch.equal(seq_matmul(x, w), rows.matmul(x, w))
     with sequence_products():
         assert per_sequence(x)
         got = seq_matmul(x, w)
@@ -300,29 +296,66 @@ def test_sequence_products_take_one_product_per_sequence_only_inside_the_context
     assert torch.equal(got, torch.cat([torch.matmul(xs, w) for xs in x.split(1)]))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b", ARCH])
-def test_only_the_flagged_prefill_runs_inside_the_context(arch, monkeypatch):
-    """A prefill takes one product per sequence exactly when its config
-    asks, and a decode step never does."""
-    from repro_torch.models import ssm
+# the product sites that take one product per sequence in a flagged
+# prefill (rows.by_sequence), and those that keep their row blocks
+# everywhere (rows.blocks alone), by the function that owns the site
+MODE_AWARE = ("route", "shared_expert", "experts", "_project", "multi_head_attention")
+MODE_BLIND = ("_logits", "decode_attention", "ssd_step")
 
+
+def _site(frame) -> str:
+    """The innermost caller of a ``rows`` entry that owns a product site
+    (``None``: no listed site)."""
+    while frame is not None and frame.f_code.co_name not in MODE_AWARE + MODE_BLIND:
+        frame = frame.f_back
+    return frame and frame.f_code.co_name
+
+
+@pytest.mark.parametrize("arch, sites", [
+    pytest.param("mamba2-2.7b", None, id="mamba2-2.7b"),
+    pytest.param("jamba-1.5-large-398b", None, id="jamba-1.5-large-398b"),
+    pytest.param(ARCH, None, id=ARCH),
+    pytest.param(ARCH, "mode-aware", id=f"{ARCH}-mode-aware-sites"),
+    pytest.param(ARCH, "mode-blind", id=f"{ARCH}-mode-blind-sites"),
+])
+def test_only_the_flagged_prefill_runs_inside_the_context(arch, sites, monkeypatch):
+    """A prefill takes one product per sequence exactly when its config
+    asks, and a decode step never does. On granite, every mode-aware
+    site takes its products one per sequence in the prefill and in row
+    blocks in a decode step; the head, the decode lanes and the state
+    readout take row blocks in both and never ask the mode."""
     cfg = get_smoke_config(arch)
     model = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    seen = []
+    seen, blocked = [], []
+    by_sequence, blocks = rows.by_sequence, rows.blocks
 
-    def spy(x, w):
-        seen.append(per_sequence(x))
-        return seq_matmul(x, w)
+    def spy(fn, split, shared=(), *, blocked):
+        seen.append((_site(sys._getframe(1)), per_sequence(*split, *shared)))
+        return by_sequence(fn, split, shared, blocked=blocked)
 
-    for mod in (ssm, moe):
-        monkeypatch.setattr(mod, "seq_matmul", spy)
+    def spy_blocks(fn, ts, shared=(), **kw):
+        blocked.append(_site(sys._getframe(1)))
+        return blocks(fn, ts, shared, **kw)
+
+    monkeypatch.setattr(rows, "by_sequence", spy)
+    monkeypatch.setattr(rows, "blocks", spy_blocks)
     ids = _ids(cfg, 1, 8)[None]
     with torch.no_grad():
         lm.prefill(model, ids, cfg)
-        assert seen and set(seen) == {cfg.prefill_per_sequence}
+        prefill = seen[:], blocked[:]
         seen.clear()
+        blocked.clear()
         lm.decode_step(model, ids[:, 0], 0, lm.init_cache(cfg, 1, 16, device="cpu"), cfg)
-    assert seen and not any(seen)
+    assert prefill[0] and set(on for _, on in prefill[0]) == {cfg.prefill_per_sequence}
+    assert seen and not any(on for _, on in seen)
+    if sites == "mode-aware":
+        assert {site for site, _ in prefill[0]} == set(MODE_AWARE)
+        assert not set(MODE_AWARE) & set(prefill[1])
+        assert {site for site, _ in seen} == set(MODE_AWARE) - {"multi_head_attention"}
+    elif sites == "mode-blind":
+        assert set(prefill[1]) == {"_logits"}
+        assert set(blocked) == set(MODE_BLIND) | set(MODE_AWARE) - {"multi_head_attention"}
+        assert not set(MODE_BLIND) & {site for site, _ in prefill[0] + seen}
 
 
 # ---------------------------------------------------------------------------

@@ -251,10 +251,10 @@ def test_kernel_configs_are_refused_by_name():
 
 
 def test_row_helpers_outside_an_analysis_pay_one_check():
-    from repro_torch.kernels import trips
+    from repro_torch.kernels import rows
 
-    assert trips.ACTIVE is None
+    assert rows.ACTIVE is None
     an = H.StepAnalysis()
     with H.analysing(an):
-        assert trips.ACTIVE is an
-    assert trips.ACTIVE is None
+        assert rows.ACTIVE is an
+    assert rows.ACTIVE is None

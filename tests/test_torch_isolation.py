@@ -177,7 +177,7 @@ NEW_MODULES = ("fleet/pool.py", "fleet/replica.py", "fleet/router.py", "kernels/
                "distributed/__init__.py", "distributed/partitioner.py", "distributed/hints.py",
                "distributed/collectives.py", "distributed/compression.py", "distributed/ep.py",
                "distributed/pipeline.py", "launch/mesh.py", "launch/steps.py",
-               "launch/dryrun.py", "launch/hlo_analysis.py", "kernels/trips.py")
+               "launch/dryrun.py", "launch/hlo_analysis.py", "kernels/rows.py")
 
 
 def test_import_scan_covers_the_new_modules():

@@ -11,7 +11,7 @@ than ``--step`` MiB, the largest gap, and the two peaks.
 ``--checks``: what the analysis's hooks cost a serving tick when no
 analysis runs -- the calls per tinyllama-1.1b decode tick (8 slots, a
 128-token cache; ``meta`` tensors, so any host) of the functions that
-hold a module-level ``None`` check (``kernels/trips.py``'s) or a
+hold a module-level ``None`` check (``kernels/rows.py``'s) or a
 plain-tensor type check (``layers.hinted`` and its kin), and each
 check's time by ``timeit`` on this host.
 
@@ -98,8 +98,8 @@ def main(argv=None) -> int:
 
 
 # the functions whose every call pays one module-level None check
-# (trips.ACTIVE) or one plain-tensor type check, by code name
-NONE_CHECKS = ("row_blocks", "_row_reduce", "checkpoint_kw")
+# (rows.ACTIVE) or one plain-tensor type check, by code name
+NONE_CHECKS = ("blocks", "_row_reduce", "checkpoint_kw")
 TYPE_CHECKS = ("hinted", "gathered", "split_heads", "merge_heads", "embed_rows",
                "_expand_heads", "mamba_block")
 
@@ -110,8 +110,8 @@ def checks(smoke: bool) -> int:
     import torch
 
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.kernels import trips
-    from repro_torch.models import layers, lm
+    from repro_torch.kernels import rows
+    from repro_torch.models import lm
 
     cfg = get_smoke_config("tinyllama-1.1b") if smoke else get_config("tinyllama-1.1b")
     b, t = 8, 128
@@ -134,8 +134,8 @@ def checks(smoke: bool) -> int:
     x = torch.empty(4)
     n_none = sum(counts[k] for k in NONE_CHECKS)
     n_type = sum(counts[k] for k in TYPE_CHECKS)
-    t_none = min(timeit.repeat(lambda: trips.ACTIVE is not None, number=100_000, repeat=5)) / 1e5
-    t_type = min(timeit.repeat(lambda: type(x) in layers._PLAIN, number=100_000, repeat=5)) / 1e5
+    t_none = min(timeit.repeat(lambda: rows.ACTIVE is not None, number=100_000, repeat=5)) / 1e5
+    t_type = min(timeit.repeat(lambda: type(x) in rows.PLAIN, number=100_000, repeat=5)) / 1e5
     print(f"{cfg.name} decode tick, {b} slots: {counts}")
     print(f"None checks {n_none} x {t_none * 1e9:.1f} ns, type checks {n_type} x "
           f"{t_type * 1e9:.1f} ns (each with its lambda call): "
